@@ -1,0 +1,200 @@
+"""Hunyuan3D-DiT, the FLUX-style latent-set diffusion transformer (port of
+hunyuan3d2_tpu/models/dit.py).
+
+Modules carry the reference checkpoint's names (double_blocks.N.img_attn.qkv,
+single_blocks.N.linear1, final_layer.adaLN_modulation.1, ...). The block
+stacks run as Python loops where the JAX package scans. The fused qkv layout
+is (3, H, D); joint attention runs over [txt | img] tokens; the timestep
+embedding uses max_period == time_factor == 1000 (reference
+hunyuan3ddit.py:392 passes time_factor positionally into max_period).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from hunyuan3d2_tpu_torch.ops.attention import attention, merge_heads, split_qkv_fused
+from hunyuan3d2_tpu_torch.ops.embeddings import timestep_embedding
+from hunyuan3d2_tpu_torch.ops.nn import Linear, RMSNorm, gelu_tanh, layer_norm, silu
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    in_channels: int = 64
+    context_in_dim: int = 1536
+    hidden_size: int = 1024
+    mlp_ratio: float = 4.0
+    num_heads: int = 16
+    depth: int = 16
+    depth_single_blocks: int = 32
+    qkv_bias: bool = True
+    time_factor: float = 1000.0
+    guidance_embed: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.hidden_size * self.mlp_ratio)
+
+
+MINI = DiTConfig(depth=8, depth_single_blocks=16)
+FULL = DiTConfig(depth=16, depth_single_blocks=32)
+TINY = DiTConfig(hidden_size=128, num_heads=4, depth=2, depth_single_blocks=2,
+                 context_in_dim=1536)
+
+
+class MLPEmbedder(nn.Module):
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.in_layer = Linear(in_dim, hidden)
+        self.out_layer = Linear(hidden, hidden)
+
+    def forward(self, x):
+        return self.out_layer(silu(self.in_layer(x)))
+
+
+class Modulation(nn.Module):
+    def __init__(self, dim: int, n: int):
+        super().__init__()
+        self.n = n
+        self.lin = Linear(dim, n * dim)
+
+    def forward(self, vec):
+        """SiLU → Linear → n chunks of [B, 1, H]."""
+        return self.lin(silu(vec))[:, None, :].chunk(self.n, dim=-1)
+
+
+class QKNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.query_norm = RMSNorm(dim)
+        self.key_norm = RMSNorm(dim)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.qkv = Linear(h, 3 * h, bias=cfg.qkv_bias)
+        self.norm = QKNorm(cfg.head_dim)
+        self.proj = Linear(h, h)
+
+
+def _mlp(cfg: DiTConfig) -> nn.Sequential:
+    # reference names img_mlp.0 / img_mlp.2 (index 1 is the GELU)
+    return nn.Sequential(Linear(cfg.hidden_size, cfg.mlp_hidden), nn.Identity(),
+                         Linear(cfg.mlp_hidden, cfg.hidden_size))
+
+
+class DoubleStreamBlock(nn.Module):
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.num_heads = cfg.num_heads
+        h = cfg.hidden_size
+        self.img_mod = Modulation(h, 6)
+        self.img_attn = SelfAttention(cfg)
+        self.img_mlp = _mlp(cfg)
+        self.txt_mod = Modulation(h, 6)
+        self.txt_attn = SelfAttention(cfg)
+        self.txt_mlp = _mlp(cfg)
+
+    def _qkv(self, attn: SelfAttention, x_mod):
+        q, k, v = split_qkv_fused(attn.qkv(x_mod), self.num_heads)
+        return attn.norm.query_norm(q), attn.norm.key_norm(k), v
+
+    def forward(self, img, txt, vec):
+        im = self.img_mod(vec)
+        tm = self.txt_mod(vec)
+        iq, ik, iv = self._qkv(self.img_attn, (1.0 + im[1]) * layer_norm(img) + im[0])
+        tq, tk, tv = self._qkv(self.txt_attn, (1.0 + tm[1]) * layer_norm(txt) + tm[0])
+        q = torch.cat([tq, iq], dim=2)
+        k = torch.cat([tk, ik], dim=2)
+        v = torch.cat([tv, iv], dim=2)
+        attn = merge_heads(attention(q, k, v))
+        txt_attn, img_attn = attn[:, :txt.shape[1]], attn[:, txt.shape[1]:]
+
+        img = img + im[2] * self.img_attn.proj(img_attn)
+        img = img + im[5] * self.img_mlp[2](
+            gelu_tanh(self.img_mlp[0]((1.0 + im[4]) * layer_norm(img) + im[3])))
+        txt = txt + tm[2] * self.txt_attn.proj(txt_attn)
+        txt = txt + tm[5] * self.txt_mlp[2](
+            gelu_tanh(self.txt_mlp[0]((1.0 + tm[4]) * layer_norm(txt) + tm[3])))
+        return img, txt
+
+
+class SingleStreamBlock(nn.Module):
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.hidden_size, self.num_heads = h, cfg.num_heads
+        self.linear1 = Linear(h, 3 * h + cfg.mlp_hidden)
+        self.linear2 = Linear(h + cfg.mlp_hidden, h)
+        self.norm = QKNorm(cfg.head_dim)
+        self.modulation = Modulation(h, 3)
+
+    def forward(self, x, vec):
+        shift, scale, gate = self.modulation(vec)
+        hcat = self.linear1((1.0 + scale) * layer_norm(x) + shift)
+        qkv, mlp = hcat[..., :3 * self.hidden_size], hcat[..., 3 * self.hidden_size:]
+        q, k, v = split_qkv_fused(qkv, self.num_heads)
+        q, k = self.norm.query_norm(q), self.norm.key_norm(k)
+        attn = merge_heads(attention(q, k, v))
+        return x + gate * self.linear2(torch.cat([attn, gelu_tanh(mlp)], dim=-1))
+
+
+class LastLayer(nn.Module):
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(h, 2 * h))
+        self.linear = Linear(h, cfg.in_channels)
+
+    def forward(self, x, vec):
+        shift, scale = self.adaLN_modulation[1](silu(vec)).chunk(2, dim=-1)
+        return self.linear((1.0 + scale[:, None]) * layer_norm(x) + shift[:, None])
+
+
+class Hunyuan3DDiT(nn.Module):
+    def __init__(self, cfg: DiTConfig = FULL):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.latent_in = Linear(cfg.in_channels, h)
+        self.time_in = MLPEmbedder(256, h)
+        if cfg.guidance_embed:
+            self.guidance_in = MLPEmbedder(256, h)
+        self.cond_in = Linear(cfg.context_in_dim, h)
+        self.double_blocks = nn.ModuleList([DoubleStreamBlock(cfg) for _ in range(cfg.depth)])
+        self.single_blocks = nn.ModuleList(
+            [SingleStreamBlock(cfg) for _ in range(cfg.depth_single_blocks)])
+        self.final_layer = LastLayer(cfg)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, L, in_channels], t [B] in [0, 1], cond [B, Lc, context_in_dim]
+        → velocity [B, L, in_channels] in x.dtype."""
+        cfg = self.cfg
+        cond = cond.to(x.dtype)
+        latent = self.latent_in(x)
+        vec = self.time_in(timestep_embedding(
+            t, 256, max_period=cfg.time_factor, time_factor=cfg.time_factor).to(latent.dtype))
+        if cfg.guidance_embed:
+            if guidance is None:
+                raise ValueError("guidance strength required for a guidance-distilled model")
+            vec = vec + self.guidance_in(timestep_embedding(
+                guidance, 256, max_period=cfg.time_factor,
+                time_factor=cfg.time_factor).to(latent.dtype))
+        cond = self.cond_in(cond)
+        for blk in self.double_blocks:
+            latent, cond = blk(latent, cond, vec)
+        xcat = torch.cat([cond, latent], dim=1)
+        for blk in self.single_blocks:
+            xcat = blk(xcat, vec)
+        return self.final_layer(xcat[:, cond.shape[1]:], vec)

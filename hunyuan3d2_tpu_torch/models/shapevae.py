@@ -1,0 +1,272 @@
+"""ShapeVAE, the decoder-only vector-set VAE (port of
+hunyuan3d2_tpu/models/shapevae.py, the FlashVDM path at <= 1024 latents).
+
+Modules carry the reference checkpoint's names (post_kl,
+transformer.resblocks.N.attn.c_qkv, geo_decoder.cross_attn_decoder.*, ...).
+The latent transformer and the cross-attention K/V run in fp32; the geo
+decoder takes the K/V in bf16. The self-attention qkv layout is interleaved
+per head, (H, 3·hd) — not the DiT's (3, H, D).
+
+On the card every geo-decoder query goes through the fused kernel
+(ops/geo_decoder.py); configs outside its gate run the plain decode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+from torch import nn
+
+from hunyuan3d2_tpu_torch.ops.attention import attention, merge_heads
+from hunyuan3d2_tpu_torch.ops.embeddings import fourier_out_dim
+from hunyuan3d2_tpu_torch.ops.geo_decoder import (
+    decode_queries_plain,
+    fused_geo_decode,
+    fused_geo_supported,
+)
+from hunyuan3d2_tpu_torch.ops.nn import LayerNorm, Linear, build, gelu_exact
+from hunyuan3d2_tpu_torch.utils.logger import get_logger
+
+logger = get_logger("hunyuan3d2_tpu_torch.shapevae")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeVAEConfig:
+    num_latents: int = 512
+    embed_dim: int = 64
+    width: int = 1024
+    heads: int = 16
+    num_decoder_layers: int = 16
+    num_freqs: int = 8
+    include_pi: bool = False
+    scale_factor: float = 1.0188137142395404
+    geo_decoder_mlp_expand_ratio: int = 4
+    out_channels: int = 1
+    qkv_bias: bool = False
+    ln_eps: float = 1e-6
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.heads
+
+
+MINI = ShapeVAEConfig(num_latents=512)
+FULL = ShapeVAEConfig(num_latents=3072)
+TINY = ShapeVAEConfig(num_latents=64, width=128, heads=4, num_decoder_layers=2)
+
+
+class _Module(nn.Module):
+    """Attribute bag for the checkpoint's intermediate name levels."""
+
+
+class MLP(nn.Module):
+    def __init__(self, width: int, hidden: int):
+        super().__init__()
+        self.c_fc = Linear(width, hidden)
+        self.c_proj = Linear(hidden, width)
+
+    def forward(self, x):
+        return self.c_proj(gelu_exact(self.c_fc(x)))
+
+
+def _qk_norms(cfg: ShapeVAEConfig) -> nn.Module:
+    m = _Module()
+    m.q_norm = LayerNorm(cfg.head_dim, cfg.ln_eps)
+    m.k_norm = LayerNorm(cfg.head_dim, cfg.ln_eps)
+    return m
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, cfg: ShapeVAEConfig):
+        super().__init__()
+        w = cfg.width
+        self.cfg = cfg
+        self.ln_1 = LayerNorm(w, cfg.ln_eps)
+        self.attn = _Module()
+        self.attn.c_qkv = Linear(w, 3 * w, bias=cfg.qkv_bias)
+        self.attn.c_proj = Linear(w, w)
+        self.attn.attention = _qk_norms(cfg)
+        self.ln_2 = LayerNorm(w, cfg.ln_eps)
+        self.mlp = MLP(w, 4 * w)
+
+    def forward(self, x):
+        cfg = self.cfg
+        qkv = self.attn.c_qkv(self.ln_1(x))
+        b, l, _ = qkv.shape
+        q, k, v = qkv.reshape(b, l, cfg.heads, 3 * cfg.head_dim).chunk(3, dim=-1)
+        q = self.attn.attention.q_norm(q)
+        k = self.attn.attention.k_norm(k)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        x = x + self.attn.c_proj(merge_heads(attention(q, k, v)))
+        return x + self.mlp(self.ln_2(x))
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ShapeVAEConfig):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            [ResidualAttentionBlock(cfg) for _ in range(cfg.num_decoder_layers)])
+
+
+class CrossAttentionDecoderBlock(nn.Module):
+    def __init__(self, cfg: ShapeVAEConfig):
+        super().__init__()
+        w = cfg.width
+        self.ln_1 = LayerNorm(w, cfg.ln_eps)
+        self.ln_2 = LayerNorm(w, cfg.ln_eps)
+        self.ln_3 = LayerNorm(w, cfg.ln_eps)
+        self.attn = _Module()
+        self.attn.c_q = Linear(w, w, bias=cfg.qkv_bias)
+        self.attn.c_kv = Linear(w, 2 * w, bias=cfg.qkv_bias)
+        self.attn.c_proj = Linear(w, w)
+        self.attn.attention = _qk_norms(cfg)
+        self.mlp = MLP(w, cfg.geo_decoder_mlp_expand_ratio * w)
+
+
+class GeoDecoder(nn.Module):
+    def __init__(self, cfg: ShapeVAEConfig):
+        super().__init__()
+        w = cfg.width
+        self.query_proj = Linear(fourier_out_dim(3, cfg.num_freqs), w)
+        self.cross_attn_decoder = CrossAttentionDecoderBlock(cfg)
+        self.ln_post = LayerNorm(w)
+        self.output_proj = Linear(w, cfg.out_channels)
+
+
+def active_capacity(octree_resolution: int) -> int:
+    """Static budget for compacted active cells (6·R², ~4× a sphere)."""
+    return max(1 << 18, 6 * (octree_resolution + 1) ** 2)
+
+
+def face_capacity(octree_resolution: int) -> int:
+    """Static quad budget of the surface-nets emission (1.5× the cells)."""
+    return (3 * active_capacity(octree_resolution)) // 2
+
+
+class ShapeVAE(nn.Module):
+    """Reference public surface: ``__call__`` (latents → hidden tokens),
+    ``enable_flashvdm_decoder``, ``latents2mesh``."""
+
+    def __init__(self, cfg: ShapeVAEConfig = MINI):
+        super().__init__()
+        self.cfg = cfg
+        self.post_kl = Linear(cfg.embed_dim, cfg.width)
+        self.transformer = Transformer(cfg)
+        self.geo_decoder = GeoDecoder(cfg)
+        self.volume_decoder = None
+
+    @classmethod
+    def init_random(cls, cfg: ShapeVAEConfig = MINI, device=None, generator=None):
+        return build(cls, cfg, device=device, generator=generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.post_kl.weight.device
+
+    # -- the pure pieces ----------------------------------------------------
+    def forward(self, latents: torch.Tensor) -> torch.Tensor:
+        return self.decode_latents(latents)
+
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """[B, L, embed_dim] → [B, L, width] hidden tokens, fp32, including
+        the 1/scale_factor rescale."""
+        x = self.post_kl(latents.float() / self.cfg.scale_factor)
+        for blk in self.transformer.resblocks:
+            x = blk(x)
+        return x
+
+    def compute_kv(self, hidden: torch.Tensor):
+        """hidden [B, L, width] → (k, v) each [B, heads, L, head_dim], k
+        LayerNorm applied, in hidden's dtype."""
+        cfg = self.cfg
+        blk = self.geo_decoder.cross_attn_decoder
+        kv = blk.attn.c_kv(blk.ln_2(hidden))
+        b, l, _ = kv.shape
+        k, v = kv.reshape(b, l, cfg.heads, 2 * cfg.head_dim).chunk(2, dim=-1)
+        k = blk.attn.attention.k_norm(k)
+        return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+    def decode_queries(self, queries: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        """Occupancy logits [B, P] for xyz queries [B, P, 3] (plain decode)."""
+        return decode_queries_plain(self, queries, k, v)
+
+    def query_decoder(self, k: torch.Tensor, v: torch.Tensor):
+        """The FlashVDM decode function at <= 1024 latents: bf16 K/V, the
+        fused kernel where its gate admits the config."""
+        if self.cfg.num_latents > 1024:
+            raise NotImplementedError("the streamed decode for > 1024 latents is not ported")
+        k16, v16 = k.to(torch.bfloat16).contiguous(), v.to(torch.bfloat16).contiguous()
+        if fused_geo_supported(self.cfg):
+            return lambda pts: fused_geo_decode(self, pts.contiguous(), k16, v16)
+        return lambda pts: self.decode_queries(pts, k16, v16).float()
+
+    # -- FlashVDM decode and meshing -----------------------------------------
+    def enable_flashvdm_decoder(self, enabled: bool = True, mc_algo: str = "dmc"):
+        """The FlashVDM block-sparse decoder with the on-device surface nets
+        (the only decoder and extractor ported)."""
+        from hunyuan3d2_tpu_torch.volume import decoders, surface
+
+        if not enabled:
+            raise NotImplementedError("only the FlashVDM decoder is ported")
+        if mc_algo not in surface.SurfaceExtractors:
+            raise ValueError(f"Unsupported mc_algo {mc_algo}, available: "
+                             f"{list(surface.SurfaceExtractors)}")
+        self.volume_decoder = decoders.FlashVDMVolumeDecoding()
+
+    def decode_grid(self, latents: torch.Tensor, octree_resolution: int = 384,
+                    num_chunks: int = 65536, box_v: float = 1.01,
+                    mc_level: float = 0.0) -> torch.Tensor:
+        """latents [1, L, C] → dense logit grid [1, R, R, R] fp32."""
+        dec = self._flashvdm()
+        k, v = self.compute_kv(self.decode_latents(latents))
+        return dec(self.query_decoder(k, v), batch_size=1, octree_resolution=octree_resolution,
+                   num_chunks=num_chunks, box_v=box_v, mc_level=mc_level, device=self.device)
+
+    def _flashvdm(self):
+        from hunyuan3d2_tpu_torch.volume import decoders
+
+        if not isinstance(self.volume_decoder, decoders.FlashVDMVolumeDecoding):
+            raise RuntimeError("call enable_flashvdm_decoder() first: only the FlashVDM "
+                               "decoder is ported")
+        return self.volume_decoder
+
+    def latents2mesh(self, latents: torch.Tensor, octree_resolution: int = 384,
+                     mc_level: float = 0.0, num_chunks: int = 65536, box_v: float = 1.01):
+        """latents [B, L, C] → [Latent2MeshOutput] per item, through the
+        block-sparse decode and the on-device surface nets.
+
+        Random weights decode a noise field whose surface overflows the
+        fixed buffers; with HY3D_CAP_ACTIVES=1 the truncated buffers are kept
+        (a capped mesh), otherwise an overflow raises."""
+        from hunyuan3d2_tpu_torch.volume import decoders
+        from hunyuan3d2_tpu_torch.volume.surface import Latent2MeshOutput
+
+        if latents.shape[0] > 1:
+            return [m for i in range(latents.shape[0]) for m in self.latents2mesh(
+                latents[i:i + 1], octree_resolution, mc_level, num_chunks, box_v)]
+        grid = self.decode_grid(latents, octree_resolution, num_chunks, box_v, mc_level)
+        verts, quads, nq, count, ok = decoders.surface_nets_from_grid(
+            grid, mc_level, box_v, active_capacity(octree_resolution),
+            face_capacity(octree_resolution))
+        nq, count, ok = int(nq), int(count), bool(ok)
+        if not ok:
+            if os.environ.get("HY3D_CAP_ACTIVES", "0") != "1":
+                raise RuntimeError(
+                    f"surface overflow ({count} active cells / {nq} quads for buffers of "
+                    f"{verts.shape[0]} / {quads.shape[0]}); set HY3D_CAP_ACTIVES=1 to keep "
+                    "the capped mesh (the host-assembled fallback is not ported)")
+            logger.warning("surface overflow (%d actives / %d quads): capping to device "
+                           "buffers %d/%d (HY3D_CAP_ACTIVES)", count, nq, verts.shape[0],
+                           quads.shape[0])
+            count = min(count, int(verts.shape[0]))
+            nq = min(nq, int(quads.shape[0]))
+        q = quads[:nq].cpu().numpy()
+        if not ok:
+            # stage-A overflow can leave unreferenced pad rows below the
+            # capacity: trim to the last referenced vertex
+            count = min(count, int(q.max()) + 1 if q.size else 0)
+        v = verts[:count].cpu().numpy().astype(np.float32)
+        return [Latent2MeshOutput(v, decoders.quads_to_tris(q).astype(np.int32))]

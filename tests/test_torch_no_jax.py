@@ -1,0 +1,57 @@
+"""The port stands alone: importing hunyuan3d2_tpu_torch and running it
+pulls in neither jax nor the JAX package (whose __init__ imports jax)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import sys
+import numpy as np
+import torch
+from PIL import Image
+
+import hunyuan3d2_tpu_torch
+from hunyuan3d2_tpu_torch.ops import attention, flash_attention, geo_decoder
+from hunyuan3d2_tpu_torch.io import convert
+from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
+from hunyuan3d2_tpu_torch.utils import cuda_build
+
+pipe = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="tiny", dino="tiny", device="cpu")
+pipe.enable_flashvdm(mc_algo="dmc")
+img = np.zeros((32, 32, 4), np.uint8)
+img[8:24, 8:24] = 200
+mesh = pipe(Image.fromarray(img), num_inference_steps=1, octree_resolution=16)[0]
+assert mesh.vertices.shape[1] == 3
+bad = sorted(m for m in sys.modules if m in ("jax", "hunyuan3d2_tpu")
+             or m.startswith(("jax.", "jaxlib", "hunyuan3d2_tpu.")))
+print("FORBIDDEN", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "FORBIDDEN []" in res.stdout, res.stdout
+
+
+def test_port_sources_name_no_jax():
+    """No module of the port (nor chip_smoke.py) imports jax or the JAX
+    package, even inside a function."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|hunyuan3d2_tpu)(\.|\s|$)", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "hunyuan3d2_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    offenders = []
+    for f in files:
+        with open(f) as fh:
+            if pat.search(fh.read()):
+                offenders.append(os.path.relpath(f, ROOT))
+    assert not offenders, offenders
