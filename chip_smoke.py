@@ -6,20 +6,33 @@
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel from csrc/ (one nvcc per source, in parallel);
-  3. each kernel against its plain PyTorch twin at the shapes of the main
-     path, with its time, the plain time, the time of one library call where
-     one computes the same function, and its bound on the card;
-  4. the main path at full width: image → mesh with DINOv2-giant, the mini
-     DiT (5 steps, CFG 5.0) and the mini ShapeVAE (FlashVDM decode at octree
-     256, capped surface buffers), random weights from a seed, run cold and
-     warm; each kernel's launch count is read from the warm run, and the
-     GLB is written under tmp/;
-  5. a check of the main path's decode against the plain decode on a small
-     grid;
-  6. a JSON line with every kernel's numbers, then the result line.
+  3. each kernel against its plain PyTorch twin at the shapes of the two
+     paths, with its time, the plain time, the time of one library call
+     where one computes the same function, and its bound on the card: flash
+     attention (DINOv2, DiT, VAE and the paint UNet's shapes), the fused geo
+     decoder, the masked flash attention under voxel masks built from the
+     test sphere's cond maps, and the rasterizer on that sphere (a 512² view
+     and the 2048² UV raster);
+  4. slice 1 at full width: image → mesh with DINOv2-giant, the mini DiT
+     (5 steps, CFG 5.0) and the mini ShapeVAE (FlashVDM decode at octree 256,
+     capped surface buffers), random weights from a seed, run cold and warm;
+     the kernels' launch counts are read from the warm run, and the GLB is
+     written under tmp/; then the decode against the plain decode on a small
+     grid; then the stack is freed;
+  5. slice 2 at full width: mesh + image → textured GLB through the
+     paint-turbo stack (2.5D UNet DEFAULT with its dual copy, SD VAE DEFAULT,
+     6 views at 512², LCM 10 steps, render 2048, texture 2048, bake exponent
+     4), random weights from a seed, on a ~40k-face sphere from the port's
+     surface nets, run cold and warm; stage times, launch counts and peak
+     memory; the textured GLB is written under tmp/ and read back;
+  6. slice 2 at a small size on the card against the same stack on the CPU
+     (plain twins), with the same weights and noise, at a head size and
+     sequence lengths that send the UNet through both attention kernels;
+  7. a JSON line with every kernel's numbers, then the result line.
 Without a CUDA device it exits 1 and prints no result.
 """
 
+import gc
 import json
 import math
 import os
@@ -30,6 +43,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 without tensor cores
+VIEWS = [(0, 0), (0, 90), (0, 180), (0, 270), (90, 0), (-90, 180)]   # (elev, azim)
 
 
 def log(msg):
@@ -62,6 +76,28 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def attention_check(name, out, ref, tol):
+    """An attention kernel's output against its plain twin's. bf16 rows are
+    held to two bf16 ulps at the largest output value (2^-6 of it), and to at
+    most ``tol``: the output's scale falls as 1/sqrt(Lk) under random
+    inputs, so a fixed absolute tolerance would pass a dropped key tile at
+    long Lk. The relative RMS error must stay within 1e-2, which dropping one
+    64-key tile exceeds (by about sqrt(64/Lk): 5 % at Lk = 24576).
+    Returns (max abs err, max rel err, relative RMS err, the tolerance)."""
+    import torch
+
+    check(torch.isfinite(out).all().item(), f"{name}: non-finite output")
+    diff = out.float() - ref.float()
+    ref_max = ref.float().abs().max().item()
+    if out.dtype == torch.bfloat16:
+        tol = min(tol, 2.0 ** -6 * ref_max)
+    err = diff.abs().max().item()
+    rms = (diff.norm() / ref.float().norm()).item()
+    check(err <= tol and rms <= 1e-2,
+          f"{name}: max abs err {err} (tol {tol}), relative RMS err {rms} (tol 1e-2)")
+    return err, err / ref_max, rms, tol
+
+
 def bound(flops, nbytes, kind):
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -75,33 +111,43 @@ def flash_phase(gen):
     from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     rows = []
-    # (name, shape, dtype, tolerance on max |kernel - plain|): bf16 output is
-    # rounded once (ulp 2^-8 at 1) and P is rounded before P.V in both, at
-    # other block boundaries; fp32 differs only in summation order
-    for name, shape, dt, tol in (("dinov2", (1, 24, 1370, 64), torch.bfloat16, 2e-2),
-                                 ("dit", (2, 16, 1882, 64), torch.bfloat16, 2e-2),
-                                 ("vae", (1, 16, 512, 64), torch.float32, 1e-4)):
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3))
+    # (name, (B, H, Lq, Lk, D), dtype, ceiling on max |kernel - plain|, see
+    # attention_check): bf16 output is rounded once and P is rounded before
+    # P.V in both, at other block boundaries; fp32 differs only in summation
+    # order. The paint rows are the UNet's multiview attention at 64² latents
+    # (6 views), its reference attention and its cross-attention (77 keys).
+    for name, (b, h, lq, lk, d), dt, tol in (
+            ("dinov2", (1, 24, 1370, 1370, 64), torch.bfloat16, 2e-2),
+            ("dit", (2, 16, 1882, 1882, 64), torch.bfloat16, 2e-2),
+            ("vae", (1, 16, 512, 512, 64), torch.float32, 1e-4),
+            ("paint multiview", (1, 5, 24576, 24576, 64), torch.bfloat16, 2e-2),
+            ("paint reference", (6, 5, 4096, 4096, 64), torch.bfloat16, 2e-2),
+            ("paint cross", (6, 5, 4096, 77, 64), torch.bfloat16, 2e-2)):
+        q = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+
+        def plain():  # row chunks of 4096 queries keep the fp32 scores in memory
+            return torch.cat([flash_attention_plain(q[:, :, i:i + 4096], k, v)
+                              for i in range(0, lq, 4096)], dim=2)
+
         out = flash_attention(q, k, v)
-        ref = flash_attention_plain(q, k, v)
+        ref = plain()
         torch.cuda.synchronize()
-        check(torch.isfinite(out).all().item(), f"flash_attention {name}: non-finite output")
-        err = (out.float() - ref.float()).abs().max().item()
-        rel = err / ref.float().abs().max().item()
-        check(err <= tol, f"flash_attention {name}: max abs err {err} > {tol}")
-        scale = shape[-1] ** -0.5
+        err, rel, rms, tol = attention_check(f"flash_attention {name}", out, ref, tol)
+        scale = d ** -0.5
         ms = time_ms(lambda: flash_attention(q, k, v), 20)
-        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), 5)
+        plain_ms = time_ms(plain, 3)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
-        b, h, l, d = shape
-        flops = 4.0 * b * h * l * l * d
-        nbytes = 4 * q.numel() * q.element_size()
+        flops = 4.0 * b * h * lq * lk * d
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         bound_ms, by = bound(flops, nbytes, "bf16" if dt == torch.bfloat16 else "fp32")
-        row = dict(shape=f"{name} {list(shape)} {str(dt).split('.')[-1]}", max_abs_err=err,
-                   max_rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bound_ms, bound_by=by)
+        row = dict(shape=f"{name} q {[b, h, lq, d]} k {[b, h, lk, d]} {str(dt).split('.')[-1]}",
+                   max_abs_err=err, max_rel_err=rel, rel_rms_err=rms, tol=tol, ms=ms,
+                   plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
         log("flash_attention " + json.dumps(row))
         rows.append(row)
+        del q, k, v, out, ref
     return rows
 
 
@@ -237,6 +283,278 @@ def decode_agreement(pipe, gen):
           "decode check: kernel grid disagrees with the plain decode")
 
 
+def sphere_mesh(resolution: int = 110):
+    """The analytic test mesh of the texture path: surface nets of a radius
+    0.6 sphere on a (resolution+1)³ grid over [-1.01, 1.01]³ (110 → 40,284
+    faces), emitted by the port's on-device surface nets. Random shape
+    weights decode noise, so the texture path takes this instead."""
+    import torch
+
+    from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
+    from hunyuan3d2_tpu_torch.volume.decoders import quads_to_tris, surface_nets_from_grid
+
+    lin = torch.linspace(-1.01, 1.01, resolution + 1, device="cuda")
+    r = torch.sqrt(lin[:, None, None] ** 2 + lin[None, :, None] ** 2 + lin[None, None, :] ** 2)
+    verts, quads, nq, count, ok = surface_nets_from_grid(0.6 - r, 0.0, 1.01, capacity=1 << 18,
+                                                         face_capacity=1 << 18)
+    check(bool(ok), "sphere mesh: surface buffers overflowed")
+    return Mesh(verts[:int(count)].cpu().numpy(), quads_to_tris(quads[:int(nq)].cpu()))
+
+
+def _views(render):
+    import numpy as np
+    import torch
+
+    mats = [render._mvp(e, a) for e, a in VIEWS]
+    return (torch.from_numpy(np.stack([m[0] for m in mats])).cuda(),
+            torch.from_numpy(np.stack([m[1] for m in mats])).cuda())
+
+
+def masked_phase(gen, sphere):
+    """The masked kernel at the paint UNet's masked multiview shapes, under
+    the voxel masks that the paint path builds from the sphere's 512²
+    position maps (grid 32 → 6144 tokens, grid 16 → 1536)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hunyuan3d2_tpu_torch.geometry.render import MeshRender
+    from hunyuan3d2_tpu_torch.geometry.render_device import cond_maps, upload_mesh
+    from hunyuan3d2_tpu_torch.models.paint_unet import compute_voxel_grid_mask
+    from hunyuan3d2_tpu_torch.ops.flash_attention import (
+        flash_attention_masked,
+        flash_attention_masked_plain,
+    )
+
+    render = MeshRender(default_resolution=2048, texture_size=2048)
+    render.load_mesh(sphere)
+    _, position = cond_maps(upload_mesh(render, "cuda"), _views(render)[1], 512)
+    pos = position[None].float() / 255.0
+    rows = []
+    for g, h, tol in ((32, 10, 2e-2), (16, 20, 2e-2)):
+        mask = compute_voxel_grid_mask(pos, g)
+        b, lq, lk = mask.shape
+        d = 64
+        q, k, v = (torch.randn(b, h, lq, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        out = flash_attention_masked(q, k, v, mask)
+        ref = flash_attention_masked_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        err, rel, rms, tol = attention_check(f"masked flash g={g}", out, ref, tol)
+        ms = time_ms(lambda: flash_attention_masked(q, k, v, mask), 20)
+        plain_ms = time_ms(lambda: flash_attention_masked_plain(q, k, v, mask), 3)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None]),
+                         20)
+        allowed = mask.sum().item()
+        # the work these inputs need: the allowed (query, key) pairs only
+        bound_ms, by = bound(4.0 * h * d * allowed, 4 * q.numel() * 2 + mask.numel(), "bf16")
+        row = dict(shape=f"voxel grid {g}: q/k/v {[b, h, lq, d]} bf16, mask {[b, lq, lk]} "
+                         f"density {allowed / mask.numel():.4f}",
+                   max_abs_err=err, max_rel_err=rel, rel_rms_err=rms, tol=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+        log("flash_attention_masked " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def raster_phase(sphere):
+    """The rasterizer on the sphere: the front view at 512² (orthographic, as
+    the cond maps) and the unwrapped mesh in UV space at 2048² (as the bake's
+    UV raster); then screen-sized triangles at 2048² for the kernel's
+    block-per-face pass. Face ids must agree on ≥ 99.99 % of pixels; where
+    they agree, barycentrics within 1e-5 and depth within 1e-6."""
+    import torch
+
+    from hunyuan3d2_tpu_torch.geometry.render import MeshRender
+    from hunyuan3d2_tpu_torch.geometry.uv import mesh_uv_wrap
+    from hunyuan3d2_tpu_torch.ops.rasterize import (
+        face_setup,
+        rasterize,
+        rasterize_plain,
+        rasterize_records,
+    )
+
+    render = MeshRender(default_resolution=2048, texture_size=2048)
+    render.load_mesh(sphere)
+    verts = torch.from_numpy(render.vtx_pos).cuda()
+    faces = torch.from_numpy(render.pos_idx).cuda()
+    vh = torch.cat([verts, torch.ones_like(verts[:, :1])], 1)
+    cases = [("view 512", vh @ _views(render)[1][0].T, faces, 512)]
+    wrapped = mesh_uv_wrap(sphere)
+    render.load_mesh(wrapped)
+    uvc = torch.from_numpy(render.vtx_uv).cuda() * 2.0 - 1.0
+    zeros = torch.zeros_like(uvc[:, 0])
+    cases.append(("uv 2048", torch.stack([uvc[:, 0], -uvc[:, 1], zeros, zeros + 1.0], 1),
+                  torch.from_numpy(render.pos_idx).cuda(), 2048))
+    # off the path: 256 random screen-sized triangles, which all take the
+    # block-per-face pass (bbox > 1024 pixels)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    big = torch.rand(768, 4, generator=g, device="cuda") * 2.0 - 1.0
+    big[:, 3] = 1.0
+    cases.append(("big faces 2048", big,
+                  torch.arange(768, device="cuda", dtype=torch.int32).reshape(256, 3), 2048))
+    rows = []
+    for name, clip, f, res in cases:
+        out = rasterize(clip, f, res, res)
+        recs, bbox = face_setup(clip, f, res, res)
+        ref = rasterize_plain(recs, bbox, res, res)
+        torch.cuda.synchronize()
+        same = out.face_id == ref.face_id
+        n_diff = int((~same).sum().item())
+        agree = 1.0 - n_diff / same.numel()
+        bary_err = (out.bary - ref.bary)[same].abs().max().item()
+        depth_err = (out.depth - ref.depth)[same].abs().max().item()
+        log(f"rasterize {name}: face_id differs on {n_diff} of {same.numel()} pixels, "
+            f"bary err {bary_err}, depth err {depth_err}, coverage "
+            f"{(out.face_id >= 0).float().mean().item():.4f}")
+        check(agree >= 0.9999 and bary_err <= 1e-5 and depth_err <= 1e-6,
+              f"rasterize {name}: kernel disagrees with the plain twin")
+        # ms and plain_ms: the pixel passes from the same face records (the
+        # work bound_ms counts); the wrapper adds the plain-torch face setup
+        ms = time_ms(lambda: rasterize_records(recs, bbox, res, res), 20)
+        setup_ms = time_ms(lambda: face_setup(clip, f, res, res), 20)
+        wrapper_ms = time_ms(lambda: rasterize(clip, f, res, res), 20)
+        plain_ms = time_ms(lambda: rasterize_plain(recs, bbox, res, res), 3)
+        nx = (bbox[:, 1] - bbox[:, 0] + 1).clamp_min(0).double()
+        ny = (bbox[:, 3] - bbox[:, 2] + 1).clamp_min(0).double()
+        pairs = (nx * ny).sum().item()     # (face, bbox pixel) tests these inputs need
+        # ~20 fp32 operations per test; bytes: verts and faces read, face_id,
+        # bary and depth written
+        nbytes = clip.numel() * 4 + f.numel() * 4 + res * res * 20
+        bound_ms, by = bound(20.0 * pairs, nbytes, "fp32")
+        row = dict(shape=f"{name}: {f.shape[0]} faces, {res}x{res}, {int(pairs)} bbox pixels",
+                   max_abs_err=max(bary_err, depth_err), face_id_differs=n_diff, ms=ms,
+                   face_setup_ms=setup_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                   library_ms=None,
+                   bound_ms=bound_ms, bound_by=by)
+        log("rasterize " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def _kernel_counters():
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_masked
+    from hunyuan3d2_tpu_torch.ops.geo_decoder import fused_geo_decode
+    from hunyuan3d2_tpu_torch.ops.rasterize import rasterize
+
+    return {"flash_attention": flash_attention, "flash_attention_masked": flash_attention_masked,
+            "fused_geo_decode": fused_geo_decode, "rasterize": rasterize}
+
+
+def texture_path(sphere):
+    """Slice 2 at full width through the user's entry points."""
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch import Hunyuan3DPaintPipeline
+    from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
+    from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
+
+    t0 = time.perf_counter()
+    pipe = Hunyuan3DPaintPipeline.init_random(size="default", view_size=512, render_size=2048,
+                                              texture_size=2048, device="cuda",
+                                              seed=0).set_turbo()
+    torch.cuda.synchronize()
+    log(f"texture path: stack up in {time.perf_counter() - t0:.2f} s (paint UNet DEFAULT + "
+        f"dual, SD VAE DEFAULT, random weights, seed 0); mesh {len(sphere.vertices)} vertices, "
+        f"{len(sphere.faces)} faces")
+    image = test_image()
+    counters = _kernel_counters()
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = pipe(sphere, image)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        stages = {k: round(LAST_TIMINGS[k], 4) for k in (
+            "Cond Maps (device)", "Paint VAE Encode", "Paint Denoising (turbo)",
+            "Multiview Diffusion (device)", "UV Unwrap", "Bake Geometry (device)",
+            "Texture Baking (device)", "Texture Inpaint")}
+        log(f"texture path {run}: {elapsed:.3f} s, stages {json.dumps(stages)}, "
+            f"{len(out.vertices)} vertices, {len(out.faces)} faces, launches "
+            f"{json.dumps(launches)}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check(out.texture is not None and out.texture.shape == (2048, 2048, 3)
+              and out.texture.dtype == np.uint8, "texture path: no 2048² RGB texture")
+        check(out.uv is not None and out.uv.shape == (len(out.vertices), 2)
+              and np.isfinite(out.uv).all() and out.uv.min() >= -1e-4
+              and out.uv.max() <= 1 + 1e-4, "texture path: bad UVs")
+        check(out.faces.min() >= 0 and out.faces.max() < len(out.vertices),
+              "texture path: face index out of range")
+        check(float(out.texture.std()) > 1.0, "texture path: flat texture")
+    del pipe
+    os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
+    path = os.path.join(ROOT, "tmp", "chip_smoke_textured.glb")
+    out.export(path)
+    back = Mesh.load(path)
+    check(back.uv is not None and np.allclose(back.uv, out.uv, atol=1e-6)
+          and back.texture is not None and np.array_equal(back.texture, out.texture)
+          and np.array_equal(back.faces, out.faces), "textured GLB round trip differs")
+    log(f"texture path: wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes), "
+        f"uv and texture read back")
+    return launches
+
+
+def texture_agreement():
+    """Slice 2 at a small size on the card (kernels, cuDNN) against the same
+    stack on the CPU (plain twins), same weights, same noise. The UNet keeps
+    the paint UNet's head size (64) at narrow channels (64, 128), and 64²
+    views give 32² latents through the tiny VAE, so the kernels' gates admit
+    it as they admit the full-width UNet: flash attention for the 32²
+    level's self, reference and cross attention, and the masked kernel for
+    its 6144-token multiview attention under the grid-32 voxel mask and the
+    16² level's 1536 tokens under the grid-16 mask. The check fails unless
+    all three kernels ran."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch import Hunyuan3DPaintPipeline
+    from hunyuan3d2_tpu_torch.models import paint_unet
+    from hunyuan3d2_tpu_torch.ops.nn import build
+
+    view = 64
+    ucfg = dataclasses.replace(paint_unet.TINY, block_out_channels=(64, 128),
+                               attention_head_dim=64)
+    rs = np.random.RandomState(0)
+    lat = (1, 6, view // 2, view // 2, 4)  # the tiny VAE downsamples by 2
+    init = rs.randn(*lat).astype(np.float32)
+    noises = [rs.randn(*lat).astype(np.float32) for _ in range(2)]
+    mesh = sphere_mesh(32)
+    pipes = {dev: Hunyuan3DPaintPipeline.init_random(size="tiny", view_size=view,
+                                                     render_size=256, texture_size=128,
+                                                     num_inference_steps=2, device=dev,
+                                                     seed=1).set_turbo()
+             for dev in ("cpu", "cuda")}
+    a, b = (pipes[dev].models["multiview_model"].pipeline for dev in ("cpu", "cuda"))
+    a.unet = build(paint_unet.UNet2p5D, ucfg, device="cpu",
+                   generator=torch.Generator().manual_seed(2))
+    b.unet = build(paint_unet.UNet2p5D, ucfg, device="cuda")
+    b.unet.load_state_dict(a.unet.state_dict())
+    b.vae.load_state_dict(a.vae.state_dict())
+    counters = _kernel_counters()
+    outs = {}
+    for dev, pipe in pipes.items():
+        for fn in counters.values():
+            fn.launches = 0
+        outs[dev] = pipe(mesh, test_image(), init_latents=init, step_noises=noises)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    x = outs["cuda"].texture.astype(np.float64)
+    y = outs["cpu"].texture.astype(np.float64)
+    corr = np.corrcoef(x.ravel(), y.ravel())[0, 1]
+    mad = np.abs(x - y).mean()
+    log(f"texture check (UNet {ucfg.block_out_channels} head 64, {view}² views, 128² "
+        f"texture): card vs CPU texture corr {corr:.6f}, mean |diff| {mad:.3f} levels, card "
+        f"launches {json.dumps(launches)}")
+    for name in ("flash_attention", "flash_attention_masked", "rasterize"):
+        check(launches[name] > 0, f"texture check: kernel {name} did not run on the card")
+    check(np.array_equal(outs["cuda"].uv, outs["cpu"].uv) and corr >= 0.99 and mad <= 3.0,
+          "texture check: the card's textured mesh disagrees with the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -254,7 +572,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["flash_attention", "geo_decode"])
+    logs = cuda_build.build(["flash_attention", "geo_decode", "rasterize"])
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)} "
         f"into {os.path.relpath(cuda_build.BUILD_DIR, ROOT)}")
     for name, text in logs.items():
@@ -263,25 +581,43 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sphere = sphere_mesh()
     with torch.no_grad():
         flash_rows = flash_phase(gen)
         geo_rows = geo_phase(gen)
-    pipe, launches = main_path()
+        masked_rows = masked_phase(gen, sphere)
+        raster_rows = raster_phase(sphere)
+    pipe, launches_mesh = main_path()
     decode_agreement(pipe, gen)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_tex = texture_path(sphere)
+    texture_agreement()
+    by_path = {"image_to_mesh": launches_mesh, "textured_glb": launches_tex}
 
     def entry(name, source, replaces, rows, main_row):
         r = rows[main_row]
+        path = "textured_glb" if launches_tex.get(name, 0) > 0 else "image_to_mesh"
+        launches = by_path[path].get(name, 0)
+        check(launches > 0, f"kernel {name} was launched on no path")
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches[name], max_abs_err=max(x["max_abs_err"] for x in rows),
+                    launches=launches, launches_path=path,
+                    launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
+                    max_abs_err=max(x["max_abs_err"] for x in rows),
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
                     shapes=rows)
 
     kernels = [
         entry("flash_attention", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
-              "hunyuan3d2_tpu/ops/flash_attention.py:221", flash_rows, 1),
+              "hunyuan3d2_tpu/ops/flash_attention.py:221", flash_rows, 3),
+        entry("flash_attention_masked", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
+              "hunyuan3d2_tpu/ops/flash_attention.py:159", masked_rows, 0),
         entry("fused_geo_decode", "hunyuan3d2_tpu_torch/csrc/geo_decode.cu",
               "hunyuan3d2_tpu/ops/geo_decoder_pallas.py:221", geo_rows, 1),
+        entry("rasterize", "hunyuan3d2_tpu_torch/csrc/rasterize.cu",
+              "hunyuan3d2_tpu/ops/rasterize_tpu.py:301", raster_rows, 1),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,8 +2,11 @@
 
 Image → mesh on the mini shape stack (DINOv2 conditioner → flow-matching
 DiT → ShapeVAE → FlashVDM block-sparse decode → on-device surface nets),
-with hand-written Hopper kernels for flash attention (csrc/flash_attention.cu)
-and the fused geo decoder (csrc/geo_decode.cu). Entry points run on ``cuda``
+and mesh + image → textured mesh through the paint-turbo stack (device cond
+maps → 2.5D UNet multiview diffusion → UV unwrap → texture-space bake).
+Hand-written Hopper kernels: flash attention, unmasked and masked
+(csrc/flash_attention.cu), the fused geo decoder (csrc/geo_decode.cu) and
+the z-buffer rasterizer (csrc/rasterize.cu). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on CPU tensors each kernel
 wrapper runs its plain PyTorch twin. The package imports neither ``jax``
 nor ``hunyuan3d2_tpu``.
@@ -13,3 +16,4 @@ from hunyuan3d2_tpu_torch.pipelines.shapegen import (  # noqa: F401
     Hunyuan3DDiTFlowMatchingPipeline,
     Hunyuan3DDiTPipeline,
 )
+from hunyuan3d2_tpu_torch.pipelines.texgen import Hunyuan3DPaintPipeline  # noqa: F401

@@ -1,12 +1,28 @@
-// Non-causal flash attention for Hopper (sm_90a), bf16 and fp32.
+// Non-causal flash attention for Hopper (sm_90a), bf16 and fp32, without
+// or with a boolean mask.
 //
-// Replaces the Pallas TPU kernel hunyuan3d2_tpu/ops/flash_attention.py
-// `flash_attention` -> `_flash` -> `_kernel` (the pallas_call at :221).
+// Replaces the Pallas TPU kernels hunyuan3d2_tpu/ops/flash_attention.py
+// `flash_attention` -> `_flash` -> `_kernel` (the pallas_call at :221) and
+// `flash_attention_masked` -> `_flash_masked` -> `_kernel_masked` (the
+// pallas_call at :159, body :90-134).
 // Same function: the scale is folded into q in fp32 and rounded back to the
 // input dtype before the product; softmax state (running max, normaliser)
 // and the accumulator are fp32; p is rounded to the input dtype before the
 // P.V product; key columns past Lk are masked to -1e30; the output is
 // acc / max(l, 1e-30) in the input dtype.
+//
+// The masked form takes a [B, Lq, Lk] uint8 mask shared across the H heads
+// (batch index bh / H), as the paint UNet's voxel-locality multiview mask
+// is. Where the mask is 0 the score is set to -1e30 AND p is forced to 0,
+// as the TPU kernel does (:118-123): a row whose first key tiles are all
+// masked cannot leak exp(0) weights while its running max is still -1e30,
+// and a fully masked row ends with l = 0 and an output of 0. Each 64x64
+// mask tile is staged in shared memory (row stride Lk in device memory,
+// rows padded to 80 bytes in shared memory so the fragment reads are free
+// of bank conflicts); the extra traffic is 1 byte per score against the
+// 2*D*2 bytes of K/V per key, so the masked kernel stays compute-bound at
+// the paint shapes ([1,10,6144,64], [1,20,1536,64]). Fully masked key tiles
+// are still computed (skipping them is later work).
 //
 // What bounds it on the H100: at the shapes of the image->mesh path
 // (DINOv2 [1,24,1370,64], DiT [2,16,1882,64], both bf16) attention is
@@ -89,14 +105,40 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int D>
+constexpr int kLDM = 80;  // shared-memory row stride of a mask tile, bytes
+
+// Copy the [64 q rows, 64 keys] tile at (q0, kt) of one batch's row-major
+// [lq, lk] uint8 mask into shared memory, 0 outside [lq, lk). Rows start at
+// arbitrary byte offsets (stride lk), so 16-byte loads are used only when lk
+// is a multiple of 16.
+__device__ __forceinline__ void load_mask_tile(uint8_t* dst, const uint8_t* src, int q0, int kt,
+                                               int lq, int lk) {
+  if ((lk & 15) == 0 && kt + kBK <= lk) {
+    for (int i = threadIdx.x; i < kBQ * (kBK / 16); i += blockDim.x) {
+      const int row = i / (kBK / 16), c = i % (kBK / 16);
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (q0 + row < lq)
+        val = *reinterpret_cast<const uint4*>(src + (size_t)(q0 + row) * lk + kt + c * 16);
+      *reinterpret_cast<uint4*>(dst + row * kLDM + c * 16) = val;
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBQ * kBK; i += blockDim.x) {
+      const int row = i / kBK, col = i % kBK;
+      dst[row * kLDM + col] =
+          (q0 + row < lq && kt + col < lk) ? src[(size_t)(q0 + row) * lk + kt + col] : 0;
+    }
+  }
+}
+
+template <int D, bool kMask>
 __global__ void __launch_bounds__(128) flash_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int lq, int lk,
-    float scale) {
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+    __nv_bfloat16* __restrict__ o, int heads, int lq, int lk, float scale) {
   constexpr int LDS = D + 8;
   __shared__ __align__(16) __nv_bfloat16 Ks[kBK * LDS];
   __shared__ __align__(16) __nv_bfloat16 Vs[kBK * LDS];
+  __shared__ __align__(16) uint8_t Ms[kMask ? kBQ * kLDM : 16];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
@@ -106,6 +148,7 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(
   k += (size_t)bh * lk * D;
   v += (size_t)bh * lk * D;
   o += (size_t)bh * lq * D;
+  if (kMask) mask += (size_t)(bh / heads) * lq * lk;
 
   // q tile (scaled, rounded to bf16) through Ks, then into A fragments
   load_tile<D, LDS, true>(Ks, q, q0, lq, scale);
@@ -131,6 +174,7 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(
   for (int kt = 0; kt < lk; kt += kBK) {
     load_tile<D, LDS, false>(Ks, k, kt, lk, 0.f);
     load_tile<D, LDS, false>(Vs, v, kt, lk, 0.f);
+    if (kMask) load_mask_tile(Ms, mask, q0, kt, lq, lk);
     __syncthreads();
 
     float s[kBK / 8][4];
@@ -142,7 +186,21 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(
       for (int kk = 0; kk < D / 16; ++kk)
         mma_bf16_16816(s[nt], qa[kk], lds32(kr + kk * 16), lds32(kr + kk * 16 + 8));
     }
-    if (kt + kBK > lk) {  // ragged last tile: mask padded key columns
+    // allowed[nt] bits 0..3 mark s[nt][0..3]; the mask tile is 0 past lk
+    uint32_t allowed[kBK / 8];
+    if (kMask) {
+      const uint8_t* m0r = Ms + (warp * 16 + g) * kLDM + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt) {
+        const uint16_t a = *reinterpret_cast<const uint16_t*>(m0r + nt * 8);
+        const uint16_t b = *reinterpret_cast<const uint16_t*>(m0r + 8 * kLDM + nt * 8);
+        allowed[nt] = ((a & 0xff) ? 1u : 0u) | ((a >> 8) ? 2u : 0u) | ((b & 0xff) ? 4u : 0u) |
+                      ((b >> 8) ? 8u : 0u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!(allowed[nt] >> e & 1u)) s[nt][e] = kNegInf;
+      }
+    } else if (kt + kBK > lk) {  // ragged last tile: mask padded key columns
 #pragma unroll
       for (int nt = 0; nt < kBK / 8; ++nt) {
         const int col = kt + nt * 8 + 2 * t;
@@ -170,6 +228,11 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(
       s[nt][1] = expf(s[nt][1] - mx0);
       s[nt][2] = expf(s[nt][2] - mx1);
       s[nt][3] = expf(s[nt][3] - mx1);
+      if (kMask) {  // p = 0 where masked, even while the running max is -1e30
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!(allowed[nt] >> e & 1u)) s[nt][e] = 0.f;
+      }
       rs0 += s[nt][0] + s[nt][1];
       rs1 += s[nt][2] + s[nt][3];
     }
@@ -235,10 +298,11 @@ constexpr size_t f32_smem_bytes() {
          ((size_t)kRowsF32 * (D + 1) + 2 * (size_t)kBKF32 * D + (size_t)kRowsF32 * (kBKF32 + 1));
 }
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kRowsF32) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int lq, int lk, float scale) {
+    const uint8_t* __restrict__ mask, float* __restrict__ o, int heads, int lq, int lk,
+    float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                            // [64][D+1]
   float* Ks = Qs + kRowsF32 * (D + 1);         // [32][D]
@@ -250,6 +314,10 @@ __global__ void __launch_bounds__(kRowsF32) flash_f32_kernel(
   k += (size_t)bh * lk * D;
   v += (size_t)bh * lk * D;
   o += (size_t)bh * lq * D;
+  // this thread's mask row (rows past lq read nothing: their keys all count
+  // as masked, and their output is not written)
+  const uint8_t* mrow = nullptr;
+  if (kMask && q0 + r < lq) mrow = mask + ((size_t)(bh / heads) * lq + q0 + r) * lk;
 
   for (int i = threadIdx.x; i < kRowsF32 * D; i += blockDim.x) {
     const int row = i / D, c = i % D;
@@ -276,7 +344,7 @@ __global__ void __launch_bounds__(kRowsF32) flash_f32_kernel(
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], Ks[j * D + d], s);
-      if (kt + j >= lk) s = kNegInf;
+      if (kt + j >= lk || (kMask && (mrow == nullptr || !mrow[kt + j]))) s = kNegInf;
       sr[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -285,7 +353,8 @@ __global__ void __launch_bounds__(kRowsF32) flash_f32_kernel(
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] *= alpha;
     for (int j = 0; j < kBKF32; ++j) {
-      const float p = expf(sr[j] - mx);
+      float p = expf(sr[j] - mx);
+      if (kMask && (kt + j >= lk || mrow == nullptr || !mrow[kt + j])) p = 0.f;
       l += p;
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(p, Vs[j * D + d], acc[d]);
@@ -300,47 +369,61 @@ __global__ void __launch_bounds__(kRowsF32) flash_f32_kernel(
   }
 }
 
-template <int D>
-cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o, int n, int lq,
-                       int lk, float scale, cudaStream_t stream) {
+template <int D, bool kMask>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const uint8_t* mask,
+                       float* o, int n, int heads, int lq, int lk, float scale,
+                       cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<D, kMask>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((lq + kRowsF32 - 1) / kRowsF32, n);
-  flash_f32_kernel<D><<<grid, kRowsF32, smem, stream>>>(q, k, v, o, lq, lk, scale);
+  flash_f32_kernel<D, kMask><<<grid, kRowsF32, smem, stream>>>(q, k, v, mask, o, heads, lq, lk,
+                                                               scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool kMask>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const uint8_t* mask,
+                        void* o, int n, int heads, int lq, int lk, float scale,
+                        cudaStream_t stream) {
+  dim3 grid((lq + kBQ - 1) / kBQ, n);
+  flash_bf16_kernel<D, kMask><<<grid, 128, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(o), heads, lq,
+      lk, scale);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int n, int lq,
-                        int lk, float scale, cudaStream_t stream) {
-  dim3 grid((lq + kBQ - 1) / kBQ, n);
-  flash_bf16_kernel<D><<<grid, 128, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lq, lk, scale);
-  return cudaGetLastError();
+cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* o,
+                   int n, int heads, int lq, int lk, int dtype, float scale, cudaStream_t s) {
+  if (dtype == 0) {
+    return mask ? launch_bf16<D, true>(q, k, v, mask, o, n, heads, lq, lk, scale, s)
+                : launch_bf16<D, false>(q, k, v, mask, o, n, heads, lq, lk, scale, s);
+  }
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  return mask ? launch_f32<D, true>(qf, kf, vf, mask, of, n, heads, lq, lk, scale, s)
+              : launch_f32<D, false>(qf, kf, vf, mask, of, n, heads, lq, lk, scale, s);
 }
 
 }  // namespace
 
-// q [n, lq, d], k/v [n, lk, d], o [n, lq, d], all contiguous on the device.
-// dtype 0 = bf16, 1 = fp32; d in {64, 128}. Returns the cudaError_t of the
-// launch (0 on success); the launch is asynchronous on `stream`.
-extern "C" int hy3d_flash_attention(const void* q, const void* k, const void* v, void* o, int n,
-                                    int lq, int lk, int d, int dtype, float scale,
-                                    void* stream) {
+// q [n, lq, d], k/v [n, lk, d], o [n, lq, d], all contiguous on the device,
+// n = B * heads. mask is NULL (unmasked) or a contiguous [B, lq, lk] uint8
+// array (nonzero = attend) shared across the heads. dtype 0 = bf16,
+// 1 = fp32; d in {64, 128}. Returns the cudaError_t of the launch (0 on
+// success); the launch is asynchronous on `stream`.
+extern "C" int hy3d_flash_attention(const void* q, const void* k, const void* v, const void* mask,
+                                    void* o, int n, int heads, int lq, int lk, int d, int dtype,
+                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || lq <= 0 || lk <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (d == 64) return (int)launch_bf16<64>(q, k, v, o, n, lq, lk, scale, s);
-    if (d == 128) return (int)launch_bf16<128>(q, k, v, o, n, lq, lk, scale, s);
-  } else if (dtype == 1) {
-    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-                *vf = static_cast<const float*>(v);
-    float* of = static_cast<float*>(o);
-    if (d == 64) return (int)launch_f32<64>(qf, kf, vf, of, n, lq, lk, scale, s);
-    if (d == 128) return (int)launch_f32<128>(qf, kf, vf, of, n, lq, lk, scale, s);
-  }
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (n <= 0 || heads <= 0 || n % heads != 0 || lq <= 0 || lk <= 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (d == 64) return (int)launch<64>(q, k, v, m, o, n, heads, lq, lk, dtype, scale, s);
+  if (d == 128) return (int)launch<128>(q, k, v, m, o, n, heads, lq, lk, dtype, scale, s);
   return (int)cudaErrorInvalidValue;
 }

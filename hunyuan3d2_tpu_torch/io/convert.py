@@ -3,7 +3,9 @@
 The inverse of hunyuan3d2_tpu/io/checkpoints.py ``map_dit``, ``map_shapevae``
 and ``map_dinov2``: per-layer leaves stacked along axis 0 are unstacked,
 Linear kernels [in, out] are transposed to torch's [out, in], and every key
-is the Hunyuan3D-2 checkpoint key. Input leaves are numpy arrays (any float
+is the Hunyuan3D-2 checkpoint key. The paint UNet and the SD VAE go to the
+diffusers keys that hunyuan3d2_tpu/io/diffusers_maps.py ``export_paint_unet``
+and ``export_sd_vae`` write, with conv kernels HWIO → [out, in, kh, kw]. Input leaves are numpy arrays (any float
 dtype, bf16 included); outputs are float32 numpy arrays, which
 ``load_state_dict`` casts to each parameter's dtype.
 """
@@ -126,6 +128,122 @@ def dinov2_state_dict(params: dict, cfg, prefix: str = "model.") -> Dict[str, np
     sd["layernorm.weight"] = _f32(params["final_norm_scale"])
     sd["layernorm.bias"] = _f32(params["final_norm_bias"])
     return {prefix + k: v for k, v in sd.items()}
+
+
+def _conv(out: dict, key: str, p: dict):
+    out[key + ".weight"] = np.ascontiguousarray(_f32(p["w"]).transpose(3, 2, 0, 1))
+    out[key + ".bias"] = _f32(p["b"])
+
+
+def _norm(out: dict, key: str, p: dict):
+    out[key + ".weight"] = _f32(p["scale"])
+    out[key + ".bias"] = _f32(p["bias"])
+
+
+def _resnet(out: dict, key: str, p: dict):
+    _norm(out, f"{key}.norm1", p["norm1"])
+    _conv(out, f"{key}.conv1", p["conv1"])
+    _norm(out, f"{key}.norm2", p["norm2"])
+    _conv(out, f"{key}.conv2", p["conv2"])
+    if "time_emb_proj" in p:
+        _lin(out, f"{key}.time_emb_proj", p["time_emb_proj"])
+    if "shortcut" in p:
+        _conv(out, f"{key}.conv_shortcut", p["shortcut"])
+
+
+def _attn(out: dict, key: str, p: dict):
+    for n in ("to_q", "to_k", "to_v"):
+        _lin(out, f"{key}.{n}", p[n])
+    _lin(out, f"{key}.to_out.0", p["to_out"])
+
+
+def _transformer2d(out: dict, key: str, p: dict, wrapped: bool):
+    _norm(out, f"{key}.norm", p["norm"])
+    _lin(out, f"{key}.proj_in", p["proj_in"])
+    blk, tb = p["block"], f"{key}.transformer_blocks.0"
+    base = f"{tb}.transformer" if wrapped else tb
+    for n in ("norm1", "norm2", "norm3"):
+        _norm(out, f"{base}.{n}", blk[n])
+    _attn(out, f"{base}.attn1", blk["attn1"])
+    _attn(out, f"{base}.attn2", blk["attn2"])
+    _lin(out, f"{base}.ff.net.0.proj", blk["ff_in"])
+    _lin(out, f"{base}.ff.net.2", blk["ff_out"])
+    for n in ("attn_refview", "attn_multiview"):
+        if n in blk:
+            _attn(out, f"{tb}.{n}", blk[n])
+    _lin(out, f"{key}.proj_out", p["proj_out"])
+
+
+def _unet_core(params: dict, prefix: str, wrapped: bool) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    _conv(sd, "conv_in", params["conv_in"])
+    _lin(sd, "time_embedding.linear_1", params["time_mlp_in"])
+    _lin(sd, "time_embedding.linear_2", params["time_mlp_out"])
+    if "class_embedding" in params:
+        sd["class_embedding.weight"] = _f32(params["class_embedding"])
+    sd["learned_text_clip_gen"] = _f32(params["learned_text_clip_gen"])
+    sd["learned_text_clip_ref"] = _f32(params["learned_text_clip_ref"])
+    for tag, blocks, sampler in (("down", params["down"], "downsample"),
+                                 ("up", params["up"], "upsample")):
+        for i, blk in enumerate(blocks):
+            for j, r in enumerate(blk["resnets"]):
+                _resnet(sd, f"{tag}_blocks.{i}.resnets.{j}", r)
+            for j, a in enumerate(blk["attns"]):
+                _transformer2d(sd, f"{tag}_blocks.{i}.attentions.{j}", a, wrapped)
+            if sampler in blk:
+                _conv(sd, f"{tag}_blocks.{i}.{sampler}rs.0.conv", blk[sampler])
+    _resnet(sd, "mid_block.resnets.0", params["mid"]["res1"])
+    _transformer2d(sd, "mid_block.attentions.0", params["mid"]["attn"], wrapped)
+    _resnet(sd, "mid_block.resnets.1", params["mid"]["res2"])
+    _norm(sd, "conv_norm_out", params["norm_out"])
+    _conv(sd, "conv_out", params["conv_out"])
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def paint_unet_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """models/paint_unet.py param tree → UNet2p5D state dict (``unet.*`` and,
+    with a dual copy, ``unet_dual.*``)."""
+    sd = _unet_core(params, "unet.", wrapped=True)
+    if "dual" in params:
+        sd.update(_unet_core(params["dual"], "unet_dual.", wrapped=False))
+    return sd
+
+
+def sd_vae_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """models/sd_vae.py param tree → AutoencoderKL state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    enc, dec = params["encoder"], params["decoder"]
+
+    def mid(key, m):
+        _resnet(sd, f"{key}.mid_block.resnets.0", m["res1"])
+        a = m["attn"]
+        _norm(sd, f"{key}.mid_block.attentions.0.group_norm", a["norm"])
+        for n in ("q", "k", "v"):
+            _lin(sd, f"{key}.mid_block.attentions.0.to_{n}", a[n])
+        _lin(sd, f"{key}.mid_block.attentions.0.to_out.0", a["out"])
+        _resnet(sd, f"{key}.mid_block.resnets.1", m["res2"])
+
+    _conv(sd, "encoder.conv_in", enc["conv_in"])
+    for i, blk in enumerate(enc["down"]):
+        for j, r in enumerate(blk["resnets"]):
+            _resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}", r)
+        if "downsample" in blk:
+            _conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv", blk["downsample"])
+    mid("encoder", enc["mid"])
+    _norm(sd, "encoder.conv_norm_out", enc["norm_out"])
+    _conv(sd, "encoder.conv_out", enc["conv_out"])
+    _conv(sd, "quant_conv", enc["quant_conv"])
+    _conv(sd, "post_quant_conv", dec["post_quant_conv"])
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    mid("decoder", dec["mid"])
+    for i, blk in enumerate(dec["up"]):
+        for j, r in enumerate(blk["resnets"]):
+            _resnet(sd, f"decoder.up_blocks.{i}.resnets.{j}", r)
+        if "upsample" in blk:
+            _conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv", blk["upsample"])
+    _norm(sd, "decoder.conv_norm_out", dec["norm_out"])
+    _conv(sd, "decoder.conv_out", dec["conv_out"])
+    return sd
 
 
 def load_numpy_state_dict(module: torch.nn.Module, sd: Dict[str, np.ndarray]):

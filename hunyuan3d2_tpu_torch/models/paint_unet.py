@@ -1,0 +1,381 @@
+"""HunyuanPaint 2.5D UNet, the multiview diffusion denoiser, NHWC (port of
+hunyuan3d2_tpu/models/paint_unet.py).
+
+A diffusers SD2.1-class UNet2DConditionModel with a 12-channel conv_in
+(gen latent + normal + position latents), learned text embeddings, a
+camera-index class embedding added to the time embedding, and every
+transformer block wrapped with a reference attention (K/V from the
+reference branch's norm1 states, cached per layer) and a multiview attention
+(self-attention over all views' tokens, under the voxel-locality mask for
+the paint-turbo checkpoints). A dual copy of the UNet, without those extras
+and with a 4-channel conv_in, runs the reference image once in 'w' (write)
+mode to fill the cache; the main UNet then runs every step in 'r' (read)
+mode.
+
+Modules carry the diffusers names that the JAX package's
+io/diffusers_maps.py ``export_paint_unet`` writes: ``unet.*`` for the main
+UNet (wrapped blocks at ``...transformer_blocks.0.transformer.*``, extras at
+``...transformer_blocks.0.attn_refview`` / ``attn_multiview``) and
+``unet_dual.*`` for the dual copy. Views are folded into the batch axis.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from hunyuan3d2_tpu_torch.ops.attention import attention, masked_attention, merge_heads, split_heads
+from hunyuan3d2_tpu_torch.ops.conv import Conv2d, GroupNorm, ResnetBlock, upsample_nearest2x
+from hunyuan3d2_tpu_torch.ops.nn import LayerNorm, Linear, gelu_exact, silu
+
+
+@dataclasses.dataclass(frozen=True)
+class PaintUNetConfig:
+    in_channels: int = 12
+    out_channels: int = 4
+    block_out_channels: tuple = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 1024
+    attention_head_dim: int = 64
+    norm_num_groups: int = 32
+    num_class_embeds: int = 5 + 12 * 3 + 4 * 2   # max_num_ref + max_num_gen
+    use_multiview_attention: bool = True
+    use_reference_attention: bool = True
+    use_camera_embedding: bool = True
+    use_dual_stream: bool = True
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+    def is_cross(self, i: int, down: bool) -> bool:
+        """Down blocks: CrossAttn × (n-1), then Down; up blocks mirror."""
+        n = len(self.block_out_channels)
+        return (i < n - 1) if down else (i > 0)
+
+
+DEFAULT = PaintUNetConfig()
+TINY = PaintUNetConfig(block_out_channels=(32, 64), layers_per_block=1,
+                       cross_attention_dim=32, attention_head_dim=8, norm_num_groups=8)
+
+
+def dual_config(cfg: PaintUNetConfig) -> PaintUNetConfig:
+    """The dual (reference) copy: 4-channel conv_in, no class embedding, no
+    2.5D attentions (the reference deep-copies the UNet before that
+    surgery)."""
+    return dataclasses.replace(cfg, in_channels=4, use_multiview_attention=False,
+                               use_reference_attention=False, use_camera_embedding=False,
+                               use_dual_stream=False)
+
+
+def compute_voxel_grid_mask(position: torch.Tensor, grid_resolution: int) -> torch.Tensor:
+    """Voxel-locality multiview attention mask: pool the per-view position
+    maps to grid_resolution², average the 3D position over valid
+    (non-background) pixels, and allow attention between token pairs whose
+    positions lie within 1.73/grid_resolution, with the squared distance
+    taken as |a|² + |b|² − 2a·b (as in the JAX package).
+
+    position [B, N, H, W, 3] in [0, 1] (1 ⇒ background) → bool
+    [B, N·g², N·g²]."""
+    b, n, h, w, _ = position.shape
+    g = grid_resolution
+    position = position.float()
+    valid = (position != 1.0).all(dim=-1, keepdim=True)
+    pos = torch.where(valid, position, 0.0)
+    ph, pw = h // g, w // g
+    pos = pos.reshape(b, n, g, ph, g, pw, 3).sum(dim=(3, 5))
+    cnt = valid.float().reshape(b, n, g, ph, g, pw, 1).sum(dim=(3, 5))
+    grid_pos = pos / cnt.clamp_min(1.0)
+    grid_pos = torch.where(cnt < 5, 0.0, grid_pos)
+    flat = grid_pos.reshape(b, n * g * g, 3)
+    sq = (flat * flat).sum(-1)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.einsum("bld,bmd->blm", flat, flat)
+    return d2 < (1.73 / g) ** 2
+
+
+def sd_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """diffusers Timesteps with flip_sin_to_cos=True, shift=0: [cos | sin]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+class Attention(nn.Module):
+    """diffusers Attention: to_q / to_k / to_v without bias, to_out.0."""
+
+    def __init__(self, dim: int, kv_dim: Optional[int] = None):
+        super().__init__()
+        kv_dim = kv_dim or dim
+        self.to_q = Linear(dim, dim, bias=False)
+        self.to_k = Linear(kv_dim, dim, bias=False)
+        self.to_v = Linear(kv_dim, dim, bias=False)
+        self.to_out = nn.ModuleList([Linear(dim, dim)])
+
+    def forward(self, x, kv, heads: int, mask: Optional[torch.Tensor] = None):
+        q = split_heads(self.to_q(x), heads)
+        k = split_heads(self.to_k(kv), heads)
+        v = split_heads(self.to_v(kv), heads)
+        out = attention(q, k, v) if mask is None else masked_attention(q, k, v, mask)
+        return self.to_out[0](merge_heads(out))
+
+
+class _GEGLU(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.proj = Linear(dim, 8 * dim)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward, names ff.net.0.proj / ff.net.2."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.net = nn.ModuleList([_GEGLU(dim), nn.Identity(), Linear(4 * dim, dim)])
+
+    def forward(self, h):
+        a, b = self.net[0].proj(h).chunk(2, dim=-1)
+        return self.net[2](a * gelu_exact(b))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, cfg: PaintUNetConfig, dim: int):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, cfg.cross_attention_dim)
+        self.norm3 = LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+
+class Basic2p5DTransformerBlock(nn.Module):
+    """The wrapped block: the base block under ``transformer`` and the 2.5D
+    attentions beside it."""
+
+    def __init__(self, cfg: PaintUNetConfig, dim: int):
+        super().__init__()
+        self.transformer = BasicTransformerBlock(cfg, dim)
+        if cfg.use_reference_attention:
+            self.attn_refview = Attention(dim)
+        if cfg.use_multiview_attention:
+            self.attn_multiview = Attention(dim)
+
+
+def _pinned_add(x: torch.Tensor, scale: float, out: torch.Tensor) -> torch.Tensor:
+    """x + (scale · out) with the product in fp32 and the sum back in x's
+    (bf16) dtype, as the JAX package pins the residual stream."""
+    return x + (scale * out.float()).to(x.dtype)
+
+
+class Transformer2D(nn.Module):
+    def __init__(self, cfg: PaintUNetConfig, ch: int, extras: bool):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = GroupNorm(ch)
+        self.proj_in = Linear(ch, ch)
+        blk = Basic2p5DTransformerBlock(cfg, ch) if extras else BasicTransformerBlock(cfg, ch)
+        self.transformer_blocks = nn.ModuleList([blk])
+        self.proj_out = Linear(ch, ch)
+
+    def forward(self, x, context, layer: str, mode: str, num_views: int, cache: Dict,
+                ref_scale, mva_scale, mva_masks):
+        cfg = self.cfg
+        b, hh, ww, c = x.shape
+        # diffusers Transformer2DModel GroupNorm eps is 1e-6
+        y = self.proj_in(self.norm(x, cfg.norm_num_groups, 1e-6).reshape(b, hh * ww, c))
+        wrapped = self.transformer_blocks[0]
+        blk = getattr(wrapped, "transformer", wrapped)
+        heads = c // cfg.attention_head_dim
+
+        h = blk.norm1(y)
+        y = y + blk.attn1(h, h, heads)
+        bn, l, _ = h.shape
+        if mode == "w":
+            cache[layer] = h.reshape(bn // num_views, num_views * l, c)
+        if mode == "r" and cfg.use_reference_attention:
+            ref = cache[layer]                                    # [B, Nr·L, C]
+            ref_rep = ref.repeat_interleave(bn // ref.shape[0], dim=0)
+            y = _pinned_add(y, ref_scale, wrapped.attn_refview(h, ref_rep, heads))
+        if num_views > 1 and cfg.use_multiview_attention and mode == "r":
+            mv = h.reshape(bn // num_views, num_views * l, c)
+            mask = (mva_masks or {}).get(num_views * l)
+            out = wrapped.attn_multiview(mv, mv, heads, mask=mask)
+            y = _pinned_add(y, mva_scale, out.reshape(bn, l, c))
+        y = y + blk.attn2(blk.norm2(y), context, heads)
+        y = y + blk.ff(blk.norm3(y))
+        return x + self.proj_out(y).reshape(b, hh, ww, c)
+
+
+class _Sampler(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = Conv2d(c, c, 3)
+
+
+class _UpDownBlock(nn.Module):
+    def __init__(self, cfg, resnet_chans, attn_ch: Optional[int], extras: bool, sampler: str):
+        super().__init__()
+        temb = cfg.time_embed_dim
+        self.resnets = nn.ModuleList([ResnetBlock(a, b, temb) for a, b in resnet_chans])
+        n_attn = len(resnet_chans) if attn_ch else 0
+        self.attentions = nn.ModuleList([Transformer2D(cfg, attn_ch, extras)
+                                         for _ in range(n_attn)])
+        if sampler:
+            setattr(self, sampler, nn.ModuleList([_Sampler(resnet_chans[-1][1])]))
+
+
+class _Mid(nn.Module):
+    def __init__(self, cfg, c: int, extras: bool):
+        super().__init__()
+        temb = cfg.time_embed_dim
+        self.resnets = nn.ModuleList([ResnetBlock(c, c, temb), ResnetBlock(c, c, temb)])
+        self.attentions = nn.ModuleList([Transformer2D(cfg, c, extras)])
+
+
+class _ClassEmbedding(nn.Module):
+    def __init__(self, n: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n, dim, dtype=torch.float32))
+
+    def init_random_(self, generator):
+        self.weight.normal_(generator=generator).mul_(0.02)
+
+
+class _TimestepEmbedding(nn.Module):
+    def __init__(self, cin: int, dim: int):
+        super().__init__()
+        self.linear_1 = Linear(cin, dim)
+        self.linear_2 = Linear(dim, dim)
+
+
+class UNetCore(nn.Module):
+    """UNet2DConditionModel (+2.5D extras with ``extras``)."""
+
+    def __init__(self, cfg: PaintUNetConfig, extras: bool):
+        super().__init__()
+        self.cfg = cfg
+        chs = cfg.block_out_channels
+        n = len(chs)
+        self.conv_in = Conv2d(cfg.in_channels, chs[0], 3)
+        self.time_embedding = _TimestepEmbedding(chs[0], cfg.time_embed_dim)
+        if cfg.use_camera_embedding:
+            self.class_embedding = _ClassEmbedding(cfg.num_class_embeds, cfg.time_embed_dim)
+        self.learned_text_clip_gen = nn.Parameter(
+            torch.empty(1, 77, cfg.cross_attention_dim, dtype=torch.float32))
+        self.learned_text_clip_ref = nn.Parameter(
+            torch.empty(1, 77, cfg.cross_attention_dim, dtype=torch.float32))
+        down, c_in = [], chs[0]
+        for i, c_out in enumerate(chs):
+            down.append(_UpDownBlock(
+                cfg, [(c_in if j == 0 else c_out, c_out) for j in range(cfg.layers_per_block)],
+                c_out if cfg.is_cross(i, down=True) else None, extras,
+                "downsamplers" if i < n - 1 else ""))
+            c_in = c_out
+        self.down_blocks = nn.ModuleList(down)
+        self.mid_block = _Mid(cfg, chs[-1], extras)
+        rev, up = list(reversed(chs)), []
+        for i, c_out in enumerate(rev):
+            prev = rev[max(i - 1, 0)]
+            skip_src = rev[min(i + 1, n - 1)]
+            chans = [((prev if j == 0 else c_out)
+                      + (c_out if j < cfg.layers_per_block else skip_src), c_out)
+                     for j in range(cfg.layers_per_block + 1)]
+            up.append(_UpDownBlock(cfg, chans, c_out if cfg.is_cross(i, down=False) else None,
+                                   extras, "upsamplers" if i < n - 1 else ""))
+        self.up_blocks = nn.ModuleList(up)
+        self.conv_norm_out = GroupNorm(chs[0])
+        self.conv_out = Conv2d(chs[0], cfg.out_channels, 3)
+
+    def init_random_(self, generator):
+        self.learned_text_clip_gen.normal_(generator=generator)
+        self.learned_text_clip_ref.normal_(generator=generator)
+
+    def forward(self, sample, t, context, class_labels, mode: str, num_views: int, cache: Dict,
+                ref_scale=1.0, mva_scale=1.0, mva_masks=None):
+        """sample [(B·N), H, W, C_in] NHWC; t [(B·N)]; context
+        [(B·N), 77, D]. ``cache`` is filled in 'w' mode and read in 'r'."""
+        cfg = self.cfg
+        g = cfg.norm_num_groups
+        temb = sd_timestep_embedding(t, cfg.block_out_channels[0]).to(sample.dtype)
+        temb = self.time_embedding.linear_2(silu(self.time_embedding.linear_1(temb)))
+        if cfg.use_camera_embedding and class_labels is not None:
+            temb = temb + self.class_embedding.weight[class_labels].to(temb.dtype)
+
+        def attn(mod, x, layer):
+            return mod(x, context, layer, mode, num_views, cache, ref_scale, mva_scale, mva_masks)
+
+        x = self.conv_in(sample)
+        residuals = [x]
+        for i, blk in enumerate(self.down_blocks):
+            for j, r in enumerate(blk.resnets):
+                x = r(x, temb, g, eps=1e-5)
+                if len(blk.attentions):
+                    x = attn(blk.attentions[j], x, f"down_{i}_{j}")
+                residuals.append(x)
+            if hasattr(blk, "downsamplers"):
+                # diffusers UNet Downsample2D pads symmetrically by 1
+                x = blk.downsamplers[0].conv(x, stride=2, padding=1)
+                residuals.append(x)
+        x = self.mid_block.resnets[0](x, temb, g, eps=1e-5)
+        x = attn(self.mid_block.attentions[0], x, "mid_0")
+        x = self.mid_block.resnets[1](x, temb, g, eps=1e-5)
+        for i, blk in enumerate(self.up_blocks):
+            for j, r in enumerate(blk.resnets):
+                x = r(torch.cat([x, residuals.pop()], dim=-1), temb, g, eps=1e-5)
+                if len(blk.attentions):
+                    x = attn(blk.attentions[j], x, f"up_{i}_{j}")
+            if hasattr(blk, "upsamplers"):
+                x = blk.upsamplers[0].conv(upsample_nearest2x(x))
+        x = self.conv_norm_out(x, g, eps=1e-5)
+        return self.conv_out(silu(x))
+
+
+class UNet2p5D(nn.Module):
+    """The full 2.5D UNet: ``unet`` (with the extras) and, with
+    ``use_dual_stream``, ``unet_dual`` for the reference 'w' pass."""
+
+    def __init__(self, cfg: PaintUNetConfig = DEFAULT):
+        super().__init__()
+        if not cfg.use_dual_stream:
+            raise ValueError("the port's paint UNet takes its reference pass from the dual copy")
+        self.cfg = cfg
+        self.unet = UNetCore(cfg, extras=True)
+        self.unet_dual = UNetCore(dual_config(cfg), extras=False)
+
+    def write_cache(self, ref_latents: torch.Tensor) -> Dict:
+        """The reference 'w' pass of the dual copy: ref_latents
+        [B, N_ref, h, w, 4] → the per-layer cache {layer: [B, N_ref·L, C]}.
+        The dual copy has no camera embedding, so the reference camera
+        indices play no part."""
+        b, n_ref = ref_latents.shape[:2]
+        ref = ref_latents.reshape((b * n_ref,) + ref_latents.shape[2:])
+        core = self.unet_dual
+        ctx = core.learned_text_clip_ref.to(ref.dtype).expand(b * n_ref, -1, -1)
+        cache: Dict[str, torch.Tensor] = {}
+        core(ref, torch.zeros(b * n_ref, device=ref.device), ctx, None, "w", n_ref, cache)
+        return cache
+
+    def forward(self, sample, timestep, normal_latents, position_latents, camera_info_gen,
+                cache: Dict, ref_scale=1.0, mva_scale=1.0, mva_masks=None) -> torch.Tensor:
+        """The 'r' pass: sample / normal / position latents
+        [B, N_gen, H, W, 4], camera_info_gen [B, N_gen] int → noise
+        prediction [B, N_gen, H, W, 4]."""
+        cfg = self.cfg
+        b, n_gen = sample.shape[:2]
+        x = torch.cat([sample, normal_latents, position_latents], dim=-1)
+        x = x.reshape((b * n_gen,) + x.shape[2:])
+        ctx = self.unet.learned_text_clip_gen.to(x.dtype).expand(b * n_gen, -1, -1)
+        t = torch.as_tensor(timestep, dtype=torch.float32, device=x.device).reshape(-1)
+        t = t.expand(b * n_gen)
+        labels = (camera_info_gen + 5).reshape(-1) if cfg.use_camera_embedding else None
+        out = self.unet(x, t, ctx, labels, "r", n_gen, cache, ref_scale, mva_scale, mva_masks)
+        return out.reshape(b, n_gen, *out.shape[1:])

@@ -1,0 +1,131 @@
+"""ctypes bindings for the native CPU runtime (``hy3dnative.cpp``, a copy of
+the JAX package's with the OpenMP scratch fix in ``hy3d_grid_put_linear``).
+
+At first use the source is compiled with ``g++`` into a shared library
+under ``build/hunyuan3d2_tpu_torch/`` at the repository root, keyed by a
+hash of the source and the flags; nothing is built when the module is
+imported and no library is committed. Bound here are the functions the
+port's texture path uses: the host rasterizer (the UV unwrap's chart
+overlap guard), the vertex-graph inpaint and push-pull fill (the texture
+inpaint); and the bilinear splat of the host bake, which the port does not
+run yet (its OpenMP fix is tested on its own). Each returns numpy arrays.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hy3dnative.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(_SRC))), "build",
+                          "hunyuan3d2_tpu_torch")
+_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-fopenmp")
+_LOCK = threading.Lock()
+
+
+def library_path() -> str:
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libhy3dnative-{digest}.so")
+
+
+@functools.lru_cache(maxsize=None)
+def get_lib() -> ctypes.CDLL:
+    """The loaded library, compiled first if it is missing."""
+    path = library_path()
+    with _LOCK:
+        if not os.path.exists(path):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            res = subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"building hy3dnative.cpp failed:\n{res.stderr}")
+            os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.hy3d_rasterize.argtypes = [f32p, ctypes.c_int64, i32p, ctypes.c_int64,
+                                   ctypes.c_int, ctypes.c_int, i32p, f32p, f32p]
+    lib.hy3d_rasterize.restype = None
+    lib.hy3d_vertex_inpaint.argtypes = [
+        f32p, u8p, f32p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        f32p, ctypes.c_int64, f32p, ctypes.c_int64, i32p, i32p, ctypes.c_int64]
+    lib.hy3d_vertex_inpaint.restype = None
+    lib.hy3d_grid_put_linear.argtypes = [f32p, f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, f32p]
+    lib.hy3d_grid_put_linear.restype = None
+    lib.hy3d_pushpull_fill.argtypes = [f32p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.hy3d_pushpull_fill.restype = None
+    return lib
+
+
+def rasterize(verts_clip: np.ndarray, faces: np.ndarray, height: int, width: int):
+    """verts_clip [N, 4] float32 clip space, faces [M, 3] int32 →
+    (face_id [H, W] int32 with -1 empty, bary [H, W, 3], depth [H, W])."""
+    lib = get_lib()
+    verts_clip = np.ascontiguousarray(verts_clip, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    if len(faces) and (faces.min() < 0 or faces.max() >= len(verts_clip)):
+        raise ValueError("rasterize: face index out of range")
+    face_id = np.empty((height, width), np.int32)
+    bary = np.empty((height, width, 3), np.float32)
+    depth = np.empty((height, width), np.float32)
+    lib.hy3d_rasterize(verts_clip, len(verts_clip), faces, len(faces), height, width,
+                       face_id, bary, depth)
+    return face_id, bary, depth
+
+
+def grid_put_linear(coords: np.ndarray, values: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bilinear scatter splat of values [n, C] at coords [n, 2] in [0, 1]
+    (x → rows, y → cols) → [h, w, C] grid normalised by the splatted
+    weight."""
+    lib = get_lib()
+    coords = np.ascontiguousarray(coords, np.float32)
+    values = np.ascontiguousarray(values, np.float32)
+    if coords.shape != (len(values), 2):
+        raise ValueError(f"grid_put_linear: coords {coords.shape} for {len(values)} values")
+    out = np.empty((h, w, values.shape[1]), np.float32)
+    lib.hy3d_grid_put_linear(coords, values, len(coords), h, w, values.shape[1], out)
+    return out
+
+
+def pushpull_fill(texture: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """O(N) pyramid hole fill: texels under mask (255) keep their values,
+    the others take valid-weighted coarse averages."""
+    lib = get_lib()
+    texture = np.array(texture, np.float32, order="C")
+    mask = np.ascontiguousarray(mask, np.uint8)
+    h, w, c = texture.shape
+    if mask.shape != (h, w):
+        raise ValueError(f"pushpull_fill: mask {mask.shape} for texture {texture.shape}")
+    lib.hy3d_pushpull_fill(texture, mask, h, w, c)
+    return texture
+
+
+def vertex_inpaint(texture: np.ndarray, mask: np.ndarray, vtx_pos: np.ndarray,
+                   vtx_uv: np.ndarray, pos_idx: np.ndarray, uv_idx: np.ndarray):
+    """Propagate painted vertex colours along the mesh graph into unpainted
+    texels → (texture, mask)."""
+    lib = get_lib()
+    texture = np.ascontiguousarray(texture, np.float32)
+    mask = np.ascontiguousarray(mask, np.uint8)
+    th, tw, tc = texture.shape
+    if mask.shape != (th, tw) or np.shape(pos_idx) != np.shape(uv_idx):
+        raise ValueError("vertex_inpaint: mask or index shapes disagree with the texture")
+    out_tex = np.empty_like(texture)
+    out_mask = np.empty_like(mask)
+    lib.hy3d_vertex_inpaint(
+        texture, mask, out_tex, out_mask, th, tw, tc,
+        np.ascontiguousarray(vtx_pos, np.float32), len(vtx_pos),
+        np.ascontiguousarray(vtx_uv, np.float32), len(vtx_uv),
+        np.ascontiguousarray(pos_idx, np.int32), np.ascontiguousarray(uv_idx, np.int32),
+        len(pos_idx))
+    return out_tex, out_mask

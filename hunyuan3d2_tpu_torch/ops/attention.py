@@ -3,8 +3,10 @@
 ``sdpa`` is the plain scaled-dot-product attention with an fp32 softmax.
 ``attention`` takes the JAX package's gate (no mask, Lq >= 512, D in
 {64, 128}) and sends CUDA tensors that pass it to the hand-written flash
-kernel (ops/flash_attention.py); everything else goes to ``sdpa``. A kernel
-that fails to build or launch raises: there is no fallback around it.
+kernel (ops/flash_attention.py); everything else goes to ``sdpa``.
+``masked_attention`` does the same with a [B, Lq, Lk] mask shared across
+heads, through the masked kernel. A kernel that fails to build or launch
+raises: there is no fallback around it.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_masked
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
@@ -44,6 +46,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if use_flash(q):
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
     return sdpa(q, k, v, scale=scale)
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Attention under a per-batch bool mask [B, Lq, Lk] shared across heads
+    (the paint UNet's voxel-locality mask): the masked flash kernel where the
+    gate admits it, else :func:`sdpa` with the mask."""
+    if use_flash(q):
+        return flash_attention_masked(q.contiguous(), k.contiguous(), v.contiguous(), mask,
+                                      scale=scale)
+    return sdpa(q, k, v, scale=scale, mask=mask[:, None])
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""Flash attention: the hand-written Hopper kernel and its plain twin.
+"""Flash attention, unmasked and masked: the hand-written Hopper kernel and
+its plain twins.
 
 Port of hunyuan3d2_tpu/ops/flash_attention.py ``flash_attention`` (the
-Pallas kernel ``_flash`` / ``_kernel``). The CUDA source is
+Pallas kernel ``_flash`` / ``_kernel``) and ``flash_attention_masked``
+(``_flash_masked`` / ``_kernel_masked``). The CUDA source is
 ``csrc/flash_attention.cu``; its header says how it is laid out and what
 bounds it on the H100.
 
@@ -9,6 +11,8 @@ Same function as the TPU kernel: the scale is folded into q in fp32 and
 rounded back to the input dtype before the product, softmax state and
 accumulator are fp32, padded key columns are masked, the output is
 acc / max(l, 1e-30) in the input dtype. bf16 and fp32 inputs, D in {64, 128}.
+The masked form takes a [B, Lq, Lk] bool mask shared across the heads;
+masked scores get no weight, so a fully masked row gives 0.
 
 A CPU tensor goes through :func:`flash_attention_plain`; a CUDA tensor
 launches the kernel or raises.
@@ -38,6 +42,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", w.float(), v.float()).to(q.dtype)
 
 
+def flash_attention_masked_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 mask: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """The masked kernel's function in plain PyTorch: scale folded into q in
+    the input dtype, fp32 logits, p = exp(s - max) over the allowed keys and
+    0 elsewhere, p rounded to the input dtype before the P·V product, the
+    sum divided by max(l, 1e-30) after it (so a fully masked row is 0)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qs = (q.float() * scale).to(q.dtype)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
+    allowed = mask[:, None]
+    logits = torch.where(allowed, logits, -1e30)
+    p = torch.where(allowed, torch.exp(logits - logits.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
+    return (out / l.clamp_min(1e-30)).to(q.dtype)
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes [B, H, L, D] q, k, v")
@@ -63,7 +85,7 @@ def _lib():
 
     lib = cuda_build.load("flash_attention")
     fn = lib.hy3d_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -76,15 +98,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
-    b, h, lq, d = q.shape
-    lk = k.shape[2]
-    out = torch.empty_like(q)
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, lq, lk, d,
-                 _DTYPES[q.dtype], float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    out = _launch(q, k, v, None, scale)
     flash_attention.launches += 1
     return out
 
 
+def _launch(q, k, v, mask, scale):
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    out = torch.empty_like(q)
+    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if mask is None else mask.data_ptr(), out.data_ptr(), b * h, h, lq, lk, d,
+                 _DTYPES[q.dtype], float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    return out
+
+
+def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, H, Lq, D], k/v [B, H, Lk, D], mask [B, Lq, Lk] bool (True =
+    attend, shared across heads) → [B, H, Lq, D] in q.dtype."""
+    _check(q, k, v)
+    b, _, lq, _ = q.shape
+    if mask.dtype != torch.bool or tuple(mask.shape) != (b, lq, k.shape[2]):
+        raise ValueError(f"flash_attention_masked takes a bool [B, Lq, Lk] mask "
+                         f"{(b, lq, k.shape[2])}, got {mask.dtype} {tuple(mask.shape)}")
+    if mask.device != q.device:
+        raise ValueError("flash_attention_masked: mask lies on another device than q")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return flash_attention_masked_plain(q, k, v, mask, scale)
+    # torch.bool is one byte of 0 or 1: the kernel reads it as uint8
+    out = _launch(q, k, v, mask.contiguous(), scale)
+    flash_attention_masked.launches += 1
+    return out
+
+
 flash_attention.launches = 0
+flash_attention_masked.launches = 0

@@ -132,11 +132,11 @@ def build(cls, *args, device=None, generator: Optional[torch.Generator] = None, 
     device = torch.device(device if device is not None else "cuda")
     with torch.device("meta"):
         module = cls(*args, **kwargs)
-    module = module.to_empty(device=device)
+    module = module.to_empty(device=device).requires_grad_(False)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     init_random_(module, generator)
     for m in module.modules():  # each draws only its own non-Linear parameters
         if hasattr(m, "init_random_"):
             m.init_random_(generator)
-    return module.eval().requires_grad_(False)
+    return module.eval()

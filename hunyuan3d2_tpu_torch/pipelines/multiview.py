@@ -1,0 +1,48 @@
+"""Multiview diffusion wrapper (port of hunyuan3d2_tpu/pipelines/multiview.py,
+the ``init_random`` form: the checkpoint loader waits for the paint
+weights).
+
+Resizes the inputs to the view size, packs the normal + position control
+maps and the camera indices into the paint pipeline's call, and seeds the
+sampler with 0, as the reference does.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+from hunyuan3d2_tpu_torch.pipelines.hunyuanpaint import HunyuanPaintPipeline
+
+
+class Multiview_Diffusion_Net:
+    def __init__(self, pipeline: HunyuanPaintPipeline, view_size: int = 512,
+                 num_inference_steps: int = 30):
+        self.pipeline = pipeline
+        self.view_size = view_size
+        self.num_inference_steps = num_inference_steps
+
+    @classmethod
+    def init_random(cls, size: str = "tiny", view_size: int = 64, num_inference_steps: int = 30,
+                    device=None, seed: int = 0):
+        return cls(HunyuanPaintPipeline.init_random(size=size, view_size=view_size,
+                                                    device=device, seed=seed),
+                   view_size, num_inference_steps)
+
+    def __call__(self, input_images, control_images, camera_info: List[int],
+                 output_type: str = "pil", init_latents=None, step_noises=None):
+        """``control_images``: the (normal, position) cond maps, uint8
+        tensors [N, size, size, 3] on the device (the device path's; the
+        host renders of PIL control images are not ported)."""
+        if not isinstance(input_images, list):
+            input_images = [input_images]
+        size = self.view_size
+        input_images = [im.resize((size, size)) for im in input_images]
+        normal, position = control_images
+        if normal.shape[1:3] != (size, size):
+            raise ValueError(f"control maps are {tuple(normal.shape[1:3])}, the view size is "
+                             f"{size}²")
+        return self.pipeline(
+            input_images, width=size, camera_info_gen=[camera_info],
+            normal_imgs=normal, position_imgs=position,
+            num_inference_steps=self.num_inference_steps, seed=0, output_type=output_type,
+            init_latents=init_latents, step_noises=step_noises).images

@@ -60,6 +60,77 @@ def test_geo_decode_kernel_matches_plain(gen, width, heads, latents, p):
     assert np.abs(out - ref).max() < 0.05 * max(1.0, np.abs(ref).max())
 
 
+@pytest.mark.parametrize("dt,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,h,lq,lk,d", [(1, 10, 6144, 6144, 64), (2, 3, 130, 200, 64),
+                                         (1, 4, 700, 333, 128), (2, 2, 512, 1040, 64)])
+def test_masked_flash_attention_kernel_matches_plain(gen, b, h, lq, lk, d, dt, tol):
+    from hunyuan3d2_tpu_torch.ops.flash_attention import (
+        flash_attention_masked,
+        flash_attention_masked_plain,
+    )
+
+    q = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt)
+    mask = torch.rand(b, lq, lk, generator=gen, device="cuda") < 0.3
+    mask[:, 0] = False                  # fully masked → 0
+    mask[:, 1, :64] = False             # the first key tile masked
+    mask[:, 2] = False
+    mask[:, 2, lk - 1] = True           # one key, in the ragged last tile
+    before = flash_attention_masked.launches
+    out = flash_attention_masked(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert flash_attention_masked.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    assert (out[:, :, 0] == 0).all()
+    torch.testing.assert_close(out.float(), flash_attention_masked_plain(q, k, v, mask).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(out[:, :, 2].float(), v[:, :, lk - 1].float(), atol=tol, rtol=tol)
+
+
+def _raster_case(gen, n_faces):
+    """Random clip-space triangles of both windings, plus a degenerate face,
+    exact depth ties (copies of earlier faces at higher ids) and one face
+    bigger than the screen."""
+    nv = 3 * n_faces
+    v = torch.rand(nv, 4, generator=gen, device="cuda") * 1.8 - 0.9
+    v[:, 3] = 1.0
+    f = torch.randint(0, nv, (n_faces, 3), generator=gen, device="cuda", dtype=torch.int32)
+    f[1::2] = f[1::2].flip(1)
+    big = torch.tensor([[-3.0, -3.0, 0.9, 1.0], [3.0, -3.0, 0.9, 1.0], [0.0, 3.0, 0.9, 1.0]],
+                       device="cuda")
+    v = torch.cat([v, big])
+    extra = torch.tensor([[0, 0, 1], [nv, nv + 1, nv + 2]], device="cuda", dtype=torch.int32)
+    return v, torch.cat([f, f[:50], extra])
+
+
+@pytest.mark.parametrize("n_faces,h,w", [(2000, 512, 512), (300, 97, 131), (40000, 2048, 2048)])
+def test_rasterize_kernel_matches_plain(gen, n_faces, h, w):
+    from hunyuan3d2_tpu_torch.ops.rasterize import (
+        face_setup,
+        rasterize,
+        rasterize_plain,
+        rasterize_records,
+    )
+
+    v, f = _raster_case(gen, n_faces)
+    before = rasterize.launches
+    out = rasterize(v, f, h, w)
+    ref = rasterize_plain(*face_setup(v, f, h, w), h, w)
+    passes = rasterize_records(*face_setup(v, f, h, w), h, w)
+    torch.cuda.synchronize()
+    assert rasterize.launches == before + 2
+    torch.testing.assert_close(passes.face_id, out.face_id, atol=0, rtol=0)
+    # the same records and the same rounding (no FMA contraction) in both
+    torch.testing.assert_close(out.face_id, ref.face_id, atol=0, rtol=0)
+    torch.testing.assert_close(out.bary, ref.bary, atol=0, rtol=0)
+    torch.testing.assert_close(out.depth, ref.depth, atol=0, rtol=0)
+    fid = out.face_id
+    assert not ((fid >= n_faces) & (fid < n_faces + 50)).any()   # ties go to the lower id
+    assert not (fid == n_faces + 50).any()                        # the degenerate face
+    assert (fid == n_faces + 51).any()                            # the big face
+
+
 def test_kernel_wrappers_raise_on_bad_input(gen):
     from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
 
@@ -68,3 +139,11 @@ def test_kernel_wrappers_raise_on_bad_input(gen):
         flash_attention(q, q.cpu(), q.cpu())
     with pytest.raises(ValueError):
         flash_attention(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention_masked
+    from hunyuan3d2_tpu_torch.ops.rasterize import rasterize
+
+    with pytest.raises(ValueError):
+        flash_attention_masked(q, q, q, torch.ones(1, 64, 32, dtype=torch.bool, device="cuda"))
+    with pytest.raises(ValueError):
+        rasterize(torch.zeros(3, 3, device="cuda"), torch.zeros(1, 3, dtype=torch.int32,
+                                                                device="cuda"), 8, 8)

@@ -14,10 +14,14 @@ import torch
 from PIL import Image
 
 import hunyuan3d2_tpu_torch
-from hunyuan3d2_tpu_torch.ops import attention, flash_attention, geo_decoder
+from hunyuan3d2_tpu_torch.ops import attention, conv, flash_attention, geo_decoder, rasterize
 from hunyuan3d2_tpu_torch.io import convert
+from hunyuan3d2_tpu_torch.geometry import camera, render, render_device, uv
+from hunyuan3d2_tpu_torch.models import paint_unet, sd_vae
+from hunyuan3d2_tpu_torch.pipelines import hunyuanpaint, multiview, paint_schedulers, texgen
 from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
 from hunyuan3d2_tpu_torch.utils import cuda_build
+from hunyuan3d2_tpu_torch import native
 
 pipe = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="tiny", dino="tiny", device="cpu")
 pipe.enable_flashvdm(mc_algo="dmc")
@@ -25,6 +29,11 @@ img = np.zeros((32, 32, 4), np.uint8)
 img[8:24, 8:24] = 200
 mesh = pipe(Image.fromarray(img), num_inference_steps=1, octree_resolution=16)[0]
 assert mesh.vertices.shape[1] == 3
+paint = hunyuan3d2_tpu_torch.Hunyuan3DPaintPipeline.init_random(
+    size="tiny", view_size=32, render_size=48, texture_size=48, num_inference_steps=1,
+    device="cpu").set_turbo()
+textured = paint(mesh, Image.fromarray(img))
+assert textured.texture.shape == (48, 48, 3) and textured.uv.shape == (len(textured.vertices), 2)
 bad = sorted(m for m in sys.modules if m in ("jax", "hunyuan3d2_tpu")
              or m.startswith(("jax.", "jaxlib", "hunyuan3d2_tpu.")))
 print("FORBIDDEN", bad)
