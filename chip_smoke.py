@@ -6,29 +6,38 @@
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel from csrc/ (one nvcc per source, in parallel);
-  3. each kernel against its plain PyTorch twin at the shapes of the two
+  3. each kernel against its plain PyTorch twin at the shapes of the three
      paths, with its time, the plain time, the time of one library call
      where one computes the same function, and its bound on the card: flash
-     attention (DINOv2, DiT, VAE and the paint UNet's shapes), the fused geo
-     decoder, the masked flash attention under voxel masks built from the
-     test sphere's cond maps, and the rasterizer on that sphere (a 512² view
-     and the 2048² UV raster);
+     attention (DINOv2, DiT, VAE, the paint UNet's shapes, the v2-0 Fast
+     DiT and the streamed geo decode's attention), the fused geo decoder,
+     the streamed decode's MLP-tail kernel on x2 from the v2-0 VAE (then the
+     whole streamed decode against the plain decode), the masked flash
+     attention under voxel masks built from the test sphere's cond maps, and
+     the rasterizer on that sphere (a 512² view and the 2048² UV raster);
   4. slice 1 at full width: image → mesh with DINOv2-giant, the mini DiT
      (5 steps, CFG 5.0) and the mini ShapeVAE (FlashVDM decode at octree 256,
      capped surface buffers), random weights from a seed, run cold and warm;
      the kernels' launch counts are read from the warm run, and the GLB is
      written under tmp/; then the decode against the plain decode on a small
      grid; then the stack is freed;
-  5. slice 2 at full width: mesh + image → textured GLB through the
+  5. slice 3 at full width: image → mesh on the v2-0 stack (DINOv2-giant,
+     the FULL DiT with the guidance embedding, 5 steps at guidance 5.0, the
+     3072-latent FULL ShapeVAE through the streamed decode at octree 380 and
+     num_chunks 200,000), run cold and warm, the GLB written and read back;
+     its decode against the plain decode on a small grid; then one warm run
+     of the multiview variant (3 views through DinoImageEncoderMV and
+     MVImageProcessorV2 on the same stack); then the stack is freed;
+  6. slice 2 at full width: mesh + image → textured GLB through the
      paint-turbo stack (2.5D UNet DEFAULT with its dual copy, SD VAE DEFAULT,
      6 views at 512², LCM 10 steps, render 2048, texture 2048, bake exponent
      4), random weights from a seed, on a ~40k-face sphere from the port's
      surface nets, run cold and warm; stage times, launch counts and peak
      memory; the textured GLB is written under tmp/ and read back;
-  6. slice 2 at a small size on the card against the same stack on the CPU
+  7. slice 2 at a small size on the card against the same stack on the CPU
      (plain twins), with the same weights and noise, at a head size and
      sequence lengths that send the UNet through both attention kernels;
-  7. a JSON line with every kernel's numbers, then the result line.
+  8. a JSON line with every kernel's numbers, then the result line.
 Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -115,14 +124,21 @@ def flash_phase(gen):
     # attention_check): bf16 output is rounded once and P is rounded before
     # P.V in both, at other block boundaries; fp32 differs only in summation
     # order. The paint rows are the UNet's multiview attention at 64² latents
-    # (6 views), its reference attention and its cross-attention (77 keys).
+    # (6 views), its reference attention and its cross-attention (77 keys);
+    # "dit full fast" is the v2-0 Fast DiT (3072 latents + 1370 cond tokens,
+    # batch 1), "vae full" the v2-0 VAE's self-attention, "geo stream" one
+    # fine chunk of the streamed decode at octree 380 (390 blocks of 8³
+    # queries) over the 3072 latents.
     for name, (b, h, lq, lk, d), dt, tol in (
             ("dinov2", (1, 24, 1370, 1370, 64), torch.bfloat16, 2e-2),
             ("dit", (2, 16, 1882, 1882, 64), torch.bfloat16, 2e-2),
             ("vae", (1, 16, 512, 512, 64), torch.float32, 1e-4),
             ("paint multiview", (1, 5, 24576, 24576, 64), torch.bfloat16, 2e-2),
             ("paint reference", (6, 5, 4096, 4096, 64), torch.bfloat16, 2e-2),
-            ("paint cross", (6, 5, 4096, 77, 64), torch.bfloat16, 2e-2)):
+            ("paint cross", (6, 5, 4096, 77, 64), torch.bfloat16, 2e-2),
+            ("dit full fast", (1, 16, 4442, 4442, 64), torch.bfloat16, 2e-2),
+            ("vae full", (1, 16, 3072, 3072, 64), torch.float32, 1e-4),
+            ("geo stream", (1, 16, 199680, 3072, 64), torch.bfloat16, 2e-2)):
         q = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt) for _ in range(2))
 
@@ -191,6 +207,85 @@ def geo_phase(gen):
     return rows
 
 
+def plain_decode(vae, pts, k16, v16, chunk=8192):
+    """The plain decode in query chunks, which keeps sdpa's fp32 scores
+    [1, H, chunk, L] in memory at 3072 latents."""
+    import torch
+
+    from hunyuan3d2_tpu_torch.ops.geo_decoder import decode_queries_plain
+
+    return torch.cat([decode_queries_plain(vae, pts[:, i:i + chunk], k16, v16).float()
+                      for i in range(0, pts.shape[1], chunk)], dim=1)
+
+
+def stream_phase(gen):
+    """The MLP-tail kernel on x2 made by the streamed decode of the FULL
+    (v2-0) VAE, at the coarse pass (49³ = 117,649 queries) and one fine
+    chunk (390 blocks of 8³ = 199,680) of octree 380; then the whole
+    streamed decode against the plain decode at P = 65,536."""
+    import torch
+
+    from hunyuan3d2_tpu_torch.models import shapevae as sv
+    from hunyuan3d2_tpu_torch.ops.geo_decoder import (
+        fused_geo_decode_stream,
+        geo_mlp_tail,
+        geo_mlp_tail_plain,
+        geo_stream_x2,
+    )
+
+    cfg = sv.FULL
+    vae = sv.ShapeVAE.init_random(cfg, device="cuda", generator=gen)
+    lat = torch.randn(1, cfg.num_latents, cfg.embed_dim, generator=gen, device="cuda")
+    k, v = vae.compute_kv(vae.decode_latents(lat))
+    k16, v16 = k.to(torch.bfloat16).contiguous(), v.to(torch.bfloat16).contiguous()
+    w, m = cfg.width, cfg.geo_decoder_mlp_expand_ratio * cfg.width
+    rows = []
+    for p in (117649, 199680):
+        pts = (torch.rand(1, p, 3, generator=gen, device="cuda") * 2.02 - 1.01).contiguous()
+        x2 = geo_stream_x2(vae, pts, k16, v16)
+        out = geo_mlp_tail(vae, x2)
+        ref = geo_mlp_tail_plain(vae, x2)
+        torch.cuda.synchronize()
+        check(torch.isfinite(out).all().item(), f"geo_mlp_tail P={p}: non-finite output")
+        err = (out - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        tol = 1e-2 * max(1.0, ref_max)
+        corr = torch.corrcoef(torch.stack([out.ravel(), ref.ravel()]))[0, 1].item()
+        # the twin keeps the fp32 residual as the kernel does: only the order
+        # of fp32 sums (and erff) differ, so an LN or GELU output may round
+        # to the neighbouring bf16 value
+        check(err <= tol and corr >= 0.9999,
+              f"geo_mlp_tail P={p}: max abs err {err} (tol {tol}), corr {corr}")
+        ms = time_ms(lambda: geo_mlp_tail(vae, x2), 5)
+        plain_ms = time_ms(lambda: geo_mlp_tail_plain(vae, x2), 2)
+        # the two MLP products and the output dot; x2 read once, logits
+        # written once, the MLP weights (bf16) and vectors (fp32) read once
+        flops = 4.0 * w * m * p + 2.0 * w * p
+        nbytes = 2 * w * p + 4 * p + 2 * 2 * w * m + 4 * (m + 6 * w)
+        bound_ms, by = bound(flops, nbytes, "bf16")
+        row = dict(shape=f"x2 [1, {p}, {w}] bf16, MLP {m}", max_abs_err=err,
+                   max_rel_err=err / ref_max, tol=tol, corr=corr, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms, bound_by=by)
+        log("geo_mlp_tail " + json.dumps(row))
+        rows.append(row)
+        del pts, x2, out, ref
+    p = 65536
+    pts = (torch.rand(1, p, 3, generator=gen, device="cuda") * 2.02 - 1.01).contiguous()
+    out = fused_geo_decode_stream(vae, pts, k16, v16)
+    ref = plain_decode(vae, pts, k16, v16)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    corr = torch.corrcoef(torch.stack([out.ravel(), ref.ravel()]))[0, 1].item()
+    log(f"stream decode check (P={p}, 3072 latents): max abs err {err:.5f} of scale "
+        f"{scale:.3f}, corr {corr:.7f}")
+    # the plain decode keeps the residual in bf16 where the stream keeps fp32
+    check(math.isfinite(err) and err <= 0.05 * max(1.0, scale) and corr > 0.9999,
+          "stream decode check: the streamed decode disagrees with the plain decode")
+    del vae
+    return rows
+
+
 def test_image():
     import numpy as np
     from PIL import Image
@@ -204,15 +299,62 @@ def test_image():
     return Image.fromarray(img)
 
 
-def main_path():
+def shape_run(name, pipe, image, runs, must_launch, must_not_launch=(), **call):
+    """Drive ``pipe(image, **call)`` once per run name with the kernels'
+    counts set to 0 just before; log stage times, launches and peak memory,
+    check the mesh, and return (the last run's mesh, its launch counts)."""
     import numpy as np
     import torch
 
-    from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
-    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
-    from hunyuan3d2_tpu_torch.ops.geo_decoder import fused_geo_decode
-    from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
     from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
+
+    counters = _kernel_counters()
+    for run in runs:
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        meshes = pipe(image, seed=1234, **call)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        mesh = meshes[0]
+        stages = {k: round(LAST_TIMINGS[k], 4) for k in
+                  ("Preprocess", "Encode Cond", "Diffusion Sampling", "Volume Decoding")}
+        log(f"{name} {run}: {elapsed:.3f} s, stages {json.dumps(stages)}, "
+            f"{len(mesh.vertices)} vertices, {len(mesh.faces)} faces, launches "
+            f"{json.dumps(launches)}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check(len(mesh.vertices) > 0 and len(mesh.faces) > 0, f"{name}: empty mesh")
+        check(np.isfinite(mesh.vertices).all(), f"{name}: non-finite vertices")
+        check(np.abs(mesh.vertices).max() <= 1.01 + 1e-4, f"{name}: vertices outside the box")
+        check(mesh.faces.min() >= 0 and mesh.faces.max() < len(mesh.vertices),
+              f"{name}: face index out of range")
+    for n in must_launch:
+        check(launches[n] > 0, f"{name}: kernel {n} was never launched")
+    for n in must_not_launch:
+        check(launches[n] == 0, f"{name}: kernel {n} was launched off its path")
+    return mesh, launches
+
+
+def write_glb(name, mesh, filename):
+    import numpy as np
+
+    from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
+
+    os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
+    path = os.path.join(ROOT, "tmp", filename)
+    mesh.export(path)
+    back = Mesh.load(path)
+    check(np.array_equal(back.faces, mesh.faces) and np.array_equal(back.vertices, mesh.vertices),
+          f"{name}: GLB round trip differs")
+    log(f"{name}: wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes), read back")
+
+
+def main_path():
+    import torch
+
+    from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
 
     os.environ["HY3D_CAP_ACTIVES"] = "1"
     t0 = time.perf_counter()
@@ -222,49 +364,98 @@ def main_path():
     torch.cuda.synchronize()
     log(f"main path: stack up in {time.perf_counter() - t0:.2f} s "
         f"(DINOv2-giant, mini DiT, mini ShapeVAE, random weights, seed 0)")
-    image = test_image()
-    launches = {}
-    for run in ("cold", "warm"):
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
-        fused_geo_decode.launches = 0
-        t0 = time.perf_counter()
-        meshes = pipe(image, num_inference_steps=5, guidance_scale=5.0, octree_resolution=256,
-                      num_chunks=65536, seed=1234)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        launches = {"flash_attention": flash_attention.launches,
-                    "fused_geo_decode": fused_geo_decode.launches}
-        mesh = meshes[0]
-        stages = {k: round(LAST_TIMINGS[k], 4) for k in
-                  ("Preprocess", "Encode Cond", "Diffusion Sampling", "Volume Decoding")}
-        log(f"main path {run}: {elapsed:.3f} s, stages {json.dumps(stages)}, "
-            f"{len(mesh.vertices)} vertices, {len(mesh.faces)} faces, launches "
-            f"{json.dumps(launches)}, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        check(len(mesh.vertices) > 0 and len(mesh.faces) > 0, "main path: empty mesh")
-        check(np.isfinite(mesh.vertices).all(), "main path: non-finite vertices")
-        check(np.abs(mesh.vertices).max() <= 1.01 + 1e-4, "main path: vertices outside the box")
-        check(mesh.faces.min() >= 0 and mesh.faces.max() < len(mesh.vertices),
-              "main path: face index out of range")
-    for name, n in launches.items():
-        check(n > 0, f"main path: kernel {name} was never launched")
-    os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
-    path = os.path.join(ROOT, "tmp", "chip_smoke.glb")
-    mesh.export(path)
-    back = Mesh.load(path)
-    check(np.array_equal(back.faces, mesh.faces) and np.array_equal(back.vertices, mesh.vertices),
-          "GLB round trip differs")
-    log(f"main path: wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
+    mesh, launches = shape_run("main path", pipe, test_image(), ("cold", "warm"),
+                               ("flash_attention", "fused_geo_decode"), ("geo_mlp_tail",),
+                               num_inference_steps=5, guidance_scale=5.0,
+                               octree_resolution=256, num_chunks=65536)
+    write_glb("main path", mesh, "chip_smoke.glb")
     return pipe, launches
 
 
-def decode_agreement(pipe, gen):
-    """The main path's decode (fused kernel) against the plain decode on a
-    small grid, from fresh latents through the mini VAE."""
+def v20_path():
+    """Slice 3: the v2-0 Fast stack at full width through the user's entry
+    points, with the settings of the reference's
+    examples/fast_shape_gen_with_flashvdm.py (5 steps, octree 380,
+    num_chunks 200,000)."""
     import torch
 
-    from hunyuan3d2_tpu_torch.ops.geo_decoder import decode_queries_plain
+    from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
+
+    os.environ["HY3D_CAP_ACTIVES"] = "1"
+    t0 = time.perf_counter()
+    pipe = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="full", guidance_embed=True,
+                                                        dino="giant", device="cuda", seed=0)
+    pipe.enable_flashvdm(mc_algo="dmc")
+    torch.cuda.synchronize()
+    log(f"v2-0 path: stack up in {time.perf_counter() - t0:.2f} s (DINOv2-giant, FULL DiT "
+        f"16 + 32 blocks with the guidance embedding, FULL ShapeVAE 3072 latents, random "
+        f"weights, seed 0)")
+    mesh, launches = shape_run("v2-0 path", pipe, test_image(), ("cold", "warm"),
+                               ("flash_attention", "geo_mlp_tail"), ("fused_geo_decode",),
+                               num_inference_steps=5, guidance_scale=5.0,
+                               octree_resolution=380, num_chunks=200000)
+    write_glb("v2-0 path", mesh, "chip_smoke_v20.glb")
+    return pipe, launches
+
+
+def v20_decode_breakdown(pipe, gen):
+    """Volume Decoding of the v2-0 path in its parts (host clock around
+    synchronised calls, one warm call each): the VAE trunk and K/V, the
+    block-sparse decode through the streamed decode (19 calls of the decode
+    function), and the surface nets on the 381³ grid."""
+    import torch
+
+    from hunyuan3d2_tpu_torch.models.shapevae import active_capacity, face_capacity
+    from hunyuan3d2_tpu_torch.volume.decoders import surface_nets_from_grid
+
+    vae = pipe.vae
+    lat = torch.randn(1, vae.cfg.num_latents, vae.cfg.embed_dim, generator=gen, device="cuda")
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        (k, v), t_trunk = timed(lambda: vae.compute_kv(vae.decode_latents(lat)))
+        decode = vae.query_decoder(k, v)
+        grid, t_grid = timed(lambda: vae.volume_decoder(decode, 1, 380, num_chunks=200000,
+                                                        device=vae.device))
+        _, t_surf = timed(lambda: surface_nets_from_grid(grid, 0.0, 1.01, active_capacity(380),
+                                                         face_capacity(380)))
+    log(f"v2-0 Volume Decoding parts: VAE trunk + K/V {t_trunk:.4f} s, block-sparse decode "
+        f"{t_grid:.4f} s, surface nets {t_surf:.4f} s")
+
+
+def multiview_run(pipe):
+    """The multiview variant on the v2-0 stack: the same DINOv2 tower behind
+    DinoImageEncoderMV, three views (front, left, back) through
+    MVImageProcessorV2; a first run, then the warm one."""
+    from PIL import Image
+
+    from hunyuan3d2_tpu_torch.models.conditioner import DinoImageEncoderMV, SingleImageEncoder
+    from hunyuan3d2_tpu_torch.utils.imageproc import MVImageProcessorV2
+
+    main = pipe.conditioner.main
+    pipe.conditioner = SingleImageEncoder(DinoImageEncoderMV(main.cfg, model=main.model))
+    pipe.image_processor = MVImageProcessorV2()
+    img = test_image()
+    views = {"front": img, "left": img.transpose(Image.ROTATE_90),
+             "back": img.transpose(Image.FLIP_LEFT_RIGHT)}
+    _, launches = shape_run("multiview (3 views) path", pipe, views, ("first", "warm"),
+                            ("flash_attention", "geo_mlp_tail"), ("fused_geo_decode",),
+                            num_inference_steps=5, guidance_scale=5.0,
+                            octree_resolution=380, num_chunks=200000)
+    return launches
+
+
+def decode_agreement(pipe, gen):
+    """The path's decode (the kernels) against the plain decode on a small
+    grid, from fresh latents through the path's VAE."""
+    import torch
 
     vae = pipe.vae
     lat = torch.randn(1, vae.cfg.num_latents, vae.cfg.embed_dim, generator=gen, device="cuda")
@@ -272,13 +463,13 @@ def decode_agreement(pipe, gen):
         k, v = vae.compute_kv(vae.decode_latents(lat))
         k16, v16 = k.to(torch.bfloat16).contiguous(), v.to(torch.bfloat16).contiguous()
         grid = vae.decode_grid(lat, octree_resolution=64)
-        plain = vae.volume_decoder(lambda p: decode_queries_plain(vae, p, k16, v16).float(), 1,
-                                   64, device=vae.device)
+        plain = vae.volume_decoder(lambda p: plain_decode(vae, p, k16, v16), 1, 64,
+                                   device=vae.device)
     err = (grid - plain).abs().max().item()
     scale = plain.abs().max().item()
     same_sign = ((grid > 0) == (plain > 0)).float().mean().item()
-    log(f"decode check (octree 64): max abs err {err:.5f} of scale {scale:.3f}, "
-        f"sign agreement {same_sign:.6f}")
+    log(f"decode check ({vae.cfg.num_latents} latents, octree 64): max abs err {err:.5f} of "
+        f"scale {scale:.3f}, sign agreement {same_sign:.6f}")
     check(math.isfinite(err) and err <= 0.05 * max(1.0, scale) and same_sign >= 0.99,
           "decode check: kernel grid disagrees with the plain decode")
 
@@ -433,11 +624,12 @@ def raster_phase(sphere):
 
 def _kernel_counters():
     from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_masked
-    from hunyuan3d2_tpu_torch.ops.geo_decoder import fused_geo_decode
+    from hunyuan3d2_tpu_torch.ops.geo_decoder import fused_geo_decode, geo_mlp_tail
     from hunyuan3d2_tpu_torch.ops.rasterize import rasterize
 
     return {"flash_attention": flash_attention, "flash_attention_masked": flash_attention_masked,
-            "fused_geo_decode": fused_geo_decode, "rasterize": rasterize}
+            "fused_geo_decode": fused_geo_decode, "geo_mlp_tail": geo_mlp_tail,
+            "rasterize": rasterize}
 
 
 def texture_path(sphere):
@@ -585,6 +777,7 @@ def main() -> int:
     with torch.no_grad():
         flash_rows = flash_phase(gen)
         geo_rows = geo_phase(gen)
+        tail_rows = stream_phase(gen)
         masked_rows = masked_phase(gen, sphere)
         raster_rows = raster_phase(sphere)
     pipe, launches_mesh = main_path()
@@ -592,18 +785,27 @@ def main() -> int:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
+    pipe, launches_v20 = v20_path()
+    v20_decode_breakdown(pipe, gen)
+    decode_agreement(pipe, gen)
+    launches_mv = multiview_run(pipe)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     launches_tex = texture_path(sphere)
     texture_agreement()
-    by_path = {"image_to_mesh": launches_mesh, "textured_glb": launches_tex}
+    by_path = {"image_to_mesh": launches_mesh, "image_to_mesh_v2_0_fast": launches_v20,
+               "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex}
 
-    def entry(name, source, replaces, rows, main_row):
+    def entry(name, source, replaces, rows, main_row, path):
+        """``launches`` is the count from ``path``'s warm run; every path's
+        count is listed beside it."""
         r = rows[main_row]
-        path = "textured_glb" if launches_tex.get(name, 0) > 0 else "image_to_mesh"
-        launches = by_path[path].get(name, 0)
-        check(launches > 0, f"kernel {name} was launched on no path")
+        launches = by_path[path][name]
+        check(launches > 0, f"kernel {name} was not launched on {path}")
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches, launches_path=path,
-                    launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
+                    launches_by_path={p: c[name] for p, c in by_path.items()},
                     max_abs_err=max(x["max_abs_err"] for x in rows),
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
@@ -611,13 +813,16 @@ def main() -> int:
 
     kernels = [
         entry("flash_attention", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
-              "hunyuan3d2_tpu/ops/flash_attention.py:221", flash_rows, 3),
+              "hunyuan3d2_tpu/ops/flash_attention.py:221", flash_rows, 3, "textured_glb"),
         entry("flash_attention_masked", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
-              "hunyuan3d2_tpu/ops/flash_attention.py:159", masked_rows, 0),
+              "hunyuan3d2_tpu/ops/flash_attention.py:159", masked_rows, 0, "textured_glb"),
         entry("fused_geo_decode", "hunyuan3d2_tpu_torch/csrc/geo_decode.cu",
-              "hunyuan3d2_tpu/ops/geo_decoder_pallas.py:221", geo_rows, 1),
+              "hunyuan3d2_tpu/ops/geo_decoder_pallas.py:221", geo_rows, 1, "image_to_mesh"),
+        entry("geo_mlp_tail", "hunyuan3d2_tpu_torch/csrc/geo_decode.cu",
+              "hunyuan3d2_tpu/ops/geo_decoder_pallas.py:377", tail_rows, 1,
+              "image_to_mesh_v2_0_fast"),
         entry("rasterize", "hunyuan3d2_tpu_torch/csrc/rasterize.cu",
-              "hunyuan3d2_tpu/ops/rasterize_tpu.py:301", raster_rows, 1),
+              "hunyuan3d2_tpu/ops/rasterize_tpu.py:301", raster_rows, 1, "textured_glb"),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

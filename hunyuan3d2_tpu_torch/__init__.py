@@ -1,12 +1,14 @@
 """hunyuan3d2_tpu_torch — the PyTorch and CUDA port of hunyuan3d2_tpu.
 
-Image → mesh on the mini shape stack (DINOv2 conditioner → flow-matching
-DiT → ShapeVAE → FlashVDM block-sparse decode → on-device surface nets),
-and mesh + image → textured mesh through the paint-turbo stack (device cond
+Image → mesh on the mini and the v2-0 shape stacks (DINOv2 conditioner,
+single- or multiview → flow-matching DiT, with CFG or a guidance embedding →
+ShapeVAE → FlashVDM block-sparse decode → on-device surface nets), and
+mesh + image → textured mesh through the paint-turbo stack (device cond
 maps → 2.5D UNet multiview diffusion → UV unwrap → texture-space bake).
 Hand-written Hopper kernels: flash attention, unmasked and masked
-(csrc/flash_attention.cu), the fused geo decoder (csrc/geo_decode.cu) and
-the z-buffer rasterizer (csrc/rasterize.cu). Entry points run on ``cuda``
+(csrc/flash_attention.cu), the fused geo decoder and the streamed decode's
+MLP tail (csrc/geo_decode.cu) and the z-buffer rasterizer
+(csrc/rasterize.cu). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on CPU tensors each kernel
 wrapper runs its plain PyTorch twin. The package imports neither ``jax``
 nor ``hunyuan3d2_tpu``.

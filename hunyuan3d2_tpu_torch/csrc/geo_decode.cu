@@ -38,6 +38,27 @@
 //  * The MLP never stores its [16, 4W] hidden layer: each 64-column chunk is
 //    computed, passed through GELU into a small bf16 tile, and multiplied
 //    into the residual at once (y = sum_c gelu(h W1_c) W2_c, exact).
+//
+// A second kernel, `geo_mlp_kernel`, replaces the Pallas TPU kernel
+// hunyuan3d2_tpu/ops/geo_decoder_pallas.py `fused_geo_decode_stream` ->
+// `_geo_mlp_kernel` (the pallas_call at :377, body :274-296): the MLP tail of
+// the streamed decode that takes > 1024 latents (v2-0: 3072), where the K/V
+// no longer fits beside the chain and the projections and the attention run
+// outside (cuBLAS and the flash kernel). Its input is x2 = x + c_proj(attn)
+// rounded to bf16 [P, W]; it computes LN3 -> 4W exact-GELU MLP -> + x2 + bpj
+// -> ln_post -> the one-channel output, with the fp32 residual of the Pallas
+// kernel. This is kernel 3's tail from the residual on, so both kernels call
+// one __device__ routine, `mlp_tail`.
+//
+// What bounds kernel 4 on the H100: per query 4*W*M = 16.8 MFLOP (W = 1024,
+// M = 4096) against 2*W + 4 bytes of activations, so it is operations-bound
+// (3.4 ms of bf16 tensor-core time at P = 200,000). Every CTA reads the 16.8
+// MB of bf16 MLP weights once from the L2. A CTA takes 32 rows (two mma
+// m-tiles) rather than kernel 3's 16: each B fragment read from the L2 then
+// feeds two mma.sync, halving the L2 weight traffic per operation, and the
+// fp32 residual [32, W] (132 KB) + bf16 LN3 output [32, W] (66 KB) + the GELU
+// tile still fit the 227 KB of one block (W <= 1152). Rows past P are zero
+// and never written, so a ragged P needs no padded copy of x2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,6 +91,24 @@ struct GeoArgs {
   float* out;        // [P]
   int P, W, H, D, L, M, num_freqs;
   float freq_mul, eps, scale, bout;
+};
+
+// The MLP tail's arguments (kernel 4 reads x2; kernel 3 passes its own
+// residual and leaves x2 null); the Python wrapper mirrors this layout.
+struct MlpArgs {
+  const __nv_bfloat16* x2;    // [P, W]
+  const float* ln3s;
+  const float* ln3b;
+  const __nv_bfloat16* wfc;   // [M, W]
+  const float* bfc;  // [M]
+  const __nv_bfloat16* wpj;   // [W, M]
+  const float* bpj;
+  const float* lnps;
+  const float* lnpb;
+  const __nv_bfloat16* wout;  // [W]
+  float* out;        // [P]
+  int P, W, M;
+  float eps, bout;
 };
 
 namespace {
@@ -140,6 +179,27 @@ __device__ __forceinline__ void mma_rows(float (&acc)[4], const bf16* A, int lda
   }
 }
 
+// The same for MT m-tiles (rows 16m .. 16m+15 of A): each B fragment read from
+// device memory feeds MT products.
+template <int MT>
+__device__ __forceinline__ void mma_rows_mt(float (&acc)[MT][4], const bf16* A, int lda,
+                                            const bf16* W, int ldw, int n0, int w0, int K, int g,
+                                            int t) {
+  const bf16* wr = W + (size_t)(n0 + g) * ldw + w0 + 2 * t;
+  const bf16* a0 = A + g * lda + 2 * t;
+#pragma unroll 4
+  for (int kk = 0; kk < K; kk += 16) {
+    const uint32_t b0 = ldg32(wr + kk), b1 = ldg32(wr + kk + 8);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const bf16* am = a0 + m * 16 * lda;
+      const uint32_t a[4] = {lds32(am + kk), lds32(am + 8 * lda + kk), lds32(am + kk + 8),
+                             lds32(am + 8 * lda + kk + 8)};
+      mma16816(acc[m], a, b0, b1);
+    }
+  }
+}
+
 // LayerNorm of one fp32 row of n values by one warp (two-pass fp32 statistics,
 // as the JAX package computes them), written as bf16.
 __device__ __forceinline__ void ln_row(const float* x, int n, const float* s, const float* b,
@@ -154,6 +214,84 @@ __device__ __forceinline__ void ln_row(const float* x, int n, const float* s, co
   }
   const float rs = rsqrtf(warp_sum(sq) / n + eps);
   for (int i = lane; i < n; i += 32) y[i] = __float2bfloat16_rn((x[i] - mean) * rs * s[i] + b[i]);
+}
+
+__device__ __forceinline__ float gelu_exact(float z) {
+  return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
+}
+
+// The decoder's tail for the 16*MT rows of one CTA, from the fp32 residual x2
+// in X (row stride xs) to the logits: h3 = LN3(x2) into Hb (row stride hs),
+// X = x2 + bpj + sum_c gelu(h3 . Wfc_c + bfc_c) . Wpj_c over 64-column chunks
+// c (the [rows, M] hidden layer is never stored: each chunk goes through GELU
+// into the bf16 tile Tt and is multiplied into X at once), then
+// out[q0 + r] = LN_post(X_r) . wout + bout with bf16 products and an fp32
+// sum. Rows at or past P are computed and not written. Every thread of the
+// CTA calls it after a barrier that makes X visible.
+template <int MT>
+__device__ void mlp_tail(const MlpArgs& a, float* X, int xs, bf16* Hb, int hs, bf16* Tt,
+                         long long q0) {
+  constexpr int kR = 16 * MT;
+  const int W = a.W;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  for (int r = warp; r < kR; r += kWarps) {
+    float* xr = X + r * xs;
+    ln_row(xr, W, a.ln3s, a.ln3b, a.eps, Hb + r * hs, lane);
+    for (int i = lane; i < W; i += 32) xr[i] += a.bpj[i];
+  }
+  __syncthreads();
+
+  for (int c0 = 0; c0 < a.M; c0 += kChunk) {
+    for (int nt = warp; nt < kChunk / 8; nt += kWarps) {
+      const int n = nt * 8 + 2 * t;
+      float acc[MT][4] = {};
+      mma_rows_mt<MT>(acc, Hb, hs, a.wfc, W, c0 + nt * 8, 0, W, g, t);
+      const float b0 = a.bfc[c0 + n], b1 = a.bfc[c0 + n + 1];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        bf16* tr = Tt + (m * 16 + g) * kTileLd + n;
+        *reinterpret_cast<uint32_t*>(tr) = pack(gelu_exact(acc[m][0] + b0),
+                                                gelu_exact(acc[m][1] + b1));
+        *reinterpret_cast<uint32_t*>(tr + 8 * kTileLd) = pack(gelu_exact(acc[m][2] + b0),
+                                                              gelu_exact(acc[m][3] + b1));
+      }
+    }
+    __syncthreads();
+    for (int nt = warp; nt < W / 8; nt += kWarps) {
+      const int n = nt * 8 + 2 * t;
+      float acc[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* xr = X + (m * 16 + g) * xs + n;
+        acc[m][0] = xr[0];
+        acc[m][1] = xr[1];
+        acc[m][2] = xr[8 * xs];
+        acc[m][3] = xr[8 * xs + 1];
+      }
+      mma_rows_mt<MT>(acc, Tt, kTileLd, a.wpj, a.M, nt * 8, c0, kChunk, g, t);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float* xr = X + (m * 16 + g) * xs + n;
+        xr[0] = acc[m][0];
+        xr[1] = acc[m][1];
+        xr[8 * xs] = acc[m][2];
+        xr[8 * xs + 1] = acc[m][3];
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int r = warp; r < kR; r += kWarps) {
+    ln_row(X + r * xs, W, a.lnps, a.lnpb, a.eps, Hb + r * hs, lane);
+    __syncwarp();
+    float dot = 0.f;
+    for (int i = lane; i < W; i += 32)
+      dot += __bfloat162float(Hb[r * hs + i]) * __bfloat162float(a.wout[i]);
+    dot = warp_sum(dot);
+    if (lane == 0 && q0 + r < a.P) a.out[q0 + r] = dot + a.bout;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 1) geo_decode_kernel(const GeoArgs a) {
@@ -274,54 +412,51 @@ __global__ void __launch_bounds__(kThreads, 1) geo_decode_kernel(const GeoArgs a
   }
   __syncthreads();
 
-  // ---- x2 = x + attn . Wcp + bcp; h3 = LN3(x2); acc = x2 + bpj ----
+  // ---- x2 = x + attn . Wcp + bcp, then the MLP tail ----
   for (int r = warp; r < kRows; r += kWarps) {
     float* xr = X + r * xs;
     for (int i = lane; i < W; i += 32) xr[i] += a.bcp[i];
-    ln_row(xr, W, a.ln3s, a.ln3b, a.eps, Hb + r * hs, lane);
-    for (int i = lane; i < W; i += 32) xr[i] += a.bpj[i];
   }
   __syncthreads();
+  const MlpArgs tail = {nullptr, a.ln3s, a.ln3b, a.wfc, a.bfc, a.wpj, a.bpj, a.lnps, a.lnpb,
+                        a.wout, a.out, a.P, W, a.M, a.eps, a.bout};
+  mlp_tail<1>(tail, X, xs, Hb, hs, Tt, q0);
+}
 
-  // ---- MLP in 64-column chunks: acc += gelu(h3 . Wfc_c + bfc_c) . Wpj_c ----
-  for (int c0 = 0; c0 < a.M; c0 += kChunk) {
-    for (int nt = warp; nt < kChunk / 8; nt += kWarps) {
-      const int n = nt * 8 + 2 * t;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_rows(acc, Hb, hs, a.wfc, W, c0 + nt * 8, 0, W, g, t);
-      float u[4];
+constexpr int kMlpTiles = 2;                // kernel 4: m-tiles per CTA
+constexpr int kMlpRows = 16 * kMlpTiles;    // 32 rows of x2 per CTA
+
+size_t mlp_smem_bytes(int W) {
+  return sizeof(float) * kMlpRows * (W + 8) + sizeof(bf16) * kMlpRows * (W + 8) +
+         sizeof(bf16) * kMlpRows * kTileLd;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) geo_mlp_kernel(const MlpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = a.W;
+  const int xs = W + 8, hs = W + 8;
+  float* X = reinterpret_cast<float*>(smem);              // [32][W+8] fp32 residual
+  bf16* Hb = reinterpret_cast<bf16*>(X + kMlpRows * xs);  // [32][W+8] bf16 LN outputs
+  bf16* Tt = Hb + kMlpRows * hs;                          // [32][136] GELU tile
+  const long long q0 = (long long)blockIdx.x * kMlpRows;
+
+  // x2 rows -> fp32 residual, 16-byte loads (8 bf16); rows at or past P are 0
+  const int per_row = W / 8;
+  for (int i = threadIdx.x; i < kMlpRows * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i % per_row) * 8;
+    float* xr = X + r * xs + c;
+    if (q0 + r < a.P) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(a.x2 + (size_t)(q0 + r) * W + c));
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float z = acc[j] + a.bfc[c0 + n + (j & 1)];
-        u[j] = 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
-      }
-      *reinterpret_cast<uint32_t*>(Tt + g * kTileLd + n) = pack(u[0], u[1]);
-      *reinterpret_cast<uint32_t*>(Tt + (g + 8) * kTileLd + n) = pack(u[2], u[3]);
+      for (int j = 0; j < 8; ++j) xr[j] = __bfloat162float(e[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) xr[j] = 0.f;
     }
-    __syncthreads();
-    for (int nt = warp; nt < W / 8; nt += kWarps) {
-      const int n = nt * 8 + 2 * t;
-      float acc[4] = {X[g * xs + n], X[g * xs + n + 1], X[(g + 8) * xs + n],
-                      X[(g + 8) * xs + n + 1]};
-      mma_rows(acc, Tt, kTileLd, a.wpj, a.M, nt * 8, c0, kChunk, g, t);
-      X[g * xs + n] = acc[0];
-      X[g * xs + n + 1] = acc[1];
-      X[(g + 8) * xs + n] = acc[2];
-      X[(g + 8) * xs + n + 1] = acc[3];
-    }
-    __syncthreads();
   }
-
-  // ---- ln_post, then the one-channel output: bf16 products, fp32 sum ----
-  for (int r = warp; r < kRows; r += kWarps) {
-    ln_row(X + r * xs, W, a.lnps, a.lnpb, a.eps, Hb + r * hs, lane);
-    __syncwarp();
-    float dot = 0.f;
-    for (int i = lane; i < W; i += 32)
-      dot += __bfloat162float(Hb[r * hs + i]) * __bfloat162float(a.wout[i]);
-    dot = warp_sum(dot);
-    if (lane == 0 && q0 + r < a.P) a.out[q0 + r] = dot + a.bout;
-  }
+  __syncthreads();
+  mlp_tail<kMlpTiles>(a, X, xs, Hb, hs, Tt, q0);
 }
 
 size_t smem_bytes(int W, int L) {
@@ -349,5 +484,23 @@ extern "C" int hy3d_geo_decode(const GeoArgs* args, void* stream) {
   if (err != cudaSuccess) return (int)err;
   const int tiles = (a.P + kRows - 1) / kRows;
   geo_decode_kernel<<<tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The MLP tail of the streamed decode (kernel 4) on `stream`; returns the
+// cudaError_t of the launch (0 on success). Shapes the kernel does not take
+// (W not a multiple of 128, M not a multiple of 64, or more shared memory
+// than a block has, i.e. W > 1152) return cudaErrorInvalidValue.
+extern "C" int hy3d_geo_mlp(const MlpArgs* args, void* stream) {
+  const MlpArgs& a = *args;
+  const size_t smem = mlp_smem_bytes(a.W);
+  if (a.P <= 0 || a.W <= 0 || a.W % 128 != 0 || a.M <= 0 || a.M % kChunk != 0 ||
+      smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(geo_mlp_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = ((long long)a.P + kMlpRows - 1) / kMlpRows;
+  geo_mlp_kernel<<<(unsigned)tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

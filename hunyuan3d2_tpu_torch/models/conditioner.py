@@ -1,10 +1,13 @@
 """Condition encoders, image → token sequence (port of
-hunyuan3d2_tpu/models/conditioner.py, the single-view DINOv2 path).
+hunyuan3d2_tpu/models/conditioner.py: the single-view and the multiview
+DINOv2 encoders).
 
 The encoder owns its 518×518 resize/normalize transform (host side, numpy,
 utils/imageproc.py) and returns last_hidden_state [B, 1370, 1536] at
-DINOv2-giant. The unconditional embedding is a zeros tensor, not an encoded
-blank image (reference conditioner.py:106-117).
+DINOv2-giant. The multiview encoder adds a per-view sin-cos view embedding to
+every token of a view and flattens the views into one sequence; it has no
+weights of its own. The unconditional embedding is a zeros tensor, not an
+encoded blank image (reference conditioner.py:106-117).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from torch import nn
 
 from hunyuan3d2_tpu_torch.models import dinov2
+from hunyuan3d2_tpu_torch.ops.embeddings import sincos_1d_pos_embed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,12 +29,14 @@ class DinoEncoderConfig:
 
 class DinoImageEncoder(nn.Module):
     """Single-view DINOv2 conditioner; the tower is ``self.model`` so the
-    state dict carries the checkpoint's ``model.`` prefix."""
+    state dict carries the checkpoint's ``model.`` prefix. ``model`` shares
+    an existing tower instead of making one."""
 
-    def __init__(self, cfg: DinoEncoderConfig = DinoEncoderConfig()):
+    def __init__(self, cfg: DinoEncoderConfig = DinoEncoderConfig(),
+                 model: dinov2.Dinov2Model = None):
         super().__init__()
         self.cfg = cfg
-        self.model = dinov2.Dinov2Model(cfg.dino)
+        self.model = model if model is not None else dinov2.Dinov2Model(cfg.dino)
 
     @property
     def device(self) -> torch.device:
@@ -56,6 +62,29 @@ class DinoImageEncoder(nn.Module):
                            device=self.device)
 
 
+class DinoImageEncoderMV(DinoImageEncoder):
+    """Multiview conditioner (reference conditioner.py:154-188): each view is
+    encoded, the sin-cos embedding of its view index is added to every token
+    of it, and the views are flattened into one sequence."""
+
+    def __init__(self, cfg: DinoEncoderConfig = DinoEncoderConfig(), num_views: int = 4,
+                 model: dinov2.Dinov2Model = None):
+        super().__init__(cfg, model)
+        self.num_views = num_views
+
+    def encode_views(self, pixel_values: torch.Tensor, view_idxs) -> torch.Tensor:
+        """pixel_values [B, V, H, W, 3] normalized, view_idxs V ints →
+        [B, V·L, hidden]."""
+        b, v = pixel_values.shape[:2]
+        tokens = self.encode(pixel_values.reshape(b * v, *pixel_values.shape[2:]))
+        tokens = tokens.reshape(b, v, tokens.shape[1], tokens.shape[2])
+        embeds = sincos_1d_pos_embed(self.cfg.dino.hidden_size,
+                                     torch.arange(self.num_views, device=tokens.device))
+        ve = embeds[torch.as_tensor(view_idxs, device=tokens.device)]    # [V, hidden]
+        tokens = tokens + ve[None, :, None, :].to(tokens.dtype)
+        return tokens.reshape(b, v * tokens.shape[2], tokens.shape[3])
+
+
 class SingleImageEncoder(nn.Module):
     """One main encoder; ``{'main': tokens}`` streams for the DiT."""
 
@@ -67,8 +96,15 @@ class SingleImageEncoder(nn.Module):
     def main(self) -> DinoImageEncoder:
         return self.main_image_encoder
 
-    def encode_image(self, image_m11) -> dict:
-        """[-1,1] numpy image(s) → token streams, with the tower's own transform."""
+    def encode_image(self, image_m11, view_idxs=None) -> dict:
+        """[-1,1] numpy image(s) [B, H, W, 3] → token streams, with the
+        tower's own transform; with ``view_idxs`` (``[[...]]``) the images are
+        [B, V, H, W, 3] views for the multiview encoder."""
+        if view_idxs is not None:
+            b, v = image_m11.shape[:2]
+            pixel = self.main.preprocess(image_m11.reshape(b * v, *image_m11.shape[2:]))
+            pixel = pixel.reshape(b, v, *pixel.shape[1:])
+            return {"main": self.main.encode_views(pixel, view_idxs[0])}
         return {"main": self.main.encode(self.main.preprocess(image_m11))}
 
     def unconditional(self, batch: int, num_views: int = 1) -> dict:

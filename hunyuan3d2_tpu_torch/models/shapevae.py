@@ -1,14 +1,20 @@
 """ShapeVAE, the decoder-only vector-set VAE (port of
-hunyuan3d2_tpu/models/shapevae.py, the FlashVDM path at <= 1024 latents).
+hunyuan3d2_tpu/models/shapevae.py, the FlashVDM path).
 
 Modules carry the reference checkpoint's names (post_kl,
 transformer.resblocks.N.attn.c_qkv, geo_decoder.cross_attn_decoder.*, ...).
 The latent transformer and the cross-attention K/V run in fp32; the geo
-decoder takes the K/V in bf16. The self-attention qkv layout is interleaved
-per head, (H, 3·hd) — not the DiT's (3, H, D).
+decoder takes the K/V in bf16, except the pruned decode, which stays fp32.
+The self-attention qkv layout is interleaved per head, (H, 3·hd) — not the
+DiT's (3, H, D).
 
-On the card every geo-decoder query goes through the fused kernel
-(ops/geo_decoder.py); configs outside its gate run the plain decode.
+The FlashVDM decode function is chosen from the config's shape alone, as the
+JAX package chooses it on its TPU (shapevae.py:258-306): the streamed decode
+(ops/geo_decoder.py, the flash kernel and the MLP-tail kernel on the card)
+where its gate passes; the K/V-pruned decode (:func:`decode_queries_pruned`)
+for a config of >= 2048 latents that the stream's gate refuses; the fused
+decoder kernel where its gate passes (<= 1024 latents); the dense plain
+decode for a config that no kernel takes.
 """
 
 from __future__ import annotations
@@ -21,13 +27,15 @@ import torch
 from torch import nn
 
 from hunyuan3d2_tpu_torch.ops.attention import attention, merge_heads
-from hunyuan3d2_tpu_torch.ops.embeddings import fourier_out_dim
+from hunyuan3d2_tpu_torch.ops.embeddings import fourier_embed, fourier_out_dim
 from hunyuan3d2_tpu_torch.ops.geo_decoder import (
     decode_queries_plain,
     fused_geo_decode,
+    fused_geo_decode_stream,
+    fused_geo_stream_supported,
     fused_geo_supported,
 )
-from hunyuan3d2_tpu_torch.ops.nn import LayerNorm, Linear, build, gelu_exact
+from hunyuan3d2_tpu_torch.ops.nn import LayerNorm, Linear, build, gelu_exact, layer_norm
 from hunyuan3d2_tpu_torch.utils.logger import get_logger
 
 logger = get_logger("hunyuan3d2_tpu_torch.shapevae")
@@ -146,6 +154,69 @@ def face_capacity(octree_resolution: int) -> int:
     return (3 * active_capacity(octree_resolution)) // 2
 
 
+def pruned_k_top(num_latents: int) -> int:
+    """Keys kept per group by the pruned decode: the reference's rule, 1024
+    of 3072, 256 of 512, else a third."""
+    return {3072: 1024, 512: 256}.get(num_latents, num_latents // 3)
+
+
+def decode_queries_pruned(vae: "ShapeVAE", queries: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, k_top: int, group_size: int = 512,
+                          mode: str = "mean") -> torch.Tensor:
+    """FlashVDM decode with the latent K/V pruned per group of ``group_size``
+    queries (port of hunyuan3d2_tpu/models/shapevae.py:356-439), in k's
+    dtype (fp32 on the FlashVDM path). queries [B, P, 3] with P divisible by
+    ``group_size``; k/v [B, H, L, D] → [B, P] logits.
+
+    * ``mean``: each key is scored with the mean of the group's ::50
+      subsampled queries, and each head keeps its own top-k.
+    * ``merge``: the ::30 subsampled queries score the keys with an
+      unscaled softmax over keys, the mean over heads and the max over the
+      queries; one top-k is shared by the heads, and a kept key whose score
+      is not above 1e-6 is masked out of the final softmax.
+    Top-k ties go to the lowest index, as ``jax.lax.top_k`` breaks them."""
+    from hunyuan3d2_tpu_torch.volume.decoders import stable_topk
+
+    if mode not in ("mean", "merge"):
+        raise ValueError(f"mode must be 'mean' or 'merge', got {mode!r}")
+    cfg = vae.cfg
+    g = vae.geo_decoder
+    blk = g.cross_attn_decoder
+    b, heads, lk, hd = k.shape
+    x = g.query_proj(fourier_embed(queries, cfg.num_freqs, cfg.include_pi).to(k.dtype))
+    q = blk.attn.c_q(blk.ln_1(x))
+    bq, p, _ = q.shape
+    q = blk.attn.attention.q_norm(q.reshape(bq, p, heads, hd))
+    ng = p // group_size
+    k_top = min(k_top, lk)
+    qg = q.reshape(bq, ng, group_size, heads, hd)
+    valid = None
+    if mode == "merge":
+        sim = torch.einsum("bgqhd,bhld->bghql", qg[:, :, ::30].float(), k.float())
+        act = torch.softmax(sim, dim=-1).mean(dim=2).amax(dim=2)        # [B, ng, L]
+        idx = stable_topk(act, k_top)                                   # [B, ng, k]
+        valid = act.gather(-1, idx) > 1e-6
+        idx = idx[:, :, None].expand(b, ng, heads, k_top)
+    else:
+        qbar = qg[:, :, ::50].mean(dim=2)                               # [B, ng, H, D]
+        scores = torch.einsum("bghd,bhld->bghl", qbar.float(), k.float())
+        idx = stable_topk(scores, k_top)                                # [B, ng, H, k]
+    gidx = idx[..., None].expand(b, ng, heads, k_top, hd)
+    k_sel = torch.gather(k[:, None].expand(b, ng, heads, lk, hd), 3, gidx)
+    v_sel = torch.gather(v[:, None].expand(b, ng, heads, lk, hd), 3, gidx)
+
+    qh = qg.permute(0, 1, 3, 2, 4)                                      # [B, ng, H, G, D]
+    logits = torch.einsum("bghqd,bghkd->bghqk", qh.float(), k_sel.float()) * hd ** -0.5
+    if valid is not None:
+        logits = logits.masked_fill(~valid[:, :, None, None, :], float("-inf"))
+    w = torch.softmax(logits, dim=-1).to(qh.dtype)
+    o = torch.einsum("bghqk,bghkd->bghqd", w.float(), v_sel.float()).to(x.dtype)
+    x = x + blk.attn.c_proj(o.permute(0, 1, 3, 2, 4).reshape(bq, p, heads * hd))
+    x = x + blk.mlp(blk.ln_3(x))
+    x = layer_norm(x, g.ln_post.weight, g.ln_post.bias)
+    return g.output_proj(x)[..., 0]
+
+
 class ShapeVAE(nn.Module):
     """Reference public surface: ``__call__`` (latents → hidden tokens),
     ``enable_flashvdm_decoder``, ``latents2mesh``."""
@@ -194,19 +265,32 @@ class ShapeVAE(nn.Module):
         return decode_queries_plain(self, queries, k, v)
 
     def query_decoder(self, k: torch.Tensor, v: torch.Tensor):
-        """The FlashVDM decode function at <= 1024 latents: bf16 K/V, the
-        fused kernel where its gate admits the config."""
-        if self.cfg.num_latents > 1024:
-            raise NotImplementedError("the streamed decode for > 1024 latents is not ported")
+        """The FlashVDM decode function for fp32 K/V [1, H, L, D], chosen as
+        the module notes say: pts [1, P, 3] fp32 → [1, P] fp32 logits."""
+        cfg = self.cfg
         k16, v16 = k.to(torch.bfloat16).contiguous(), v.to(torch.bfloat16).contiguous()
-        if fused_geo_supported(self.cfg):
+        if fused_geo_stream_supported(cfg):
+            return lambda pts: fused_geo_decode_stream(self, pts.contiguous(), k16, v16)
+        if cfg.num_latents >= 2048:
+            k_top = pruned_k_top(cfg.num_latents)
+            mode = getattr(self.volume_decoder, "topk_mode", "mean")
+
+            def decode_pruned(pts):
+                p = pts.shape[1]
+                gp = min(512, p)
+                pts = torch.nn.functional.pad(pts, (0, 0, 0, (-p) % gp))
+                return decode_queries_pruned(self, pts, k, v, k_top, gp, mode)[:, :p]
+            return decode_pruned
+        if fused_geo_supported(cfg):
             return lambda pts: fused_geo_decode(self, pts.contiguous(), k16, v16)
         return lambda pts: self.decode_queries(pts, k16, v16).float()
 
     # -- FlashVDM decode and meshing -----------------------------------------
-    def enable_flashvdm_decoder(self, enabled: bool = True, mc_algo: str = "dmc"):
+    def enable_flashvdm_decoder(self, enabled: bool = True, topk_mode: str = "mean",
+                                mc_algo: str = "dmc"):
         """The FlashVDM block-sparse decoder with the on-device surface nets
-        (the only decoder and extractor ported)."""
+        (the only decoder and extractor ported); ``topk_mode`` is the K/V
+        pruning mode of the pruned decode."""
         from hunyuan3d2_tpu_torch.volume import decoders, surface
 
         if not enabled:
@@ -214,7 +298,7 @@ class ShapeVAE(nn.Module):
         if mc_algo not in surface.SurfaceExtractors:
             raise ValueError(f"Unsupported mc_algo {mc_algo}, available: "
                              f"{list(surface.SurfaceExtractors)}")
-        self.volume_decoder = decoders.FlashVDMVolumeDecoding()
+        self.volume_decoder = decoders.FlashVDMVolumeDecoding(topk_mode)
 
     def decode_grid(self, latents: torch.Tensor, octree_resolution: int = 384,
                     num_chunks: int = 65536, box_v: float = 1.01,

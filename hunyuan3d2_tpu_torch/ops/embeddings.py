@@ -5,6 +5,7 @@
   so callers pass ``max_period=cfg.time_factor``. Layout [cos | sin].
 * fourier_embed — reference FourierEmbedder: cat(x, sin(x·2^k), cos(x·2^k)),
   frequencies interleaved per input channel.
+* sincos_1d_pos_embed — the multiview conditioner's view embedding.
 """
 
 from __future__ import annotations
@@ -41,3 +42,14 @@ def fourier_embed(x: torch.Tensor, num_freqs: int = 8, include_pi: bool = False)
 
 def fourier_out_dim(input_dim: int = 3, num_freqs: int = 8) -> int:
     return input_dim * (2 * num_freqs + 1)
+
+
+def sincos_1d_pos_embed(embed_dim: int, pos: torch.Tensor) -> torch.Tensor:
+    """1-D sin-cos position embedding, sin half first (the reference's
+    get_1d_sincos_pos_embed_from_grid): pos [M] → [M, embed_dim] fp32."""
+    if embed_dim % 2:
+        raise ValueError(f"embed_dim must be even, got {embed_dim}")
+    omega = torch.arange(embed_dim // 2, dtype=torch.float32, device=pos.device) / (embed_dim / 2.0)
+    omega = 1.0 / 10000 ** omega
+    out = pos.float()[:, None] * omega[None]
+    return torch.cat([torch.sin(out), torch.cos(out)], dim=-1)

@@ -1,13 +1,33 @@
-"""Fused ShapeVAE geo decoder: the hand-written Hopper kernel and its plain twin.
+"""ShapeVAE geo decoders on the card: the fused decoder (<= 1024 latents), the
+streamed decode (> 1024 latents) with its MLP-tail kernel, and their plain
+twins.
 
 Port of hunyuan3d2_tpu/ops/geo_decoder_pallas.py ``fused_geo_decode`` (the
-Pallas kernel ``_kernel``). The CUDA source is ``csrc/geo_decode.cu``; its
-header says how it is laid out and what bounds it on the H100.
+Pallas kernel ``_kernel``) and ``fused_geo_decode_stream`` (the Pallas kernel
+``_geo_mlp_kernel``). Both CUDA kernels are in ``csrc/geo_decode.cu``; its
+header says how they are laid out and what bounds them on the H100.
 
-:func:`decode_queries_plain` is the same function in plain PyTorch, in the op
-order of hunyuan3d2_tpu/models/shapevae.py ``decode_queries`` run on bf16
-K/V. :func:`fused_geo_decode` takes it for CPU tensors; for CUDA tensors it
-launches the kernel or raises.
+:func:`decode_queries_plain` is the fused decoder's function in plain
+PyTorch, in the op order of hunyuan3d2_tpu/models/shapevae.py
+``decode_queries`` run on bf16 K/V; :func:`geo_mlp_tail_plain` is the MLP
+tail's. Each kernel wrapper takes its plain twin for CPU tensors; for CUDA
+tensors it launches the kernel or raises.
+
+The streamed decode's projections and attention are not one kernel, as in
+the JAX package: :func:`geo_stream_x2` runs the projections as matrix
+products (cuBLAS on the card) and the attention through
+``ops.attention.attention`` (the flash kernel on the card, ``sdpa`` on the
+CPU), and :func:`geo_mlp_tail` finishes. Products with bf16 inputs keep an
+fp32 result in the JAX package; here they are the same on both devices:
+fp32 GEMMs of the bf16 values, whose products are exact (TF32 tensor cores
+on the card, see :func:`_mm32`).
+
+The MLP-tail kernel takes widths up to ``MAX_TAIL_WIDTH`` (1152): its 32-row
+tile of the fp32 residual and the bf16 LN3 output fills one block's shared
+memory. The stream's gate is the JAX package's and does not test this, so
+:func:`geo_mlp_tail` refuses a wider config that passes the gate with a
+ValueError that names the limit. Every config in the repo is at most 1024
+wide.
 """
 
 from __future__ import annotations
@@ -17,17 +37,29 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
-from hunyuan3d2_tpu_torch.ops.attention import merge_heads, sdpa
+from hunyuan3d2_tpu_torch.ops.attention import attention, merge_heads, sdpa
 from hunyuan3d2_tpu_torch.ops.embeddings import fourier_embed
 from hunyuan3d2_tpu_torch.ops.nn import gelu_exact, layer_norm
 
 EMB_PAD = 64
+MAX_TAIL_WIDTH = 1152   # the MLP-tail kernel's 32-row tile fills one block's shared memory
 
 
 def fused_geo_supported(cfg) -> bool:
     """The JAX package's shape gate for the fused decoder (shapevae.py:204-206)."""
     return (cfg.num_latents <= 1024 and cfg.width % 128 == 0
+            and (cfg.geo_decoder_mlp_expand_ratio * cfg.width) % 512 == 0
+            and cfg.head_dim in (64, 128) and cfg.out_channels == 1)
+
+
+def fused_geo_stream_supported(cfg) -> bool:
+    """The JAX package's shape gate for the streamed decode (shapevae.py:221-224).
+    It does not test the MLP-tail kernel's width limit (``MAX_TAIL_WIDTH``):
+    :func:`geo_mlp_tail` refuses a config wider than that."""
+    return (cfg.num_latents > 1024 and cfg.num_latents % 256 == 0
+            and cfg.width % 128 == 0
             and (cfg.geo_decoder_mlp_expand_ratio * cfg.width) % 512 == 0
             and cfg.head_dim in (64, 128) and cfg.out_channels == 1)
 
@@ -144,3 +176,163 @@ def fused_geo_decode(vae, queries: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 
 fused_geo_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the streamed decode (> 1024 latents) and its MLP-tail kernel
+# ---------------------------------------------------------------------------
+def _mm32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a · wᵀ with bf16 inputs and an fp32 result: the products are exact in
+    fp32, so this is the JAX package's ``preferred_element_type=f32`` up to
+    the order of the sums. On the card the product runs on TF32 tensor cores,
+    which hold a bf16 value exactly, so TF32 changes no bit of a product; the
+    flag is CUDA's alone and is put back after the call."""
+    flags = torch.backends.cuda.matmul
+    old, flags.allow_tf32 = flags.allow_tf32, True
+    try:
+        return F.linear(a.float(), w.float())
+    finally:
+        flags.allow_tf32 = old
+
+
+def _proj(a: torch.Tensor, lin) -> torch.Tensor:
+    """bf16 ``a`` through the Linear ``lin`` → fp32, exact products."""
+    y = _mm32(a, lin.weight)
+    return y if lin.bias is None else y.add_(lin.bias.float())
+
+
+def geo_stream_x2(vae, queries: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The streamed decode up to the MLP tail, in the op order of
+    geo_decoder_pallas.py:340-375: queries [1, P, 3] fp32 + bf16 k/v
+    [1, H, L, D] (k LayerNorm applied) → x2 = x + c_proj(attn) [1, P, W],
+    rounded to bf16. The fp32 [P, W] intermediates are freed as soon as the
+    next stage has read them, and c_proj's output is added into x in place."""
+    cfg = vae.cfg
+    g = vae.geo_decoder
+    blk = g.cross_attn_decoder
+    bf = torch.bfloat16
+    p = queries.shape[1]
+    x = _proj(fourier_embed(queries, cfg.num_freqs, cfg.include_pi).to(bf), g.query_proj)
+    qm = _proj(blk.ln_1(x).to(bf), blk.attn.c_q)
+    qh = blk.attn.attention.q_norm(qm.reshape(1, p, cfg.heads, cfg.head_dim))
+    del qm
+    q4 = qh.transpose(1, 2).to(bf).contiguous()
+    del qh
+    o = merge_heads(attention(q4, k, v))
+    del q4
+    x += _proj(o, blk.attn.c_proj)
+    del o
+    return x.to(bf)
+
+
+def geo_mlp_tail_plain(vae, x2: torch.Tensor) -> torch.Tensor:
+    """The MLP-tail kernel's function (geo_decoder_pallas.py:274-296) in plain
+    PyTorch: x2 [1, P, W] bf16 → [1, P] fp32 logits. h = bf16(LN3(x2)); the
+    residual acc = x2 + b_proj stays fp32; the 4W exact-GELU MLP with bf16
+    inputs and fp32 products (GELU output rounded to bf16) is added into it;
+    ln_post is rounded to bf16 and dotted with the output weights in fp32."""
+    cfg = vae.cfg
+    g = vae.geo_decoder
+    blk = g.cross_attn_decoder
+    bf = torch.bfloat16
+    x = x2.float()
+    h = layer_norm(x, blk.ln_3.weight, blk.ln_3.bias, cfg.ln_eps).to(bf)
+    if blk.mlp.c_proj.bias is not None:
+        x += blk.mlp.c_proj.bias.float()
+    t = _mm32(h, blk.mlp.c_fc.weight)
+    del h
+    if blk.mlp.c_fc.bias is not None:
+        t += blk.mlp.c_fc.bias.float()
+    x += _mm32(gelu_exact(t).to(bf), blk.mlp.c_proj.weight)
+    del t
+    x3 = layer_norm(x, g.ln_post.weight, g.ln_post.bias, cfg.ln_eps).to(bf)
+    out = _mm32(x3, g.output_proj.weight)[..., 0]
+    bias = g.output_proj.bias
+    return out if bias is None else out + bias.float()
+
+
+class _MlpArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x2", "ln3s", "ln3b", "wfc", "bfc", "wpj", "bpj", "lnps", "lnpb", "wout", "out")]
+    _fields_ += [(n, ctypes.c_int) for n in ("P", "W", "M")]
+    _fields_ += [(n, ctypes.c_float) for n in ("eps", "bout")]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_mlp():
+    """The MLP-tail kernel's C entry point (same library as the fused decoder)."""
+    from hunyuan3d2_tpu_torch.utils import cuda_build
+
+    fn = cuda_build.load("geo_decode").hy3d_geo_mlp
+    fn.argtypes = [ctypes.POINTER(_MlpArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tail_width(cfg):
+    if cfg.width > MAX_TAIL_WIDTH:
+        raise ValueError(f"the MLP-tail kernel does not take W > {MAX_TAIL_WIDTH}, "
+                         f"got W = {cfg.width}")
+
+
+def _check_tail(vae, x2):
+    cfg = vae.cfg
+    m = cfg.geo_decoder_mlp_expand_ratio * cfg.width
+    _check_tail_width(cfg)
+    if cfg.width % 128 or m % 64 or cfg.out_channels != 1:
+        raise ValueError(f"geo_mlp_tail does not take this VAE config: {cfg}")
+    if x2.dim() != 3 or x2.shape[0] != 1 or x2.shape[2] != cfg.width:
+        raise ValueError(f"geo_mlp_tail takes x2 [1, P, {cfg.width}], got {tuple(x2.shape)}")
+    if x2.dtype != torch.bfloat16:
+        raise TypeError(f"geo_mlp_tail takes bf16 x2, got {x2.dtype}")
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        raise ValueError("geo_mlp_tail takes a contiguous, 16-byte aligned x2")
+
+
+def geo_mlp_tail(vae, x2: torch.Tensor) -> torch.Tensor:
+    """x2 [1, P, W] bf16 → [1, P] fp32 logits: the MLP-tail kernel on a CUDA
+    tensor, :func:`geo_mlp_tail_plain` on a CPU tensor."""
+    _check_tail(vae, x2)
+    if not x2.is_cuda:
+        return geo_mlp_tail_plain(vae, x2)
+    cfg = vae.cfg
+    p = x2.shape[1]
+    ops = _operands(vae, x2.device)
+    out = torch.empty(1, p, dtype=torch.float32, device=x2.device)
+    bout = vae.geo_decoder.output_proj.bias
+    args = _MlpArgs(
+        x2=x2.data_ptr(), out=out.data_ptr(), P=p, W=cfg.width,
+        M=cfg.geo_decoder_mlp_expand_ratio * cfg.width, eps=cfg.ln_eps,
+        bout=0.0 if bout is None else float(bout.float()),
+        **{n: ops[n].data_ptr() for n in (
+            "ln3s", "ln3b", "wfc", "bfc", "wpj", "bpj", "lnps", "lnpb", "wout")})
+    err = _lib_mlp()(ctypes.byref(args), torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"geo_mlp_tail kernel launch failed: cudaError {err}")
+    geo_mlp_tail.launches += 1
+    return out
+
+
+geo_mlp_tail.launches = 0
+
+
+def fused_geo_decode_stream(vae, queries: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """queries [1, P, 3] fp32 + bf16 k/v [1, H, L, D] → [1, P] fp32 logits:
+    :func:`geo_stream_x2`, then :func:`geo_mlp_tail`."""
+    cfg = vae.cfg
+    if not fused_geo_stream_supported(cfg):
+        raise ValueError(f"fused_geo_decode_stream does not take this VAE config: {cfg}")
+    _check_tail_width(cfg)
+    if queries.dim() != 3 or queries.shape[0] != 1 or queries.shape[2] != 3:
+        raise ValueError(f"fused_geo_decode_stream takes queries [1, P, 3], "
+                         f"got {tuple(queries.shape)}")
+    want = (1, cfg.heads, k.shape[2], cfg.head_dim)
+    if tuple(k.shape) != want or tuple(v.shape) != want:
+        raise ValueError(f"fused_geo_decode_stream takes k/v [1, {cfg.heads}, L, "
+                         f"{cfg.head_dim}], got {tuple(k.shape)}, {tuple(v.shape)}")
+    if queries.dtype != torch.float32 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise TypeError("fused_geo_decode_stream takes fp32 queries and bf16 k/v")
+    if not (queries.device == k.device == v.device):
+        raise ValueError("fused_geo_decode_stream inputs lie on different devices")
+    return geo_mlp_tail(vae, geo_stream_x2(vae, queries, k, v))

@@ -70,11 +70,11 @@ class Hunyuan3DDiTPipeline:
         (``cuda`` unless the caller passes another), weights drawn from
         torch Generators seeded from ``seed``."""
         device = torch.device(device if device is not None else "cuda")
-        # "full" (v2-0, 3072 latents) needs the streamed decode of slice 3
-        dit_cfg = {"tiny": dit_lib.TINY, "mini": dit_lib.MINI}[size]
+        # "full" is the v2-0 stack: 16 + 32 DiT blocks, the 3072-latent VAE
+        dit_cfg = {"tiny": dit_lib.TINY, "mini": dit_lib.MINI, "full": dit_lib.FULL}[size]
         if guidance_embed:
             dit_cfg = dit_lib.DiTConfig(**{**dit_cfg.__dict__, "guidance_embed": True})
-        vae_cfg = {"tiny": vae_lib.TINY, "mini": vae_lib.MINI}[size]
+        vae_cfg = {"tiny": vae_lib.TINY, "mini": vae_lib.MINI, "full": vae_lib.FULL}[size]
 
         def gen(i):
             return torch.Generator(device=device).manual_seed(seed * 3 + i)
@@ -89,19 +89,23 @@ class Hunyuan3DDiTPipeline:
             device=device,
         )
 
-    def enable_flashvdm(self, enabled: bool = True, mc_algo: str = "dmc"):
-        self.vae.enable_flashvdm_decoder(enabled=enabled, mc_algo=mc_algo)
+    def enable_flashvdm(self, enabled: bool = True, topk_mode: str = "mean",
+                        mc_algo: str = "dmc"):
+        self.vae.enable_flashvdm_decoder(enabled=enabled, topk_mode=topk_mode, mc_algo=mc_algo)
         return self
 
     def prepare_image(self, image) -> dict:
         return self.image_processor(image)
 
-    def encode_cond(self, image_nhwc: np.ndarray, do_cfg: bool) -> torch.Tensor:
+    def encode_cond(self, image_nhwc: np.ndarray, do_cfg: bool, view_idxs=None) -> torch.Tensor:
         """[-1,1] NHWC image → conditioner tokens; with CFG the zero-token
-        uncond is appended, [cond | uncond]."""
-        streams = self.conditioner.encode_image(image_nhwc)
+        uncond is appended, [cond | uncond]. With ``view_idxs`` (a multiview
+        processor's ``[[...]]``) the image is [B, V, H, W, 3], the views are
+        encoded into one sequence, and the uncond has V views' tokens."""
+        streams = self.conditioner.encode_image(image_nhwc, view_idxs)
         if do_cfg:
-            uncond = self.conditioner.unconditional(streams["main"].shape[0])
+            num_views = len(view_idxs[0]) if view_idxs is not None else 1
+            uncond = self.conditioner.unconditional(streams["main"].shape[0], num_views)
             streams = {k: torch.cat([v, uncond[k].to(v.dtype)]) for k, v in streams.items()}
         return streams["main"]
 
@@ -154,11 +158,13 @@ class Hunyuan3DDiTFlowMatchingPipeline(Hunyuan3DDiTPipeline):
         do_cfg = guidance_scale >= 0 and not self.model_cfg.guidance_embed
 
         with timed_scope("Preprocess"):
-            img = self.prepare_image(image)["image"]
+            cond_inputs = self.prepare_image(image)
+            img = cond_inputs["image"]
+            view_idxs = cond_inputs.get("view_idxs")
         with timed_scope("Encode Cond"):
-            cond = self.encode_cond(img, do_cfg)
+            cond = self.encode_cond(img, do_cfg, view_idxs)
         sigma_ladder = self.scheduler.make_sigmas(num_inference_steps, sigmas)
-        latents = self.prepare_latents(img.shape[0], generator)
+        latents = self.prepare_latents(img.shape[0] if view_idxs is None else 1, generator)
         with timed_scope("Diffusion Sampling"):
             latents = self.sample(latents, cond, sigma_ladder, guidance_scale, do_cfg)
         return self._export(latents, output_type, box_v, mc_level, num_chunks, octree_resolution)

@@ -87,6 +87,31 @@ class ImageProcessorV2:
         }
 
 
+class MVImageProcessorV2(ImageProcessorV2):
+    """Multiview: dict {front/left/back/right: image} → the views stacked as
+    one item, [1, V, H, W, 3], in the order front, left, back, right, and
+    ``view_idxs`` [[...]] the indices of the views given in that order
+    (parity: preprocessors.py:120-160)."""
+
+    return_view_idx = True
+    VIEW_ORDER = ("front", "left", "back", "right")
+
+    def __call__(self, image_dict, border_ratio=None, **kwargs) -> dict:
+        ims, masks, view_idxs = [], [], []
+        for i, name in enumerate(self.VIEW_ORDER):
+            if name not in image_dict:
+                continue
+            im, mk = self.process_one(image_dict[name], border_ratio)
+            ims.append(im)
+            masks.append(mk)
+            view_idxs.append(i)
+        return {
+            "image": np.stack(ims)[None].astype(np.float32),
+            "mask": np.stack(masks)[None].astype(np.float32),
+            "view_idxs": [view_idxs],
+        }
+
+
 def dino_transform(image_m11: np.ndarray, image_size: int = 518,
                    mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)) -> np.ndarray:
     """[-1,1] [B,H,W,3] → resized/center-cropped/normalized [B,518,518,3]

@@ -28,9 +28,9 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def stable_topk(scores: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest scores, ties broken by the lowest index
-    (``jax.lax.top_k``'s order)."""
-    return torch.sort(scores, descending=True, stable=True).indices[:k]
+    """Indices of the k largest scores along the last axis, ties broken by
+    the lowest index (``jax.lax.top_k``'s order)."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
 def _near_surface_blocks(coarse: torch.Tensor, level: float) -> torch.Tensor:
@@ -143,11 +143,16 @@ class HierarchicalVolumeDecoding:
 
 class FlashVDMVolumeDecoding(HierarchicalVolumeDecoding):
     """The FlashVDM speed profile: one coarse sample per block corner and a
-    tighter block budget. K/V pruning is not on this path at <= 1024
-    latents (dense bf16 attention in the fused decoder)."""
+    tighter block budget. It carries ``topk_mode`` ('mean' or 'merge'), the
+    K/V pruning mode of the pruned decode (models/shapevae.py
+    ``decode_queries_pruned``), which runs only where the VAE chooses it."""
 
-    def __init__(self, block: int = 8, capacity_frac: float = 0.06, coarse_factor: int = 1):
+    def __init__(self, topk_mode: str = "mean", block: int = 8, capacity_frac: float = 0.06,
+                 coarse_factor: int = 1):
+        if topk_mode not in ("mean", "merge"):
+            raise ValueError(f"topk_mode must be 'mean' or 'merge', got {topk_mode!r}")
         super().__init__(block=block, capacity_frac=capacity_frac, coarse_factor=coarse_factor)
+        self.topk_mode = topk_mode
 
 
 def compact_rows(valid: torch.Tensor, rows: torch.Tensor, capacity: int, fill):

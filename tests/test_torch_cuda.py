@@ -147,3 +147,57 @@ def test_kernel_wrappers_raise_on_bad_input(gen):
     with pytest.raises(ValueError):
         rasterize(torch.zeros(3, 3, device="cuda"), torch.zeros(1, 3, dtype=torch.int32,
                                                                 device="cuda"), 8, 8)
+
+
+# kernel 4 keeps the fp32 residual as its twin does: only the order of fp32
+# sums and erff against torch's erf differ, so a bf16 rounding of an LN or
+# GELU output may flip by one ulp
+@pytest.mark.parametrize("width,heads,p", [(128, 2, 1000), (1024, 16, 1037)])
+def test_geo_mlp_tail_kernel_matches_plain(gen, width, heads, p):
+    from hunyuan3d2_tpu_torch.models import shapevae as sv
+    from hunyuan3d2_tpu_torch.ops.geo_decoder import geo_mlp_tail, geo_mlp_tail_plain
+
+    cfg = sv.ShapeVAEConfig(num_latents=1280, width=width, heads=heads, num_decoder_layers=1)
+    vae = sv.ShapeVAE.init_random(cfg, device="cuda", generator=gen)
+    x2 = (torch.randn(1, p, width, generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+    before = geo_mlp_tail.launches
+    with torch.no_grad():
+        out = geo_mlp_tail(vae, x2)
+        ref = geo_mlp_tail_plain(vae, x2)
+    torch.cuda.synchronize()
+    assert geo_mlp_tail.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (1, p)
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    assert np.corrcoef(out.ravel(), ref.ravel())[0, 1] >= 0.9999
+    assert np.abs(out - ref).max() <= 1e-2 * max(1.0, np.abs(ref).max())
+    with pytest.raises(ValueError):    # a view that is not 16-byte aligned
+        geo_mlp_tail(vae, x2.reshape(-1)[1:1 + 7 * width].reshape(1, 7, width))
+
+
+def test_geo_stream_decode_matches_plain(gen):
+    """The streamed decode (cuBLAS projections, flash attention over 2048
+    latents, the MLP-tail kernel) against the plain decode."""
+    from hunyuan3d2_tpu_torch.models import shapevae as sv
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+    from hunyuan3d2_tpu_torch.ops.geo_decoder import (
+        decode_queries_plain,
+        fused_geo_decode_stream,
+        geo_mlp_tail,
+    )
+
+    cfg = sv.ShapeVAEConfig(num_latents=2048, width=1024, heads=16, num_decoder_layers=1)
+    vae = sv.ShapeVAE.init_random(cfg, device="cuda", generator=gen)
+    before = (flash_attention.launches, geo_mlp_tail.launches)
+    with torch.no_grad():
+        lat = torch.randn(1, 2048, cfg.embed_dim, generator=gen, device="cuda")
+        k, v = vae.compute_kv(vae.decode_latents(lat))
+        k, v = k.to(torch.bfloat16).contiguous(), v.to(torch.bfloat16).contiguous()
+        pts = (torch.rand(1, 3001, 3, generator=gen, device="cuda") * 2.02 - 1.01).contiguous()
+        out = fused_geo_decode_stream(vae, pts, k, v)
+        ref = decode_queries_plain(vae, pts, k, v).float()
+    torch.cuda.synchronize()
+    assert geo_mlp_tail.launches == before[1] + 1 and flash_attention.launches > before[0]
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    # the plain decode keeps the residual in bf16 where the stream keeps fp32
+    assert np.corrcoef(out.ravel(), ref.ravel())[0, 1] > 0.9999
+    assert np.abs(out - ref).max() < 0.05 * max(1.0, np.abs(ref).max())
