@@ -13,8 +13,12 @@ Phases, in order; any failure exits non-zero:
      DiT and the streamed geo decode's attention), the fused geo decoder,
      the streamed decode's MLP-tail kernel on x2 from the v2-0 VAE (then the
      whole streamed decode against the plain decode), the masked flash
-     attention under voxel masks built from the test sphere's cond maps, and
-     the rasterizer on that sphere (a 512² view and the 2048² UV raster);
+     attention under voxel masks built from the test sphere's cond maps
+     (with the share of key tiles it skips), and the rasterizer on that
+     sphere (a 512² view and the 2048² UV raster);
+  3b. the flash kernel's tile-configuration sweep (kernel 6, the port of
+     scripts/profile_flash_variants.py) at the paint multiview shape
+     (1, 5, 24576, 64) bf16, each variant held against the plain twin;
   4. slice 1 at full width: image → mesh with DINOv2-giant, the mini DiT
      (5 steps, CFG 5.0) and the mini ShapeVAE (FlashVDM decode at octree 256,
      capped surface buffers), random weights from a seed, run cold and warm;
@@ -122,8 +126,9 @@ def flash_phase(gen):
     rows = []
     # (name, (B, H, Lq, Lk, D), dtype, ceiling on max |kernel - plain|, see
     # attention_check): bf16 output is rounded once and P is rounded before
-    # P.V in both, at other block boundaries; fp32 differs only in summation
-    # order. The paint rows are the UNet's multiview attention at 64² latents
+    # P.V in both, at other block boundaries; fp32 (3xTF32 products) differs
+    # by ~1e-6, held to 1e-5. The "d128" rows are off the product paths: the
+    # second head size the kernel takes. The paint rows are the UNet's multiview attention at 64² latents
     # (6 views), its reference attention and its cross-attention (77 keys);
     # "dit full fast" is the v2-0 Fast DiT (3072 latents + 1370 cond tokens,
     # batch 1), "vae full" the v2-0 VAE's self-attention, "geo stream" one
@@ -132,13 +137,15 @@ def flash_phase(gen):
     for name, (b, h, lq, lk, d), dt, tol in (
             ("dinov2", (1, 24, 1370, 1370, 64), torch.bfloat16, 2e-2),
             ("dit", (2, 16, 1882, 1882, 64), torch.bfloat16, 2e-2),
-            ("vae", (1, 16, 512, 512, 64), torch.float32, 1e-4),
+            ("vae", (1, 16, 512, 512, 64), torch.float32, 1e-5),
             ("paint multiview", (1, 5, 24576, 24576, 64), torch.bfloat16, 2e-2),
             ("paint reference", (6, 5, 4096, 4096, 64), torch.bfloat16, 2e-2),
             ("paint cross", (6, 5, 4096, 77, 64), torch.bfloat16, 2e-2),
             ("dit full fast", (1, 16, 4442, 4442, 64), torch.bfloat16, 2e-2),
-            ("vae full", (1, 16, 3072, 3072, 64), torch.float32, 1e-4),
-            ("geo stream", (1, 16, 199680, 3072, 64), torch.bfloat16, 2e-2)):
+            ("vae full", (1, 16, 3072, 3072, 64), torch.float32, 1e-5),
+            ("geo stream", (1, 16, 199680, 3072, 64), torch.bfloat16, 2e-2),
+            ("d128", (1, 8, 4096, 4096, 128), torch.bfloat16, 2e-2),
+            ("d128 fp32", (1, 8, 1024, 1024, 128), torch.float32, 1e-5)):
         q = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt) for _ in range(2))
 
@@ -512,8 +519,10 @@ def masked_phase(gen, sphere):
     from hunyuan3d2_tpu_torch.geometry.render_device import cond_maps, upload_mesh
     from hunyuan3d2_tpu_torch.models.paint_unet import compute_voxel_grid_mask
     from hunyuan3d2_tpu_torch.ops.flash_attention import (
+        default_config,
         flash_attention_masked,
         flash_attention_masked_plain,
+        tile_map,
     )
 
     render = MeshRender(default_resolution=2048, texture_size=2048)
@@ -531,6 +540,10 @@ def masked_phase(gen, sphere):
         ref = flash_attention_masked_plain(q, k, v, mask)
         torch.cuda.synchronize()
         err, rel, rms, tol = attention_check(f"masked flash g={g}", out, ref, tol)
+        # the share of (128 q, 128 key) tiles the kernel skips; its ms
+        # includes building the occupancy map
+        bq, bk, _ = default_config(b, h, lq, lk, d, q.dtype, masked=True)
+        skipped = 1.0 - tile_map(mask, bq, bk).float().mean().item()
         ms = time_ms(lambda: flash_attention_masked(q, k, v, mask), 20)
         plain_ms = time_ms(lambda: flash_attention_masked_plain(q, k, v, mask), 3)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None]),
@@ -540,11 +553,38 @@ def masked_phase(gen, sphere):
         bound_ms, by = bound(4.0 * h * d * allowed, 4 * q.numel() * 2 + mask.numel(), "bf16")
         row = dict(shape=f"voxel grid {g}: q/k/v {[b, h, lq, d]} bf16, mask {[b, lq, lk]} "
                          f"density {allowed / mask.numel():.4f}",
-                   max_abs_err=err, max_rel_err=rel, rel_rms_err=rms, tol=tol, ms=ms,
+                   tiles_skipped=skipped, max_abs_err=err, max_rel_err=rel, rel_rms_err=rms, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
         log("flash_attention_masked " + json.dumps(row))
         rows.append(row)
     return rows
+
+
+def sweep_phase():
+    """Kernel 6: the tile-configuration sweep of the bf16 flash kernel at the
+    paint UNet's multiview shape, every variant held against the plain twin
+    (attention_check). Its launches are counted as the sweep's own path."""
+    from hunyuan3d2_tpu_torch.tools.profile_flash_variants import flash_attention_variant, sweep
+
+    flash_attention_variant.launches = 0
+    res = sweep((1, 5, 24576, 64), iters=20,
+                check=lambda name, out, ref: attention_check(f"flash variant {name}", out, ref,
+                                                             2e-2)[0])
+    launches = {"flash_variants": flash_attention_variant.launches}
+    rows = []
+    for r in res["rows"] + [res["default"]]:
+        log(f"flash sweep {r['name']}: {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s, bound "
+            f"{r['bound_ms']:.4f} ms, max abs err {r['max_abs_err']}")
+    for r in res["rows"]:
+        rows.append(dict(shape=f"{r['name']} q/k/v {res['shape']} bf16", variant=r["name"],
+                         max_abs_err=r["max_abs_err"], ms=r["ms"], tflops=r["tflops"],
+                         plain_ms=res["plain_ms"], library_ms=res["sdpa_ms"],
+                         bound_ms=r["bound_ms"], bound_by="operations"))
+    log(f"flash sweep: best {res['best']['name']} {res['best']['ms']:.4f} ms, default "
+        f"{res['default']['name']} {res['default']['ms']:.4f} ms, SDPA {res['sdpa_ms']:.4f} ms, "
+        f"plain {res['plain_ms']:.2f} ms, launches {launches['flash_variants']}")
+    best = min(range(len(rows)), key=lambda i: rows[i]["ms"])
+    return rows, best, launches
 
 
 def raster_phase(sphere):
@@ -626,10 +666,11 @@ def _kernel_counters():
     from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_masked
     from hunyuan3d2_tpu_torch.ops.geo_decoder import fused_geo_decode, geo_mlp_tail
     from hunyuan3d2_tpu_torch.ops.rasterize import rasterize
+    from hunyuan3d2_tpu_torch.tools.profile_flash_variants import flash_attention_variant
 
     return {"flash_attention": flash_attention, "flash_attention_masked": flash_attention_masked,
             "fused_geo_decode": fused_geo_decode, "geo_mlp_tail": geo_mlp_tail,
-            "rasterize": rasterize}
+            "rasterize": rasterize, "flash_variants": flash_attention_variant}
 
 
 def texture_path(sphere):
@@ -764,12 +805,12 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["flash_attention", "geo_decode", "rasterize"])
+    logs = cuda_build.build(["flash_attention", "flash_variants", "geo_decode", "rasterize"])
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)} "
         f"into {os.path.relpath(cuda_build.BUILD_DIR, ROOT)}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling", "arning", "C75")):
                 log(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -779,6 +820,7 @@ def main() -> int:
         geo_rows = geo_phase(gen)
         tail_rows = stream_phase(gen)
         masked_rows = masked_phase(gen, sphere)
+        sweep_rows, sweep_best, launches_sweep = sweep_phase()
         raster_rows = raster_phase(sphere)
     pipe, launches_mesh = main_path()
     decode_agreement(pipe, gen)
@@ -795,7 +837,8 @@ def main() -> int:
     launches_tex = texture_path(sphere)
     texture_agreement()
     by_path = {"image_to_mesh": launches_mesh, "image_to_mesh_v2_0_fast": launches_v20,
-               "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex}
+               "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex,
+               "flash_sweep": launches_sweep}
 
     def entry(name, source, replaces, rows, main_row, path):
         """``launches`` is the count from ``path``'s warm run; every path's
@@ -805,7 +848,7 @@ def main() -> int:
         check(launches > 0, f"kernel {name} was not launched on {path}")
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches, launches_path=path,
-                    launches_by_path={p: c[name] for p, c in by_path.items()},
+                    launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
                     max_abs_err=max(x["max_abs_err"] for x in rows),
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
@@ -823,6 +866,8 @@ def main() -> int:
               "image_to_mesh_v2_0_fast"),
         entry("rasterize", "hunyuan3d2_tpu_torch/csrc/rasterize.cu",
               "hunyuan3d2_tpu/ops/rasterize_tpu.py:301", raster_rows, 1, "textured_glb"),
+        entry("flash_variants", "hunyuan3d2_tpu_torch/csrc/flash_variants.cu",
+              "scripts/profile_flash_variants.py:72", sweep_rows, sweep_best, "flash_sweep"),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,7 +15,12 @@ The masked form takes a [B, Lq, Lk] bool mask shared across the heads;
 masked scores get no weight, so a fully masked row gives 0.
 
 A CPU tensor goes through :func:`flash_attention_plain`; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. The kernel's tile configuration (q rows and
+keys per tile, stages of the K/V ring) is a function of the call's shape
+(:func:`default_config`), chosen from the sweep of
+``hunyuan3d2_tpu_torch.tools.profile_flash_variants``. The masked kernel
+walks only the key tiles that hold an allowed pair; the wrapper finds them
+on the device (:func:`tile_map`), without a host synchronisation.
 """
 
 from __future__ import annotations
@@ -76,6 +81,39 @@ def _check(q, k, v):
         raise ValueError("flash_attention inputs lie on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous q, k, v")
+    if q.is_cuda and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention takes 16-byte aligned q, k, v (TMA tiles)")
+
+
+SM_COUNT = 132  # H100 SXM
+
+
+def default_config(b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype,
+                   masked: bool = False) -> tuple:
+    """The kernel's (q rows, keys, stages) per tile for a call's shape: fp32
+    runs (64, 64, 2); the masked bf16 kernel (128, 128, 3) at D = 64 and
+    (128, 128, 2) at D = 128 (what fits with the mask tiles); the unmasked
+    bf16 kernel (128, 128, 3), or 64-row q tiles where 128-row tiles would
+    give fewer CTAs than the card has SMs."""
+    if dtype == torch.float32:
+        return (64, 64, 2)
+    if masked:
+        return (128, 128, 3 if d == 64 else 2)
+    if b * h * -(-lq // 128) < SM_COUNT:
+        return (64, 128, 3)
+    return (128, 128, 3)
+
+
+def tile_map(mask: torch.Tensor, bq: int, bk: int) -> torch.Tensor:
+    """[B, Lq, Lk] bool → [B, ceil(Lq/bq), ceil(Lk/bk)] uint8, 1 where the
+    (q tile, key tile) holds an allowed pair. Plain reductions on the mask's
+    device, no host synchronisation."""
+    b, lq, lk = mask.shape
+    nq, nk = -(-lq // bq), -(-lk // bk)
+    m = mask.view(torch.uint8)
+    if nq * bq != lq or nk * bk != lk:
+        m = torch.nn.functional.pad(m, (0, nk * bk - lk, 0, nq * bq - lq))
+    return m.view(b, nq, bq, nk, bk).amax(dim=(2, 4)).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,7 +123,8 @@ def _lib():
 
     lib = cuda_build.load("flash_attention")
     fn = lib.hy3d_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -106,10 +145,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch(q, k, v, mask, scale):
     b, h, lq, d = q.shape
     lk = k.shape[2]
+    bq, bk, stages = default_config(b, h, lq, lk, d, q.dtype, mask is not None)
+    occupancy = None if mask is None else tile_map(mask, bq, bk)
     out = torch.empty_like(q)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if mask is None else mask.data_ptr(), out.data_ptr(), b * h, h, lq, lk, d,
-                 _DTYPES[q.dtype], float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+                 None if mask is None else mask.data_ptr(),
+                 None if occupancy is None else occupancy.data_ptr(), out.data_ptr(), b * h, h,
+                 lq, lk, d, _DTYPES[q.dtype], float(scale), bq, bk, stages,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     return out
@@ -130,8 +173,12 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
         return flash_attention_masked_plain(q, k, v, mask, scale)
-    # torch.bool is one byte of 0 or 1: the kernel reads it as uint8
-    out = _launch(q, k, v, mask.contiguous(), scale)
+    # torch.bool is one byte of 0 or 1: the kernel reads it as uint8, by TMA
+    # from a 16-byte aligned base
+    mask = mask.contiguous()
+    if mask.data_ptr() % 16:
+        mask = mask.clone()
+    out = _launch(q, k, v, mask, scale)
     flash_attention_masked.launches += 1
     return out
 

@@ -3,7 +3,8 @@
 Each kernel source under ``hunyuan3d2_tpu_torch/csrc/`` has a plain C
 interface. At first use it is compiled for Hopper (``sm_90a``) into a
 shared library under ``build/hunyuan3d2_tpu_torch/`` at the repository root,
-keyed by a hash of the source and the flags, and loaded with ``ctypes``.
+keyed by a hash of the source, every header in ``csrc/`` and the flags, and
+loaded with ``ctypes``.
 Nothing here runs when a module is imported, and nothing falls back: a
 missing compiler or a failed build raises.
 """
@@ -36,11 +37,16 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the shared library for ``csrc/<name>.cu`` at its current
-    source hash."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Path of the shared library for ``csrc/<name>.cu`` at the current hash
+    of its source, of every ``csrc/*.cuh`` header (any of them may be
+    included) and of the flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):

@@ -39,6 +39,112 @@ def test_flash_attention_kernel_matches_plain(gen, lq, lk, d, dt, tol):
                                atol=tol, rtol=tol)
 
 
+# every compiled tile configuration of the sweep at a ragged shape; the
+# fp32 kernel (3xTF32) at fp32-grade error; D = 128 over several q tiles
+VARIANT_CFGS = [(64, 128, 2), (64, 128, 3), (128, 64, 3), (128, 128, 2), (128, 128, 3)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("cfg", VARIANT_CFGS)
+def test_flash_variant_kernel_matches_plain(gen, cfg, d):
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention_plain
+    from hunyuan3d2_tpu_torch.tools.profile_flash_variants import VARIANTS, flash_attention_variant
+
+    assert tuple(VARIANTS) == tuple(VARIANT_CFGS)
+    q = torch.randn(2, 3, 130, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(2, 3, 200, d, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(2, 3, 200, d, generator=gen, device="cuda").to(torch.bfloat16)
+    before = flash_attention_variant.launches
+    out = flash_attention_variant(q, k, v, d ** -0.5, *cfg)
+    torch.cuda.synchronize()
+    assert flash_attention_variant.launches == before + 1
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("lk", [77, 200, 333, 1370, 4442])
+def test_flash_attention_ragged_key_lengths(gen, lk):
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    q = torch.randn(1, 4, 300, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(1, 4, lk, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(1, 4, lk, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_flash_attention_d128_bf16_many_q_tiles(gen):
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    q = torch.randn(1, 8, 1500, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(1, 8, 1100, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(1, 8, 1100, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("lq,lk,d", [(512, 512, 64), (1000, 333, 128), (3072, 3072, 64)])
+def test_flash_attention_fp32_error(gen, lq, lk, d):
+    """3xTF32 keeps fp32-grade error: max abs err <= 1e-5 (plain TF32 would
+    give ~1e-3)."""
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = (torch.randn(1, 4, n, d, generator=gen, device="cuda") for n in (lq, lk, lk))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (out - flash_attention_plain(q, k, v)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dt,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def test_masked_flash_attention_skips_empty_tiles(gen, dt, tol):
+    """A mask with whole empty 128 x 128 tiles (a block-diagonal voxel-like
+    pattern) and fully masked rows: the output equals the twin and the
+    fully masked rows are 0."""
+    from hunyuan3d2_tpu_torch.ops.flash_attention import (
+        flash_attention_masked,
+        flash_attention_masked_plain,
+        tile_map,
+    )
+
+    lq = lk = 1024
+    blk = torch.arange(lq, device="cuda") // 256
+    mask = (blk[:, None] == blk[None, :])[None].repeat(2, 1, 1)
+    mask &= torch.rand(2, lq, lk, generator=gen, device="cuda") < 0.5
+    mask[:, 5] = False
+    mask[1, 700:830] = False          # a whole q tile's rows empty in part
+    occ = tile_map(mask, 128, 128)
+    assert 0 < occ.float().mean().item() < 0.5
+    q, k, v = (torch.randn(2, 4, lq, 64, generator=gen, device="cuda").to(dt) for _ in range(3))
+    out = flash_attention_masked(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (out[:, :, 5] == 0).all() and (out[1, :, 700:830] == 0).all()
+    torch.testing.assert_close(out.float(), flash_attention_masked_plain(q, k, v, mask).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(gen):
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+    from hunyuan3d2_tpu_torch.tools.profile_flash_variants import flash_attention_variant
+
+    x96 = torch.zeros(1, 2, 64, 96, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention(x96, x96, x96)
+    q = torch.zeros(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.float(), q)
+    with pytest.raises(ValueError):
+        flash_attention_variant(q, q, q, 0.125, 256, 128, 2)
+    with pytest.raises(TypeError):
+        flash_attention_variant(q.float(), q.float(), q.float(), 0.125, 128, 128, 2)
+    misaligned = torch.zeros(2 * 64 * 64 + 4, device="cuda", dtype=torch.bfloat16)[4:]
+    with pytest.raises(ValueError):
+        flash_attention(misaligned.view(1, 2, 64, 64), q, q)
+
+
 @pytest.mark.parametrize("width,heads,latents,p", [(128, 2, 64, 300), (1024, 16, 512, 1000)])
 def test_geo_decode_kernel_matches_plain(gen, width, heads, latents, p):
     from hunyuan3d2_tpu_torch.models import shapevae as sv

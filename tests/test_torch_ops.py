@@ -7,6 +7,7 @@ pallas_call the same way), the fused geo decoder through its own
 interpret-on-CPU switch.
 """
 
+import os
 from unittest import mock
 
 import jax
@@ -207,6 +208,28 @@ def test_geo_wrapper_rejects_what_the_kernel_does_not_take():
         fused_geo_decode(vae, pts, kv.float(), kv.float())
     with pytest.raises(ValueError):
         fused_geo_decode(vae, torch.zeros(2, 10, 3), kv, kv)
+
+
+def test_kernel_library_path_follows_headers(monkeypatch, tmp_path):
+    """A changed header under csrc/ gives a new library path, so a stale
+    build is never loaded; so does a changed source or a new header."""
+    from hunyuan3d2_tpu_torch.utils import cuda_build
+
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    first = cuda_build.library_path("k")
+    assert cuda_build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = cuda_build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    third = cuda_build.library_path("k")
+    assert third not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    fourth = cuda_build.library_path("k")
+    assert fourth not in (first, second, third)
+    assert os.path.basename(fourth).startswith("libk-") and fourth.endswith(".so")
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
