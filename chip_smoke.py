@@ -10,9 +10,12 @@ Phases, in order; any failure exits non-zero:
      paths, with its time, the plain time, the time of one library call
      where one computes the same function, and its bound on the card: flash
      attention (DINOv2, DiT, VAE, the paint UNet's shapes, the v2-0 Fast
-     DiT and the streamed geo decode's attention), the fused geo decoder,
-     the streamed decode's MLP-tail kernel on x2 from the v2-0 VAE (then the
-     whole streamed decode against the plain decode), the masked flash
+     DiT and the streamed geo decode's attention), the fused geo decoder
+     (kernel 3's chain) and the streamed decode's MLP tail (kernel 4's
+     chain) on x2 from the v2-0 VAE, each kernel of their chain (LN rows,
+     the GEMM's epilogues, ln_post) at the coarse pass and a fine chunk of
+     both decodes with a breakdown of the chain's time (then the whole
+     streamed decode against the plain decode), the masked flash
      attention under voxel masks built from the test sphere's cond maps
      (with the share of key tiles it skips), and the rasterizer on that
      sphere (a 512² view and the 2048² UV raster);
@@ -57,6 +60,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 without tensor cores
 VIEWS = [(0, 0), (0, 90), (0, 180), (0, 270), (90, 0), (-90, 180)]   # (elev, azim)
+
+
+# the kernels of the geo decoder's chain (csrc/geo_decode.cu), and the
+# launches of each per decode call (kernel 3's or kernel 4's chain)
+CHAIN_KERNELS = ("ln_rows", "gemm_residual", "gemm_head_ln", "gemm_gelu", "ln_dot_rows")
+CHAIN_PER_CALL = {"ln_rows": 2, "gemm_residual": 3, "gemm_head_ln": 1, "gemm_gelu": 1,
+                  "ln_dot_rows": 1}
 
 
 def log(msg):
@@ -175,10 +185,14 @@ def flash_phase(gen):
 
 
 def geo_phase(gen):
+    """Kernel 3 (the chain of the fused decoder) on the mini VAE at the
+    coarse pass (34³ corners) and one fine chunk (128 blocks of 8³) of
+    octree 256, against its plain twin geo_decode_plain (the Pallas
+    kernel's function, fp32 residual); then each kernel of its chain."""
     import torch
 
     from hunyuan3d2_tpu_torch.models import shapevae as sv
-    from hunyuan3d2_tpu_torch.ops.geo_decoder import decode_queries_plain, fused_geo_decode
+    from hunyuan3d2_tpu_torch.ops.geo_decoder import fused_geo_decode, geo_decode_plain
 
     cfg = sv.MINI
     vae = sv.ShapeVAE.init_random(cfg, device="cuda", generator=gen)
@@ -188,30 +202,154 @@ def geo_phase(gen):
     w, l, m = cfg.width, cfg.num_latents, cfg.geo_decoder_mlp_expand_ratio * cfg.width
     macs_per_query = 51 * w + 2 * w * w + 2 * l * w + 2 * w * m + w
     weight_bytes = 2 * (64 * w + 2 * w * w + 2 * w * m + w) + 2 * k16.numel() * 2
-    rows = []
-    # coarse pass (34³ corners) and one fine chunk (128 blocks of 8³) at octree 256
+    rows, chain_rows, breakdowns = [], [], []
     for p in (39304, 65536):
         pts = (torch.rand(1, p, 3, generator=gen, device="cuda") * 2.02 - 1.01).contiguous()
         out = fused_geo_decode(vae, pts, k16, v16)
-        ref = decode_queries_plain(vae, pts, k16, v16).float()
+        ref = geo_decode_plain(vae, pts, k16, v16)
         torch.cuda.synchronize()
         check(torch.isfinite(out).all().item(), f"fused_geo_decode P={p}: non-finite output")
         err = (out - ref).abs().max().item()
-        tol = 0.05 * max(1.0, ref.abs().max().item())
+        tol = 1e-2 * max(1.0, ref.abs().max().item())
         corr = torch.corrcoef(torch.stack([out.ravel(), ref.ravel()]))[0, 1].item()
-        # the plain decode keeps the residual in bf16 where the kernel keeps fp32
-        check(err <= tol and corr > 0.9999,
+        # the twin keeps the fp32 residual as the chain does: they differ in
+        # the order of fp32 sums, erff, and kernel 1's online softmax (p
+        # rounded to bf16 before it is normalised), so a bf16 rounding of an
+        # LN, q, p or GELU value may flip by one ulp
+        check(err <= tol and corr >= 0.9999,
               f"fused_geo_decode P={p}: max abs err {err} (tol {tol}), corr {corr}")
-        ms = time_ms(lambda: fused_geo_decode(vae, pts, k16, v16), 5)
-        plain_ms = time_ms(lambda: decode_queries_plain(vae, pts, k16, v16), 3)
+        ms = time_ms(lambda: fused_geo_decode(vae, pts, k16, v16), 10)
+        plain_ms = time_ms(lambda: geo_decode_plain(vae, pts, k16, v16), 3)
         bound_ms, by = bound(2.0 * macs_per_query * p, 16 * p + weight_bytes, "bf16")
         row = dict(shape=f"P={p} W={w} H={cfg.heads} L={l} bf16 K/V", max_abs_err=err,
                    max_rel_err=err / ref.abs().max().item(), tol=tol, corr=corr, ms=ms,
                    plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=by)
         log("fused_geo_decode " + json.dumps(row))
         rows.append(row)
+        del out, ref
+        steps, parts = chain_phase(vae, pts, k16, v16, torch.float32,
+                                   lambda: fused_geo_decode(vae, pts, k16, v16))
+        chain_rows += steps
+        breakdowns.append(parts)
     del vae
-    return rows
+    return rows, chain_rows, breakdowns
+
+
+def chain_phase(vae, pts, k16, v16, x2_dtype, whole):
+    """Each kernel of the decode chain (ops/geo_decoder.py: the front, kernel
+    1, the tail) at the queries ``pts``, on the inputs the chain gives it,
+    against its plain twin on the same inputs, with its time, the plain
+    time, the time of the bf16 ``F.linear`` of the GEMM's shape (product
+    and bias in one call; the port never calls it) and its bound. Then the
+    chain's breakdown: every step timed alone, ``whole`` (the wrapper's
+    call) timed, and the rest (host work, allocation, gaps)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hunyuan3d2_tpu_torch.ops import geo_decoder as g
+    from hunyuan3d2_tpu_torch.ops.embeddings import fourier_embed
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = vae.cfg
+    o = g._operands(vae, pts.device)
+    eps, hd = cfg.ln_eps, cfg.head_dim
+    p, w, m, e = pts.shape[1], cfg.width, cfg.geo_decoder_mlp_expand_ratio * cfg.width, g.EMB_PAD
+    x2b = 2 if x2_dtype == torch.bfloat16 else 4
+    b16 = {n: o[n].to(torch.bfloat16) for n in ("bqp", "bcq", "bcp", "bfc", "bpj")}
+
+    def embed():
+        qe = fourier_embed(pts[0], cfg.num_freqs, cfg.include_pi).to(torch.bfloat16)
+        return F.pad(qe, (0, e - qe.shape[1]))
+
+    qe = embed()
+    x = g.gemm_residual(qe, o["wqp"], o["bqp"])
+    h1 = g.ln_rows(x, o["ln1s"], o["ln1b"], eps)
+    q = g.gemm_head_ln(h1, o["wcq"], o["bcq"], o["qns"], o["qnb"], hd, eps)
+    att = flash_attention(q[None], k16, v16)[0]
+    att2d = att.transpose(0, 1).reshape(p, w).contiguous()   # for F.linear alone
+    x2 = g.gemm_residual(att, o["wcp"], o["bcp"], resid=x, out_dtype=x2_dtype)
+    h = g.ln_rows(x2, o["ln3s"], o["ln3b"], eps)
+    t = g.gemm_gelu(h, o["wfc"], o["bfc"])
+    y = g.gemm_residual(t, o["wpj"], o["bpj"], resid=x2)
+    # (kernel, step, kernel call, plain call, operations and their type,
+    # bytes (each input read once, each output written once), library call)
+    steps = [
+        ("gemm_residual", "front: x = qe Wqp^T + bqp",
+         lambda: g.gemm_residual(qe, o["wqp"], o["bqp"]),
+         lambda: g.gemm_residual_plain(qe, o["wqp"], o["bqp"]),
+         2.0 * p * e * w, "bf16", 2 * p * e + 2 * w * e + 4 * w + 4 * p * w,
+         lambda: F.linear(qe, o["wqp"], b16["bqp"])),
+        ("ln_rows", "LN1 (fp32 x)",
+         lambda: g.ln_rows(x, o["ln1s"], o["ln1b"], eps),
+         lambda: g.ln_rows_plain(x, o["ln1s"], o["ln1b"], eps),
+         8.0 * p * w, "fp32", 4 * p * w + 2 * p * w + 8 * w, None),
+        ("gemm_head_ln", "c_q + per-head q LN -> [H, P, D]",
+         lambda: g.gemm_head_ln(h1, o["wcq"], o["bcq"], o["qns"], o["qnb"], hd, eps),
+         lambda: g.gemm_head_ln_plain(h1, o["wcq"], o["bcq"], o["qns"], o["qnb"], hd, eps),
+         2.0 * p * w * w, "bf16", 2 * p * w + 2 * w * w + 4 * w + 8 * hd + 2 * p * w,
+         lambda: F.linear(h1, o["wcq"], b16["bcq"])),
+        ("gemm_residual", f"c_proj + x (A per head) -> x2 {str(x2_dtype).split('.')[-1]}",
+         lambda: g.gemm_residual(att, o["wcp"], o["bcp"], resid=x, out_dtype=x2_dtype),
+         lambda: g.gemm_residual_plain(att, o["wcp"], o["bcp"], resid=x, out_dtype=x2_dtype),
+         2.0 * p * w * w, "bf16", 2 * p * w + 2 * w * w + 4 * w + 4 * p * w + x2b * p * w,
+         lambda: F.linear(att2d, o["wcp"], b16["bcp"])),
+        ("ln_rows", f"LN3 ({str(x2_dtype).split('.')[-1]} x2)",
+         lambda: g.ln_rows(x2, o["ln3s"], o["ln3b"], eps),
+         lambda: g.ln_rows_plain(x2, o["ln3s"], o["ln3b"], eps),
+         8.0 * p * w, "fp32", x2b * p * w + 2 * p * w + 8 * w, None),
+        ("gemm_gelu", "MLP fc + GELU",
+         lambda: g.gemm_gelu(h, o["wfc"], o["bfc"]),
+         lambda: g.gemm_gelu_plain(h, o["wfc"], o["bfc"]),
+         2.0 * p * w * m, "bf16", 2 * p * w + 2 * w * m + 4 * m + 2 * p * m,
+         lambda: F.linear(h, o["wfc"], b16["bfc"])),
+        ("gemm_residual", "MLP proj + x2 + bpj",
+         lambda: g.gemm_residual(t, o["wpj"], o["bpj"], resid=x2),
+         lambda: g.gemm_residual_plain(t, o["wpj"], o["bpj"], resid=x2),
+         2.0 * p * w * m, "bf16", 2 * p * m + 2 * w * m + 4 * w + x2b * p * w + 4 * p * w,
+         lambda: F.linear(t, o["wpj"], b16["bpj"])),
+        ("ln_dot_rows", "ln_post + output dot",
+         lambda: g.ln_dot_rows(y, o["lnps"], o["lnpb"], o["wout"], o["bout"], eps),
+         lambda: g.ln_dot_rows_plain(y, o["lnps"], o["lnpb"], o["wout"], o["bout"], eps),
+         10.0 * p * w, "fp32", 4 * p * w + 4 * p + 10 * w + 4, None),
+    ]
+    rows = []
+    for kernel, step, fn, plain, flops, kind, nbytes, lib in steps:
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        check(torch.isfinite(out.float()).all().item(), f"{kernel} ({step}): non-finite output")
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        scale = max(1.0, ref.float().abs().max().item())
+        if out.dtype == torch.bfloat16:
+            # one fp32 value summed in another order: equal or one bf16 ulp
+            # apart, plus the fp32 order error where a sum cancels to near 0
+            ok = bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-4).all().item())
+            tol = "one bf16 ulp + 1e-4"
+        elif kernel == "ln_dot_rows":
+            # an LN output one ulp apart moves the dot by ~2^-8 of a term
+            tol = 1e-2 * scale
+            ok = err <= tol
+        else:
+            tol = 1e-4 * scale
+            ok = err <= tol
+        check(ok, f"{kernel} ({step}) P={p}: max abs err {err} (tol {tol})")
+        bound_ms, by = bound(flops, nbytes, kind)
+        row = dict(kernel=kernel, step=step, P=p, shape=f"{step}: P={p}, W={w}, M={m}",
+                   max_abs_err=err, tol=tol, ms=time_ms(fn, 10), plain_ms=time_ms(plain, 2),
+                   library_ms=None if lib is None else time_ms(lib, 10), bound_ms=bound_ms,
+                   bound_by=by)
+        log(f"{kernel} " + json.dumps(row))
+        rows.append(row)
+        del out, ref, diff
+    parts = {"P": p, "embed (plain torch)": time_ms(embed, 10)}
+    for r in rows:
+        parts[r["step"]] = r["ms"]
+    parts["flash_attention"] = time_ms(lambda: flash_attention(q[None], k16, v16), 10)
+    parts["whole call"] = time_ms(whole, 5)
+    parts["rest"] = parts["whole call"] - sum(v for n, v in parts.items()
+                                              if n not in ("P", "whole call"))
+    log("decode chain breakdown (ms) " + json.dumps(parts))
+    return rows, parts
 
 
 def plain_decode(vae, pts, k16, v16, chunk=8192):
@@ -226,9 +364,10 @@ def plain_decode(vae, pts, k16, v16, chunk=8192):
 
 
 def stream_phase(gen):
-    """The MLP-tail kernel on x2 made by the streamed decode of the FULL
-    (v2-0) VAE, at the coarse pass (49³ = 117,649 queries) and one fine
-    chunk (390 blocks of 8³ = 199,680) of octree 380; then the whole
+    """Kernel 4 (the MLP tail's chain) on x2 made by the streamed decode of
+    the FULL (v2-0) VAE, at the coarse pass (49³ = 117,649 queries) and one
+    fine chunk (390 blocks of 8³ = 199,680) of octree 380, against its
+    plain twin; each kernel of the stream's chain there; then the whole
     streamed decode against the plain decode at P = 65,536."""
     import torch
 
@@ -246,7 +385,7 @@ def stream_phase(gen):
     k, v = vae.compute_kv(vae.decode_latents(lat))
     k16, v16 = k.to(torch.bfloat16).contiguous(), v.to(torch.bfloat16).contiguous()
     w, m = cfg.width, cfg.geo_decoder_mlp_expand_ratio * cfg.width
-    rows = []
+    rows, chain_rows, breakdowns = [], [], []
     for p in (117649, 199680):
         pts = (torch.rand(1, p, 3, generator=gen, device="cuda") * 2.02 - 1.01).contiguous()
         x2 = geo_stream_x2(vae, pts, k16, v16)
@@ -263,7 +402,7 @@ def stream_phase(gen):
         # to the neighbouring bf16 value
         check(err <= tol and corr >= 0.9999,
               f"geo_mlp_tail P={p}: max abs err {err} (tol {tol}), corr {corr}")
-        ms = time_ms(lambda: geo_mlp_tail(vae, x2), 5)
+        ms = time_ms(lambda: geo_mlp_tail(vae, x2), 10)
         plain_ms = time_ms(lambda: geo_mlp_tail_plain(vae, x2), 2)
         # the two MLP products and the output dot; x2 read once, logits
         # written once, the MLP weights (bf16) and vectors (fp32) read once
@@ -275,7 +414,12 @@ def stream_phase(gen):
                    library_ms=None, bound_ms=bound_ms, bound_by=by)
         log("geo_mlp_tail " + json.dumps(row))
         rows.append(row)
-        del pts, x2, out, ref
+        del x2, out, ref
+        steps, parts = chain_phase(vae, pts, k16, v16, torch.bfloat16,
+                                   lambda: fused_geo_decode_stream(vae, pts, k16, v16))
+        chain_rows += steps
+        breakdowns.append(parts)
+        del pts
     p = 65536
     pts = (torch.rand(1, p, 3, generator=gen, device="cuda") * 2.02 - 1.01).contiguous()
     out = fused_geo_decode_stream(vae, pts, k16, v16)
@@ -290,7 +434,7 @@ def stream_phase(gen):
     check(math.isfinite(err) and err <= 0.05 * max(1.0, scale) and corr > 0.9999,
           "stream decode check: the streamed decode disagrees with the plain decode")
     del vae
-    return rows
+    return rows, chain_rows, breakdowns
 
 
 def test_image():
@@ -341,6 +485,11 @@ def shape_run(name, pipe, image, runs, must_launch, must_not_launch=(), **call):
         check(launches[n] > 0, f"{name}: kernel {n} was never launched")
     for n in must_not_launch:
         check(launches[n] == 0, f"{name}: kernel {n} was launched off its path")
+    # every decode call (kernel 3's or kernel 4's) ran the whole chain
+    calls = launches["fused_geo_decode"] + launches["geo_mlp_tail"]
+    for n, per in CHAIN_PER_CALL.items():
+        check(launches[n] == per * calls, f"{name}: {launches[n]} {n} launches for {calls} "
+              f"decode calls ({per} each)")
     return mesh, launches
 
 
@@ -372,7 +521,8 @@ def main_path():
     log(f"main path: stack up in {time.perf_counter() - t0:.2f} s "
         f"(DINOv2-giant, mini DiT, mini ShapeVAE, random weights, seed 0)")
     mesh, launches = shape_run("main path", pipe, test_image(), ("cold", "warm"),
-                               ("flash_attention", "fused_geo_decode"), ("geo_mlp_tail",),
+                               ("flash_attention", "fused_geo_decode", *CHAIN_KERNELS),
+                               ("geo_mlp_tail",),
                                num_inference_steps=5, guidance_scale=5.0,
                                octree_resolution=256, num_chunks=65536)
     write_glb("main path", mesh, "chip_smoke.glb")
@@ -398,7 +548,7 @@ def v20_path():
         f"16 + 32 blocks with the guidance embedding, FULL ShapeVAE 3072 latents, random "
         f"weights, seed 0)")
     mesh, launches = shape_run("v2-0 path", pipe, test_image(), ("cold", "warm"),
-                               ("flash_attention", "geo_mlp_tail"), ("fused_geo_decode",),
+                               ("flash_attention", "geo_mlp_tail", *CHAIN_KERNELS), ("fused_geo_decode",),
                                num_inference_steps=5, guidance_scale=5.0,
                                octree_resolution=380, num_chunks=200000)
     write_glb("v2-0 path", mesh, "chip_smoke_v20.glb")
@@ -453,7 +603,7 @@ def multiview_run(pipe):
     views = {"front": img, "left": img.transpose(Image.ROTATE_90),
              "back": img.transpose(Image.FLIP_LEFT_RIGHT)}
     _, launches = shape_run("multiview (3 views) path", pipe, views, ("first", "warm"),
-                            ("flash_attention", "geo_mlp_tail"), ("fused_geo_decode",),
+                            ("flash_attention", "geo_mlp_tail", *CHAIN_KERNELS), ("fused_geo_decode",),
                             num_inference_steps=5, guidance_scale=5.0,
                             octree_resolution=380, num_chunks=200000)
     return launches
@@ -663,14 +813,15 @@ def raster_phase(sphere):
 
 
 def _kernel_counters():
+    from hunyuan3d2_tpu_torch.ops import geo_decoder as g
     from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_masked
-    from hunyuan3d2_tpu_torch.ops.geo_decoder import fused_geo_decode, geo_mlp_tail
     from hunyuan3d2_tpu_torch.ops.rasterize import rasterize
     from hunyuan3d2_tpu_torch.tools.profile_flash_variants import flash_attention_variant
 
     return {"flash_attention": flash_attention, "flash_attention_masked": flash_attention_masked,
-            "fused_geo_decode": fused_geo_decode, "geo_mlp_tail": geo_mlp_tail,
-            "rasterize": rasterize, "flash_variants": flash_attention_variant}
+            "fused_geo_decode": g.fused_geo_decode, "geo_mlp_tail": g.geo_mlp_tail,
+            "rasterize": rasterize, "flash_variants": flash_attention_variant,
+            **{n: getattr(g, n) for n in CHAIN_KERNELS}}
 
 
 def texture_path(sphere):
@@ -817,8 +968,8 @@ def main() -> int:
     sphere = sphere_mesh()
     with torch.no_grad():
         flash_rows = flash_phase(gen)
-        geo_rows = geo_phase(gen)
-        tail_rows = stream_phase(gen)
+        geo_rows, chain_mini, parts_mini = geo_phase(gen)
+        tail_rows, chain_v20, parts_v20 = stream_phase(gen)
         masked_rows = masked_phase(gen, sphere)
         sweep_rows, sweep_best, launches_sweep = sweep_phase()
         raster_rows = raster_phase(sphere)
@@ -869,6 +1020,20 @@ def main() -> int:
         entry("flash_variants", "hunyuan3d2_tpu_torch/csrc/flash_variants.cu",
               "scripts/profile_flash_variants.py:72", sweep_rows, sweep_best, "flash_sweep"),
     ]
+    # the chain's kernels: every shape of both decodes, the main row at the
+    # v2-0 fine chunk (the tail's instance where a kernel runs twice)
+    chain_rows = chain_v20 + chain_mini
+    for name, step, replaces in (
+            ("ln_rows", "LN3", ":377"), ("gemm_gelu", "MLP fc", ":377"),
+            ("gemm_residual", "MLP proj", ":377"), ("ln_dot_rows", "ln_post", ":377"),
+            ("gemm_head_ln", "c_q", ":221")):
+        rows = [r for r in chain_rows if r["kernel"] == name]
+        main_row = next(i for i, r in enumerate(rows)
+                        if r["P"] == 199680 and r["step"].startswith(step))
+        kernels.append(entry(name, "hunyuan3d2_tpu_torch/csrc/geo_decode.cu",
+                             "hunyuan3d2_tpu/ops/geo_decoder_pallas.py" + replaces, rows,
+                             main_row, "image_to_mesh_v2_0_fast"))
+
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

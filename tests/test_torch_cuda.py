@@ -145,10 +145,25 @@ def test_flash_kernels_refuse_what_they_do_not_take(gen):
         flash_attention(misaligned.view(1, 2, 64, 64), q, q)
 
 
-@pytest.mark.parametrize("width,heads,latents,p", [(128, 2, 64, 300), (1024, 16, 512, 1000)])
+def _geo_launches():
+    from hunyuan3d2_tpu_torch.ops import geo_decoder as g
+
+    return {n: getattr(g, n).launches for n in (
+        "fused_geo_decode", "geo_mlp_tail", "ln_rows", "ln_dot_rows", "gemm_gelu",
+        "gemm_residual", "gemm_head_ln")}
+
+
+# kernel 3 against its plain twin, which keeps the fp32 residual as the
+# kernels do: they differ in the order of fp32 sums, erff, and kernel 1's
+# online softmax (p rounded to bf16 before it is normalised, where the twin
+# rounds the normalised p), so a bf16 rounding of an LN, q, p or GELU value
+# may flip by one ulp
+@pytest.mark.parametrize("width,heads,latents,p", [(128, 2, 64, 300), (1024, 16, 512, 1000),
+                                                   (256, 2, 512, 4097)])
 def test_geo_decode_kernel_matches_plain(gen, width, heads, latents, p):
     from hunyuan3d2_tpu_torch.models import shapevae as sv
-    from hunyuan3d2_tpu_torch.ops.geo_decoder import decode_queries_plain, fused_geo_decode
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+    from hunyuan3d2_tpu_torch.ops.geo_decoder import fused_geo_decode, geo_decode_plain
 
     cfg = sv.ShapeVAEConfig(num_latents=latents, width=width, heads=heads, num_decoder_layers=2)
     vae = sv.ShapeVAE.init_random(cfg, device="cuda", generator=gen)
@@ -157,13 +172,152 @@ def test_geo_decode_kernel_matches_plain(gen, width, heads, latents, p):
         k, v = vae.compute_kv(vae.decode_latents(lat))
         k, v = k.to(torch.bfloat16).contiguous(), v.to(torch.bfloat16).contiguous()
         pts = (torch.rand(1, p, 3, generator=gen, device="cuda") * 2.02 - 1.01).contiguous()
+        before, flash_before = _geo_launches(), flash_attention.launches
         out = fused_geo_decode(vae, pts, k, v)
-        ref = decode_queries_plain(vae, pts, k, v).float()
+        ref = geo_decode_plain(vae, pts, k, v)
     torch.cuda.synchronize()
+    after = _geo_launches()
+    assert {n: after[n] - before[n] for n in after} == dict(
+        fused_geo_decode=1, geo_mlp_tail=0, ln_rows=2, ln_dot_rows=1, gemm_gelu=1,
+        gemm_residual=3, gemm_head_ln=1)
+    assert flash_attention.launches == flash_before + 1
+    assert out.dtype == torch.float32 and out.shape == (1, p)
     out, ref = out.cpu().numpy(), ref.cpu().numpy()
-    # the plain decode keeps the residual in bf16 where the kernel keeps fp32
-    assert np.corrcoef(out.ravel(), ref.ravel())[0, 1] > 0.9999
-    assert np.abs(out - ref).max() < 0.05 * max(1.0, np.abs(ref).max())
+    assert np.corrcoef(out.ravel(), ref.ravel())[0, 1] >= 0.9999
+    assert np.abs(out - ref).max() <= 1e-2 * max(1.0, np.abs(ref).max())
+
+
+def _bf16_close(out, ref):
+    """bf16 outputs of the same fp32 value in another order of sums: equal
+    or one bf16 ulp apart (at most 2^-7 of the value), plus the fp32 order
+    error where a sum cancels to near 0 (1e-4, the fp32 outputs' bound)."""
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-4, rtol=2.0 ** -7 + 1e-6)
+
+
+# the GEMM template against its plain twins: both take exact products of the
+# bf16 values and fp32 sums, in another order; fp32 outputs agree to 1e-4,
+# bf16 outputs to one ulp
+GEMM_EPILOGUES = ["gelu", "plain", "resid fp32", "resid fp32 -> bf16", "resid bf16"]
+
+
+@pytest.mark.parametrize("n", [128, 1024, 4096])
+@pytest.mark.parametrize("k", [64, 1024, 4096])
+@pytest.mark.parametrize("rows", [1, 127, 4097])
+@pytest.mark.parametrize("epi", GEMM_EPILOGUES)
+def test_geo_gemm_kernel_matches_plain(gen, epi, rows, k, n):
+    from hunyuan3d2_tpu_torch.ops import geo_decoder as g
+
+    a = torch.randn(rows, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.1
+    if epi == "gelu":
+        before = g.gemm_gelu.launches
+        out, ref = g.gemm_gelu(a, w, bias), g.gemm_gelu_plain(a, w, bias)
+        torch.cuda.synchronize()
+        assert g.gemm_gelu.launches == before + 1
+        _bf16_close(out, ref)
+        return
+    res_dtype, out_dtype = {"plain": (None, torch.float32),
+                            "resid fp32": (torch.float32, torch.float32),
+                            "resid fp32 -> bf16": (torch.float32, torch.bfloat16),
+                            "resid bf16": (torch.bfloat16, torch.float32)}[epi]
+    resid = (None if res_dtype is None else
+             (torch.randn(rows, n, generator=gen, device="cuda") * 2.0).to(res_dtype))
+    before = g.gemm_residual.launches
+    out = g.gemm_residual(a, w, bias, resid, out_dtype)
+    ref = g.gemm_residual_plain(a, w, bias, resid, out_dtype)
+    torch.cuda.synchronize()
+    assert g.gemm_residual.launches == before + 1
+    assert out.dtype == out_dtype and out.shape == (rows, n)
+    if out_dtype == torch.bfloat16:
+        _bf16_close(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rows,k,n", [(1, 64, 128), (127, 1024, 1024), (4097, 1024, 4096),
+                                      (4097, 64, 1024)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_geo_gemm_head_ln_kernel_matches_plain(gen, d, rows, k, n):
+    """E3: c_q with the per-head q LayerNorm, stored as [H, P, D]."""
+    from hunyuan3d2_tpu_torch.ops import geo_decoder as g
+
+    a = torch.randn(rows, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.5
+    s = torch.rand(d, generator=gen, device="cuda") + 0.5
+    b = torch.randn(d, generator=gen, device="cuda") * 0.1
+    before = g.gemm_head_ln.launches
+    out = g.gemm_head_ln(a, w, bias, s, b, d, 1e-6)
+    ref = g.gemm_head_ln_plain(a, w, bias, s, b, d, 1e-6)
+    torch.cuda.synchronize()
+    assert g.gemm_head_ln.launches == before + 1
+    assert out.shape == (n // d, rows, d) and out.dtype == torch.bfloat16
+    _bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_geo_gemm_reads_per_head_a(gen, d):
+    """E2 with A read as kernel 1's [H, P, D] output (one head per 64-wide
+    K tile), against the plain twin on the merged heads."""
+    from hunyuan3d2_tpu_torch.ops import geo_decoder as g
+
+    h, rows, n = 1024 // d, 1000, 1024
+    a = torch.randn(h, rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(n, h * d, generator=gen, device="cuda") * 0.03).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.1
+    resid = torch.randn(rows, n, generator=gen, device="cuda")
+    out = g.gemm_residual(a, w, bias, resid)
+    ref = g.gemm_residual_plain(a.transpose(0, 1).reshape(rows, -1), w, bias, resid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("w", [128, 1024, 1280, 2048])
+@pytest.mark.parametrize("rows", [1, 127, 4097])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_geo_ln_rows_kernels_match_plain(gen, dt, rows, w):
+    """LN rows (bf16 out) and ln_post + the output dot, cached in registers
+    (W <= 1024) or read again (wider)."""
+    from hunyuan3d2_tpu_torch.ops import geo_decoder as g
+
+    x = (torch.randn(rows, w, generator=gen, device="cuda") * 3.0 + 1.0).to(dt)
+    s = torch.rand(w, generator=gen, device="cuda") + 0.5
+    b = torch.randn(w, generator=gen, device="cuda") * 0.1
+    before = (g.ln_rows.launches, g.ln_dot_rows.launches)
+    _bf16_close(g.ln_rows(x, s, b, 1e-6), g.ln_rows_plain(x, s, b, 1e-6))
+    if dt == torch.float32:
+        wout = (torch.randn(w, generator=gen, device="cuda") * w ** -0.5).to(torch.bfloat16)
+        bout = torch.full((1,), 0.25, device="cuda")
+        out = g.ln_dot_rows(x, s, b, wout, bout, 1e-6)
+        ref = g.ln_dot_rows_plain(x, s, b, wout, bout, 1e-6)
+        torch.cuda.synchronize()
+        # an LN output one bf16 ulp apart moves the dot by ~2^-8 |y w|
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=1e-3)
+    torch.cuda.synchronize()
+    assert g.ln_rows.launches == before[0] + 1
+    assert g.ln_dot_rows.launches == before[1] + (dt == torch.float32)
+
+
+def test_geo_kernels_refuse_what_they_do_not_take(gen):
+    from hunyuan3d2_tpu_torch.ops import geo_decoder as g
+
+    a = torch.zeros(10, 128, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(256, 128, device="cuda", dtype=torch.bfloat16)
+    bias = torch.zeros(256, device="cuda")
+    with pytest.raises(ValueError):       # K % 64
+        g.gemm_gelu(a[:, :96].contiguous(), w[:, :96].contiguous(), bias)
+    with pytest.raises(ValueError):       # B on the CPU
+        g.gemm_gelu(a, w.cpu(), bias)
+    with pytest.raises(ValueError):       # A not 16-byte aligned
+        g.gemm_gelu(torch.zeros(10 * 128 + 4, device="cuda", dtype=torch.bfloat16)[4:]
+                    .view(10, 128), w, bias)
+    with pytest.raises(ValueError):       # a bf16 output over a bf16 residual
+        g.gemm_residual(a, w, bias, torch.zeros(10, 256, device="cuda", dtype=torch.bfloat16),
+                        torch.bfloat16)
+    with pytest.raises(ValueError):       # W % 128
+        g.ln_rows(torch.zeros(4, 96, device="cuda"), torch.ones(96, device="cuda"),
+                  torch.zeros(96, device="cuda"), 1e-6)
 
 
 @pytest.mark.parametrize("dt,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])

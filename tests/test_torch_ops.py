@@ -142,8 +142,9 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_plain_geo_decode_matches_fused_pallas_kernel():
-    """The port's plain geo decode (the kernel's twin) against the JAX fused
-    Pallas kernel, which interprets on the CPU; P=300 leaves a ragged tile."""
+    """The port's plain geo decode (kernel 3's twin, geo_decode_plain, which
+    the wrapper takes on a CPU tensor) against the JAX fused Pallas kernel,
+    which interprets on the CPU; P=300 leaves a ragged tile."""
     from hunyuan3d2_tpu.models import shapevae as jsv
     from hunyuan3d2_tpu.ops.geo_decoder_pallas import fused_geo_decode as jfused
     from hunyuan3d2_tpu_torch.io.convert import load_numpy_state_dict, shapevae_state_dict
@@ -167,10 +168,13 @@ def test_plain_geo_decode_matches_fused_pallas_kernel():
     tv = torch.from_numpy(v).to(torch.bfloat16)
     out = fused_geo_decode(vae, torch.from_numpy(pts), tk, tv).numpy()
     assert out.shape == ref.shape == (1, 300)
-    # the plain decode keeps the residual in bf16 where the kernel keeps
-    # fp32: the JAX package's own fused-vs-plain bounds (test_geo_decoder_fused)
-    assert np.corrcoef(ref.ravel(), out.ravel())[0, 1] > 0.9999
-    assert np.abs(ref - out).max() < 0.05 * max(1.0, np.abs(ref).max())
+    # the twin keeps the fp32 residual and rounds where the Pallas kernel
+    # rounds; only the order of fp32 sums and erf (torch's against A&S 7.1.26)
+    # differ, so a bf16 rounding may flip by one ulp: measured 1.0e-3 of the
+    # scale and 1 - corr = 1.5e-8 (the bf16-residual dense decode: 9.1e-3
+    # and 3.2e-5)
+    assert 1.0 - np.corrcoef(ref.ravel(), out.ravel())[0, 1] < 1e-7
+    assert np.abs(ref - out).max() <= 3e-3 * max(1.0, np.abs(ref).max())
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -201,9 +205,11 @@ def test_geo_wrapper_rejects_what_the_kernel_does_not_take():
     assert not fused_geo_supported(tsv.TINY)              # head_dim 32
     with pytest.raises(ValueError):
         fused_geo_decode(tsv.ShapeVAE.init_random(tsv.TINY, device="cpu"), pts, kv, kv)
-    with pytest.raises(ValueError):                       # L % 16
-        odd = torch.zeros(1, 2, 60, 64, dtype=torch.bfloat16)
-        fused_geo_decode(vae, pts, odd, odd)
+    odd = torch.zeros(1, 2, 60, 64, dtype=torch.bfloat16)  # kernel 1 takes any L
+    assert fused_geo_decode(vae, pts, odd, odd).shape == (1, 10)
+    with pytest.raises(ValueError):                       # head size 32
+        narrow = torch.zeros(1, 2, 64, 32, dtype=torch.bfloat16)
+        fused_geo_decode(vae, pts, narrow, narrow)
     with pytest.raises(TypeError):
         fused_geo_decode(vae, pts, kv.float(), kv.float())
     with pytest.raises(ValueError):

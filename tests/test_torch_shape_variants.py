@@ -125,17 +125,22 @@ def test_mlp_tail_wrapper(stream_vae):
 
 
 def test_stream_refuses_width_over_tail_limit():
-    """A 1280-wide config passes the stream's (JAX) gate but not the
-    MLP-tail kernel's width limit: the stream refuses it before any work,
-    with an error that names the limit."""
-    cfg = tsv.ShapeVAEConfig(num_latents=1280, width=1280, heads=20)
-    assert tgeo.fused_geo_stream_supported(cfg) and cfg.width > tgeo.MAX_TAIL_WIDTH
-    vae = types.SimpleNamespace(cfg=cfg)
-    kv = torch.zeros(1, 20, 1280, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="does not take W > 1152"):
-        tgeo.fused_geo_decode_stream(vae, torch.zeros(1, 4, 3), kv, kv)
-    with pytest.raises(ValueError, match="does not take W > 1152"):
-        tgeo.geo_mlp_tail(vae, torch.zeros(1, 4, 1280, dtype=torch.bfloat16))
+    """A 1280-wide config passes the stream's (JAX) gate. The MLP tail once
+    refused it (its 32-row fp32 tile filled a block's shared memory); the
+    tail's kernels no longer hold a row in shared memory, so the stream
+    takes it and matches the JAX stream on the CPU."""
+    cfg = jsv.ShapeVAEConfig(num_latents=1280, width=1280, heads=20, num_decoder_layers=1)
+    assert tgeo.fused_geo_stream_supported(cfg)
+    params, vae = _vae(cfg)
+    k, v = _kv(params, cfg, 3)
+    pts = np.random.RandomState(5).uniform(-1.01, 1.01, (1, 300, 3)).astype(np.float32)
+    kv16 = (jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16))
+    ref = np.asarray(jax_stream(params, cfg, jnp.asarray(pts), kv16), np.float32)
+    tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (k, v))
+    out = tgeo.fused_geo_decode_stream(vae, torch.from_numpy(pts), tk, tv).numpy()
+    assert out.shape == ref.shape == (1, 300)
+    assert np.abs(out - ref).max() <= 1e-2 * max(1.0, np.abs(ref).max())
+    assert np.corrcoef(out.ravel(), ref.ravel())[0, 1] > 0.99999
 
 
 @pytest.mark.parametrize("latents,width,topk_mode,want", [
