@@ -17,8 +17,11 @@ Phases, in order; any failure exits non-zero:
      both decodes with a breakdown of the chain's time (then the whole
      streamed decode against the plain decode), the masked flash
      attention under voxel masks built from the test sphere's cond maps
-     (with the share of key tiles it skips), and the rasterizer on that
-     sphere (a 512² view and the 2048² UV raster);
+     (with the share of key tiles it skips), and the rasterizer (the whole
+     call, its face setup in the kernel, its records held to face_setup's
+     bit for bit) on that sphere (a 512² view and the 2048² UV raster), on
+     screen-sized faces and on ties, degenerate, NaN, w = 0 and off-screen
+     faces;
   3b. the flash kernel's tile-configuration sweep (kernel 6, the port of
      scripts/profile_flash_variants.py) at the paint multiview shape
      (1, 5, 24576, 64) bf16, each variant held against the plain twin;
@@ -27,7 +30,10 @@ Phases, in order; any failure exits non-zero:
      capped surface buffers), random weights from a seed, run cold and warm;
      the kernels' launch counts are read from the warm run, and the GLB is
      written under tmp/; then the decode against the plain decode on a small
-     grid; then the stack is freed;
+     grid; then one warm run each of the 'mc' and 'mt' extractors at octree
+     256 and of the vanilla and hierarchical decoders (plain fp32 decode,
+     dense or host marching cubes) at octree 64, the 'mc' GLB written under
+     tmp/; then the stack is freed;
   5. slice 3 at full width: image → mesh on the v2-0 stack (DINOv2-giant,
      the FULL DiT with the guidance embedding, 5 steps at guidance 5.0, the
      3072-latent FULL ShapeVAE through the streamed decode at octree 380 and
@@ -97,6 +103,29 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_by_kernel(fn, iters):
+    """Device time per call of each kernel (and memset) that ``fn`` runs,
+    from a torch.profiler trace of ``iters`` calls; {} when the trace holds
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            short = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            name = short.split("::")[-1].split()[-1] if short.strip() else e.key
+            out[name] = out.get(name, 0.0) + us / iters / 1e3
+    return out
 
 
 def attention_check(name, out, ref, tol):
@@ -529,6 +558,40 @@ def main_path():
     return pipe, launches
 
 
+def extractor_runs(pipe):
+    """The mini stack's other decoders and extractors through the user's
+    entry points, one warm run each with its time and mesh size: FlashVDM
+    with marching cubes ('mc') and marching tetrahedra ('mt') at octree 256
+    (capped active cells, extracted on the host from the device's compacted
+    cells), then at octree 64 the vanilla decode with dense marching cubes
+    (``enable_flashvdm(enabled=False)``) and the hierarchical decode without
+    adaptive K/V (``enable_flashvdm_decoder(adaptive_kv_selection=False)``),
+    both through the plain fp32 decode. The 'mc' mesh is written under
+    tmp/."""
+    os.environ["HY3D_CAP_ACTIVES"] = "1"
+    image = test_image()
+    call = dict(num_inference_steps=5, guidance_scale=5.0, num_chunks=65536)
+    launches = {}
+    for name, octree, enable in (
+            ("mc", 256, lambda: pipe.enable_flashvdm(mc_algo="mc")),
+            ("mt", 256, lambda: pipe.enable_flashvdm(mc_algo="mt")),
+            ("vanilla + mc", 64, lambda: pipe.enable_flashvdm(enabled=False)),
+            ("hierarchical + mc", 64,
+             lambda: pipe.vae.enable_flashvdm_decoder(mc_algo="mc",
+                                                      adaptive_kv_selection=False))):
+        enable()
+        flashvdm = octree == 256
+        mesh, launches[name] = shape_run(
+            f"mini {name} (octree {octree})", pipe, image, ("warm",),
+            ("flash_attention", "fused_geo_decode") if flashvdm else ("flash_attention",),
+            ("geo_mlp_tail",) if flashvdm else ("fused_geo_decode", "geo_mlp_tail"),
+            octree_resolution=octree, **call)
+        if name == "mc":
+            write_glb("mini mc", mesh, "chip_smoke_mc.glb")
+    pipe.enable_flashvdm(mc_algo="dmc")
+    return launches
+
+
 def v20_path():
     """Slice 3: the v2-0 Fast stack at full width through the user's entry
     points, with the settings of the reference's
@@ -740,18 +803,25 @@ def sweep_phase():
 def raster_phase(sphere):
     """The rasterizer on the sphere: the front view at 512² (orthographic, as
     the cond maps) and the unwrapped mesh in UV space at 2048² (as the bake's
-    UV raster); then screen-sized triangles at 2048² for the kernel's
-    block-per-face pass. Face ids must agree on ≥ 99.99 % of pixels; where
-    they agree, barycentrics within 1e-5 and depth within 1e-6."""
+    UV raster); then screen-sized triangles at 2048² (the wide list), and
+    random faces with exact duplicates, reversed windings, degenerate, NaN,
+    w = 0 and off-screen faces at 512². The kernel's records and bbox must
+    equal face_setup's bit for bit; face ids must agree with the plain twin
+    on ≥ 99.99 % of pixels and, where they agree, barycentrics within 1e-5
+    and depth within 1e-6. ms is the whole rasterize() call, face setup
+    included; kernels_ms its memset and two kernels alone (no wrapper, no
+    allocation); plain_ms is face_setup + rasterize_plain."""
     import torch
 
     from hunyuan3d2_tpu_torch.geometry.render import MeshRender
     from hunyuan3d2_tpu_torch.geometry.uv import mesh_uv_wrap
     from hunyuan3d2_tpu_torch.ops.rasterize import (
+        _launch,
+        _workspace,
         face_setup,
         rasterize,
+        rasterize_cuda,
         rasterize_plain,
-        rasterize_records,
     )
 
     render = MeshRender(default_resolution=2048, texture_size=2048)
@@ -766,35 +836,58 @@ def raster_phase(sphere):
     zeros = torch.zeros_like(uvc[:, 0])
     cases.append(("uv 2048", torch.stack([uvc[:, 0], -uvc[:, 1], zeros, zeros + 1.0], 1),
                   torch.from_numpy(render.pos_idx).cuda(), 2048))
-    # off the path: 256 random screen-sized triangles, which all take the
-    # block-per-face pass (bbox > 1024 pixels)
+    # off the path: 256 random screen-sized triangles, all in the wide list
     g = torch.Generator(device="cuda").manual_seed(1)
     big = torch.rand(768, 4, generator=g, device="cuda") * 2.0 - 1.0
     big[:, 3] = 1.0
     cases.append(("big faces 2048", big,
                   torch.arange(768, device="cuda", dtype=torch.int32).reshape(256, 3), 2048))
+    # 4000 random faces, their first 500 again in reversed winding (exact
+    # depth ties: the lower id wins), degenerate, NaN, w = 0 and off-screen
+    # vertices and faces
+    tv = torch.rand(12000, 4, generator=g, device="cuda") * 2.2 - 1.1
+    tv[:, 3] = 1.0
+    tv[0::97, 3] = 0.0
+    tv[1::89, 0] = float("nan")
+    tv[2::83] += 5.0
+    tf = torch.arange(12000, device="cuda", dtype=torch.int32).reshape(4000, 3)
+    tf[3::79, 1] = tf[3::79, 0]
+    cases.append(("ties and degenerate 512", tv, torch.cat([tf, tf[:500].flip(1)]), 512))
     rows = []
     for name, clip, f, res in cases:
-        out = rasterize(clip, f, res, res)
-        recs, bbox = face_setup(clip, f, res, res)
-        ref = rasterize_plain(recs, bbox, res, res)
+        out, recs, bbox = rasterize_cuda(clip, f, res, res)
+        ref_recs, ref_bbox = face_setup(clip, f, res, res)
+        ref = rasterize_plain(ref_recs, ref_bbox, res, res)
         torch.cuda.synchronize()
+        finite = torch.isfinite(ref_recs)
+        same_recs = (torch.equal(bbox, ref_bbox)
+                     and torch.equal(finite, torch.isfinite(recs))
+                     and torch.equal(torch.isnan(recs), torch.isnan(ref_recs))
+                     and torch.equal(recs.view(torch.int32)[finite],
+                                     ref_recs.view(torch.int32)[finite]))
+        check(same_recs, f"rasterize {name}: the kernel's records or bbox differ from "
+              "face_setup's")
         same = out.face_id == ref.face_id
         n_diff = int((~same).sum().item())
         agree = 1.0 - n_diff / same.numel()
         bary_err = (out.bary - ref.bary)[same].abs().max().item()
         depth_err = (out.depth - ref.depth)[same].abs().max().item()
-        log(f"rasterize {name}: face_id differs on {n_diff} of {same.numel()} pixels, "
-            f"bary err {bary_err}, depth err {depth_err}, coverage "
-            f"{(out.face_id >= 0).float().mean().item():.4f}")
+        log(f"rasterize {name}: records and bbox equal face_setup's, face_id differs on "
+            f"{n_diff} of {same.numel()} pixels, bary err {bary_err}, depth err {depth_err}, "
+            f"coverage {(out.face_id >= 0).float().mean().item():.4f}")
         check(agree >= 0.9999 and bary_err <= 1e-5 and depth_err <= 1e-6,
               f"rasterize {name}: kernel disagrees with the plain twin")
-        # ms and plain_ms: the pixel passes from the same face records (the
-        # work bound_ms counts); the wrapper adds the plain-torch face setup
-        ms = time_ms(lambda: rasterize_records(recs, bbox, res, res), 20)
+        ms = time_ms(lambda: rasterize(clip, f, res, res), 50)
+        # the memset and the two kernels alone, on buffers allocated once
+        ws, cap = _workspace(f.shape[0], res, res, clip.device)
+
+        def kernels():
+            _launch(clip, f, res, res, ws, cap, out.face_id, out.bary, out.depth)
+
+        kernels_ms = time_ms(kernels, 50)
+        by_kernel = device_ms_by_kernel(kernels, 20)
+        plain_ms = time_ms(lambda: rasterize_plain(*face_setup(clip, f, res, res), res, res), 3)
         setup_ms = time_ms(lambda: face_setup(clip, f, res, res), 20)
-        wrapper_ms = time_ms(lambda: rasterize(clip, f, res, res), 20)
-        plain_ms = time_ms(lambda: rasterize_plain(recs, bbox, res, res), 3)
         nx = (bbox[:, 1] - bbox[:, 0] + 1).clamp_min(0).double()
         ny = (bbox[:, 3] - bbox[:, 2] + 1).clamp_min(0).double()
         pairs = (nx * ny).sum().item()     # (face, bbox pixel) tests these inputs need
@@ -804,8 +897,7 @@ def raster_phase(sphere):
         bound_ms, by = bound(20.0 * pairs, nbytes, "fp32")
         row = dict(shape=f"{name}: {f.shape[0]} faces, {res}x{res}, {int(pairs)} bbox pixels",
                    max_abs_err=max(bary_err, depth_err), face_id_differs=n_diff, ms=ms,
-                   face_setup_ms=setup_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                   library_ms=None,
+                   kernels_ms=kernels_ms, device_ms_by_kernel=by_kernel, plain_ms=plain_ms, plain_face_setup_ms=setup_ms, library_ms=None,
                    bound_ms=bound_ms, bound_by=by)
         log("rasterize " + json.dumps(row))
         rows.append(row)
@@ -868,6 +960,9 @@ def texture_path(sphere):
         check(out.faces.min() >= 0 and out.faces.max() < len(out.vertices),
               "texture path: face index out of range")
         check(float(out.texture.std()) > 1.0, "texture path: flat texture")
+        # 6 cond views, the UV raster and 6 bake views
+        check(launches["rasterize"] == 13, f"texture path: {launches['rasterize']} "
+              "rasterize launches, 13 expected")
     del pipe
     os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
     path = os.path.join(ROOT, "tmp", "chip_smoke_textured.glb")
@@ -975,6 +1070,7 @@ def main() -> int:
         raster_rows = raster_phase(sphere)
     pipe, launches_mesh = main_path()
     decode_agreement(pipe, gen)
+    extractor_runs(pipe)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()

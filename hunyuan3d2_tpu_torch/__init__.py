@@ -2,7 +2,8 @@
 
 Image → mesh on the mini and the v2-0 shape stacks (DINOv2 conditioner,
 single- or multiview → flow-matching DiT, with CFG or a guidance embedding →
-ShapeVAE → FlashVDM block-sparse decode → on-device surface nets), and
+ShapeVAE → FlashVDM, hierarchical or vanilla decode → on-device surface
+nets or host marching cubes / tetrahedra), and
 mesh + image → textured mesh through the paint-turbo stack (device cond
 maps → 2.5D UNet multiview diffusion → UV unwrap → texture-space bake).
 Hand-written Hopper kernels: flash attention, unmasked and masked

@@ -1,5 +1,5 @@
 """ShapeVAE, the decoder-only vector-set VAE (port of
-hunyuan3d2_tpu/models/shapevae.py, the FlashVDM path).
+hunyuan3d2_tpu/models/shapevae.py).
 
 Modules carry the reference checkpoint's names (post_kl,
 transformer.resblocks.N.attn.c_qkv, geo_decoder.cross_attn_decoder.*, ...).
@@ -14,7 +14,9 @@ JAX package chooses it on its TPU (shapevae.py:258-306): the streamed decode
 where its gate passes; the K/V-pruned decode (:func:`decode_queries_pruned`)
 for a config of >= 2048 latents that the stream's gate refuses; the fused
 decoder kernel where its gate passes (<= 1024 latents); the dense plain
-decode for a config that no kernel takes.
+decode for a config that no kernel takes. The vanilla and hierarchical
+decoders decode with the plain fp32 decode (:meth:`ShapeVAE.decode_queries`
+on fp32 K/V), as the JAX package's grid decode does for them.
 """
 
 from __future__ import annotations
@@ -219,7 +221,7 @@ def decode_queries_pruned(vae: "ShapeVAE", queries: torch.Tensor, k: torch.Tenso
 
 class ShapeVAE(nn.Module):
     """Reference public surface: ``__call__`` (latents → hidden tokens),
-    ``enable_flashvdm_decoder``, ``latents2mesh``."""
+    ``enable_flashvdm_decoder``, ``latents2mesh``, ``decode_grid``."""
 
     def __init__(self, cfg: ShapeVAEConfig = MINI):
         super().__init__()
@@ -228,6 +230,7 @@ class ShapeVAE(nn.Module):
         self.transformer = Transformer(cfg)
         self.geo_decoder = GeoDecoder(cfg)
         self.volume_decoder = None
+        self.surface_extractor = None
 
     @classmethod
     def init_random(cls, cfg: ShapeVAEConfig = MINI, device=None, generator=None):
@@ -285,72 +288,143 @@ class ShapeVAE(nn.Module):
             return lambda pts: fused_geo_decode(self, pts.contiguous(), k16, v16)
         return lambda pts: self.decode_queries(pts, k16, v16).float()
 
-    # -- FlashVDM decode and meshing -----------------------------------------
+    # -- volume decode and meshing ------------------------------------------
     def enable_flashvdm_decoder(self, enabled: bool = True, topk_mode: str = "mean",
-                                mc_algo: str = "dmc"):
-        """The FlashVDM block-sparse decoder with the on-device surface nets
-        (the only decoder and extractor ported); ``topk_mode`` is the K/V
-        pruning mode of the pruned decode."""
+                                mc_algo: str = "mc", adaptive_kv_selection=True):
+        """``enabled``: the FlashVDM decoder (``adaptive_kv_selection``) or
+        the hierarchical one, with ``SurfaceExtractors[mc_algo]``; disabled:
+        the vanilla decoder with marching cubes (reference model.py:112-129).
+        ``topk_mode`` is the K/V pruning mode of the pruned decode."""
         from hunyuan3d2_tpu_torch.volume import decoders, surface
 
-        if not enabled:
-            raise NotImplementedError("only the FlashVDM decoder is ported")
-        if mc_algo not in surface.SurfaceExtractors:
-            raise ValueError(f"Unsupported mc_algo {mc_algo}, available: "
-                             f"{list(surface.SurfaceExtractors)}")
-        self.volume_decoder = decoders.FlashVDMVolumeDecoding(topk_mode)
+        if enabled:
+            if adaptive_kv_selection:
+                self.volume_decoder = decoders.FlashVDMVolumeDecoding(topk_mode)
+            else:
+                self.volume_decoder = decoders.HierarchicalVolumeDecoding()
+            if mc_algo not in surface.SurfaceExtractors:
+                raise ValueError(f"Unsupported mc_algo {mc_algo}, available: "
+                                 f"{list(surface.SurfaceExtractors)}")
+            self.surface_extractor = surface.SurfaceExtractors[mc_algo]()
+        else:
+            self.volume_decoder = decoders.VanillaVolumeDecoder()
+            self.surface_extractor = surface.SurfaceExtractors["mc"]()
+
+    def _decode_fn(self, k: torch.Tensor, v: torch.Tensor):
+        """The FlashVDM decoder's decode (:meth:`query_decoder`); the plain
+        fp32 decode for the vanilla and hierarchical decoders."""
+        from hunyuan3d2_tpu_torch.volume import decoders
+
+        if isinstance(self.volume_decoder, decoders.FlashVDMVolumeDecoding):
+            return self.query_decoder(k, v)
+        return lambda pts: self.decode_queries(pts, k, v)
+
+    def _decode_sparse(self, latents, octree_resolution, num_chunks, box_v, mc_level):
+        """A block-sparse decoder's (coarse16, blk_idx, fine16) for latents
+        [1, L, C]."""
+        k, v = self.compute_kv(self.decode_latents(latents))
+        return self.volume_decoder.decode_sparse(
+            self._decode_fn(k, v), 1, octree_resolution, num_chunks, box_v, mc_level,
+            device=self.device)
 
     def decode_grid(self, latents: torch.Tensor, octree_resolution: int = 384,
-                    num_chunks: int = 65536, box_v: float = 1.01,
-                    mc_level: float = 0.0) -> torch.Tensor:
-        """latents [1, L, C] → dense logit grid [1, R, R, R] fp32."""
-        dec = self._flashvdm()
-        k, v = self.compute_kv(self.decode_latents(latents))
-        return dec(self.query_decoder(k, v), batch_size=1, octree_resolution=octree_resolution,
-                   num_chunks=num_chunks, box_v=box_v, mc_level=mc_level, device=self.device)
-
-    def _flashvdm(self):
+                    num_chunks: int = 65536, box_v: float = 1.01, mc_level: float = 0.0,
+                    to_host: bool = False):
+        """latents [B, L, C] → dense logit grid [B, R, R, R]: fp32 on the
+        device, or with ``to_host`` a numpy grid (a block-sparse decoder's
+        refined blocks over the nearest-neighbour coarse grid, f16; the
+        vanilla grid rounded to f16, as f32)."""
         from hunyuan3d2_tpu_torch.volume import decoders
 
-        if not isinstance(self.volume_decoder, decoders.FlashVDMVolumeDecoding):
-            raise RuntimeError("call enable_flashvdm_decoder() first: only the FlashVDM "
-                               "decoder is ported")
-        return self.volume_decoder
+        if self.volume_decoder is None:
+            self.volume_decoder = decoders.VanillaVolumeDecoder()
+        dec = self.volume_decoder
+        if isinstance(dec, decoders.HierarchicalVolumeDecoding):
+            sparse = self._decode_sparse(latents, octree_resolution, num_chunks, box_v,
+                                         mc_level)
+            if to_host:
+                return decoders.assemble_sparse_grid(*sparse, octree_resolution, dec.block,
+                                                     dec.coarse_factor)
+            return dec.densify(*sparse, octree_resolution)
+        k, v = self.compute_kv(self.decode_latents(latents))
+        grid = dec(self._decode_fn(k, v), batch_size=latents.shape[0],
+                   octree_resolution=octree_resolution, num_chunks=num_chunks, box_v=box_v,
+                   mc_level=mc_level, device=self.device)
+        return grid.half().cpu().numpy().astype(np.float32) if to_host else grid
 
     def latents2mesh(self, latents: torch.Tensor, octree_resolution: int = 384,
-                     mc_level: float = 0.0, num_chunks: int = 65536, box_v: float = 1.01):
-        """latents [B, L, C] → [Latent2MeshOutput] per item, through the
-        block-sparse decode and the on-device surface nets.
+                     mc_level: float = 0.0, num_chunks: int = 65536, mc_algo: str = "mc",
+                     box_v: float = 1.01, **kwargs):
+        """latents [B, L, C] → a Latent2MeshOutput (or None) per item.
 
-        Random weights decode a noise field whose surface overflows the
-        fixed buffers; with HY3D_CAP_ACTIVES=1 the truncated buffers are kept
-        (a capped mesh), otherwise an overflow raises."""
-        from hunyuan3d2_tpu_torch.volume import decoders
-        from hunyuan3d2_tpu_torch.volume.surface import Latent2MeshOutput
+        ``mc_algo`` picks the extractor only when none is set yet. A
+        block-sparse decoder decodes on the device; surface nets are then
+        emitted there (``surface_nets_from_grid``), and the other extractors
+        run on the host from the compacted active cells
+        (``extract_active_cells``). When a fixed buffer overflows,
+        HY3D_CAP_ACTIVES=1 keeps the capped buffers (the stable truncation);
+        otherwise surface nets retry from the active cells, and an overflow
+        of those falls back to the host-assembled grid and a dense host
+        extraction (as does the vanilla decoder)."""
+        from hunyuan3d2_tpu_torch.volume import decoders, surface
 
+        if self.volume_decoder is None:
+            self.volume_decoder = decoders.VanillaVolumeDecoder()
+        if self.surface_extractor is None:
+            self.surface_extractor = surface.SurfaceExtractors[mc_algo]()
+        dec, extractor = self.volume_decoder, self.surface_extractor
+        if not isinstance(dec, decoders.HierarchicalVolumeDecoding):
+            grid = self.decode_grid(latents, octree_resolution, num_chunks, box_v, mc_level,
+                                    to_host=True)
+            return extractor(grid, mc_level=mc_level, box_v=box_v)
         if latents.shape[0] > 1:
             return [m for i in range(latents.shape[0]) for m in self.latents2mesh(
-                latents[i:i + 1], octree_resolution, mc_level, num_chunks, box_v)]
-        grid = self.decode_grid(latents, octree_resolution, num_chunks, box_v, mc_level)
-        verts, quads, nq, count, ok = decoders.surface_nets_from_grid(
-            grid, mc_level, box_v, active_capacity(octree_resolution),
-            face_capacity(octree_resolution))
-        nq, count, ok = int(nq), int(count), bool(ok)
-        if not ok:
-            if os.environ.get("HY3D_CAP_ACTIVES", "0") != "1":
-                raise RuntimeError(
-                    f"surface overflow ({count} active cells / {nq} quads for buffers of "
-                    f"{verts.shape[0]} / {quads.shape[0]}); set HY3D_CAP_ACTIVES=1 to keep "
-                    "the capped mesh (the host-assembled fallback is not ported)")
-            logger.warning("surface overflow (%d actives / %d quads): capping to device "
-                           "buffers %d/%d (HY3D_CAP_ACTIVES)", count, nq, verts.shape[0],
-                           quads.shape[0])
-            count = min(count, int(verts.shape[0]))
-            nq = min(nq, int(quads.shape[0]))
-        q = quads[:nq].cpu().numpy()
-        if not ok:
-            # stage-A overflow can leave unreferenced pad rows below the
-            # capacity: trim to the last referenced vertex
-            count = min(count, int(q.max()) + 1 if q.size else 0)
-        v = verts[:count].cpu().numpy().astype(np.float32)
-        return [Latent2MeshOutput(v, decoders.quads_to_tris(q).astype(np.int32))]
+                latents[i:i + 1], octree_resolution, mc_level, num_chunks, mc_algo, box_v)]
+        sparse = self._decode_sparse(latents, octree_resolution, num_chunks, box_v, mc_level)
+        if hasattr(extractor, "from_actives"):
+            mesh = self._mesh_on_device(dec.densify(*sparse, octree_resolution), extractor,
+                                        octree_resolution, mc_level, box_v)
+            if mesh is not None:
+                return [mesh]
+        grid = decoders.assemble_sparse_grid(*sparse, octree_resolution, dec.block,
+                                             dec.coarse_factor)
+        return extractor(grid, mc_level=mc_level, box_v=box_v)
+
+    def _mesh_on_device(self, grid, extractor, octree_resolution, mc_level, box_v):
+        """The mesh from a device grid, or None when its active cells
+        overflow the fixed buffer and HY3D_CAP_ACTIVES is not set."""
+        from hunyuan3d2_tpu_torch.volume import decoders, surface
+
+        capped = os.environ.get("HY3D_CAP_ACTIVES", "0") == "1"
+        capacity = active_capacity(octree_resolution)
+        if isinstance(extractor, surface.SurfaceNetsExtractor):
+            verts, quads, nq, count, ok = decoders.surface_nets_from_grid(
+                grid, mc_level, box_v, capacity, face_capacity(octree_resolution))
+            nq, count, ok = int(nq), int(count), bool(ok)
+            if ok or capped:
+                if not ok:
+                    logger.warning("surface overflow (%d actives / %d quads): capping to "
+                                   "device buffers %d/%d (HY3D_CAP_ACTIVES)", count, nq,
+                                   verts.shape[0], quads.shape[0])
+                    count = min(count, int(verts.shape[0]))
+                    nq = min(nq, int(quads.shape[0]))
+                q = quads[:nq].cpu().numpy()
+                if not ok:
+                    # stage-A overflow can leave unreferenced pad rows below
+                    # the capacity: trim to the last referenced vertex
+                    count = min(count, int(q.max()) + 1 if q.size else 0)
+                v = verts[:count].cpu().numpy().astype(np.float32)
+                return surface.Latent2MeshOutput(
+                    v, decoders.quads_to_tris(q).astype(np.int32))
+        cell_flat, vals, count = decoders.extract_active_cells(grid, mc_level, capacity)
+        count = int(count)
+        if count > capacity:
+            if not capped:
+                logger.warning("active cells %d > capacity %d: host-assembled fallback",
+                               count, capacity)
+                return None
+            logger.warning("active cells %d > capacity %d: capping (HY3D_CAP_ACTIVES)",
+                           count, capacity)
+            count = capacity
+        return extractor.from_actives(cell_flat, vals, count, octree_resolution + 1, mc_level,
+                                      box_v)

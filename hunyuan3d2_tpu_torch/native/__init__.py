@@ -3,12 +3,15 @@ the JAX package's with the OpenMP scratch fix in ``hy3d_grid_put_linear``).
 
 At first use the source is compiled with ``g++`` into a shared library
 under ``build/hunyuan3d2_tpu_torch/`` at the repository root, keyed by a
-hash of the source and the flags; nothing is built when the module is
-imported and no library is committed. Bound here are the functions the
+hash of the source and the flags (the JAX package's Makefile flags, so the
+compiler contracts the same multiply-adds and the floats agree); nothing
+is built when the module is imported and no library is committed. Bound here are the functions the
 port's texture path uses: the host rasterizer (the UV unwrap's chart
 overlap guard), the vertex-graph inpaint and push-pull fill (the texture
-inpaint); and the bilinear splat of the host bake, which the port does not
-run yet (its OpenMP fix is tested on its own). Each returns numpy arrays.
+inpaint); the surface nets over a dense grid and from compacted active cells
+(the 'dmc'/'sn' extractor); and the bilinear splat of the host bake, which
+the port does not run yet (its OpenMP fix is tested on its own). Each
+returns numpy arrays.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hy3dnative.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(_SRC))), "build",
                           "hunyuan3d2_tpu_torch")
-_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-fopenmp")
+_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-fopenmp")
 _LOCK = threading.Lock()
 
 
@@ -64,6 +67,13 @@ def get_lib() -> ctypes.CDLL:
     lib.hy3d_grid_put_linear.restype = None
     lib.hy3d_pushpull_fill.argtypes = [f32p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.hy3d_pushpull_fill.restype = None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.hy3d_surface_nets.argtypes = [f32p, ctypes.c_int64, ctypes.c_float, f32p,
+                                      ctypes.c_int64, i32p, ctypes.c_int64, i64p, i64p]
+    lib.hy3d_surface_nets.restype = ctypes.c_int32
+    lib.hy3d_sn_actives.argtypes = [i32p, f32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+                                    f32p, i32p, ctypes.c_int64, i64p]
+    lib.hy3d_sn_actives.restype = ctypes.c_int32
     return lib
 
 
@@ -129,3 +139,39 @@ def vertex_inpaint(texture: np.ndarray, mask: np.ndarray, vtx_pos: np.ndarray,
         np.ascontiguousarray(pos_idx, np.int32), np.ascontiguousarray(uv_idx, np.int32),
         len(pos_idx))
     return out_tex, out_mask
+
+
+def surface_nets(grid: np.ndarray, level: float = 0.0):
+    """Dense surface nets over an [R, R, R] float32 grid → (verts [V, 3] in
+    lattice coords, faces [F, 3]); OpenMP, deterministic order."""
+    lib = get_lib()
+    grid = np.ascontiguousarray(grid, np.float32)
+    R = grid.shape[0]
+    verts_cap = max(1 << 20, int(R * R * 24))
+    faces_cap = verts_cap * 4
+    out_v = np.empty((verts_cap, 3), np.float32)
+    out_f = np.empty((faces_cap, 3), np.int32)
+    nv, nf = ctypes.c_int64(), ctypes.c_int64()
+    ret = lib.hy3d_surface_nets(grid.reshape(-1), R, level, out_v, verts_cap, out_f, faces_cap,
+                                ctypes.byref(nv), ctypes.byref(nf))
+    if ret != 0:
+        raise MemoryError(f"surface_nets capacity exceeded (code {ret})")
+    return out_v[:nv.value].copy(), out_f[:nf.value].copy()
+
+
+def sn_from_actives(cells: np.ndarray, vals: np.ndarray, nc: int, level: float = 0.0):
+    """Surface nets from compacted active cells sorted by flat id: cells
+    [K, 3], vals [K, 8] → (verts [K, 3] lattice coords, faces [F, 3])."""
+    lib = get_lib()
+    cells = np.ascontiguousarray(cells, np.int32)
+    vals = np.ascontiguousarray(vals, np.float32)
+    k = len(cells)
+    out_v = np.empty((k, 3), np.float32)
+    faces_cap = 6 * max(k, 1)
+    out_f = np.empty((faces_cap, 3), np.int32)
+    nf = ctypes.c_int64()
+    ret = lib.hy3d_sn_actives(cells.reshape(-1), vals.reshape(-1), k, nc, level,
+                              out_v.reshape(-1), out_f.reshape(-1), faces_cap, ctypes.byref(nf))
+    if ret != 0:
+        raise MemoryError(f"sn_from_actives capacity exceeded (code {ret})")
+    return out_v, out_f[:nf.value].copy()

@@ -8,7 +8,9 @@
 //     depth|face-id resolve (the UV unwrap's chart overlap guard),
 //   * mesh_processor vertex-graph texture inpainting and the push-pull
 //     hole fill (the texture inpaint),
-//   * the bilinear splat of the host bake (not on the port's path yet).
+//   * the bilinear splat of the host bake (not on the port's path yet),
+//   * surface nets over a dense grid and from compacted active cells (the
+//     'dmc'/'sn' extractor's host passes).
 //
 // C ABI for ctypes binding. Parallel loops use OpenMP with deterministic
 // reductions.
@@ -347,6 +349,263 @@ void hy3d_pushpull_fill(float* texture, const uint8_t* mask, int h, int w,
     for (int chn = 0; chn < c; ++chn)
       texture[p * c + chn] = col[p * c + chn] * iw;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Surface nets (dual contouring) over a dense grid — OpenMP, the hot host
+// stage of shape generation (numpy version: volume/surface.py:_surface_nets).
+// grid: [R,R,R] float32. Returns vertex/face counts written.
+// ---------------------------------------------------------------------------
+int32_t hy3d_surface_nets(const float* grid, int64_t R, float level,
+                          float* out_verts, int64_t verts_cap,
+                          int32_t* out_faces, int64_t faces_cap,
+                          int64_t* out_nv, int64_t* out_nf) {
+  const int64_t nc = R - 1;
+  const int64_t ncells = nc * nc * nc;
+  std::vector<int32_t> rank(ncells, -1);
+
+  // pass 1: active cells + ranks (parallel count, serial prefix, parallel id)
+  const int corner_off[8][3] = {{0, 0, 0}, {1, 0, 0}, {1, 1, 0}, {0, 1, 0},
+                                {0, 0, 1}, {1, 0, 1}, {1, 1, 1}, {0, 1, 1}};
+  std::vector<int64_t> slab_count(nc, 0);
+#pragma omp parallel for schedule(static)
+  for (int64_t x = 0; x < nc; ++x) {
+    int64_t cnt = 0;
+    for (int64_t y = 0; y < nc; ++y) {
+      for (int64_t z = 0; z < nc; ++z) {
+        const float* base = grid + (x * R + y) * R + z;
+        bool first = base[0] > level;
+        bool mixed = false;
+        for (int c = 1; c < 8 && !mixed; ++c) {
+          const float v = base[(corner_off[c][0] * R + corner_off[c][1]) * R +
+                               corner_off[c][2]];
+          mixed = (v > level) != first;
+        }
+        if (mixed) {
+          rank[(x * nc + y) * nc + z] = 0;  // mark; id assigned below
+          ++cnt;
+        }
+      }
+    }
+    slab_count[x] = cnt;
+  }
+  std::vector<int64_t> slab_start(nc + 1, 0);
+  for (int64_t x = 0; x < nc; ++x) slab_start[x + 1] = slab_start[x] + slab_count[x];
+  const int64_t n_active = slab_start[nc];
+  if (n_active > verts_cap) return -1;
+
+#pragma omp parallel for schedule(static)
+  for (int64_t x = 0; x < nc; ++x) {
+    int64_t id = slab_start[x];
+    for (int64_t i = (x * nc) * nc; i < ((x + 1) * nc) * nc; ++i) {
+      if (rank[i] == 0) rank[i] = (int32_t)id++;
+    }
+  }
+
+  // pass 2: vertex positions (mean of cube-edge crossings)
+  const int edges[12][2] = {{0, 1}, {1, 2}, {2, 3}, {3, 0}, {4, 5}, {5, 6},
+                            {6, 7}, {7, 4}, {0, 4}, {1, 5}, {2, 6}, {3, 7}};
+#pragma omp parallel for schedule(static)
+  for (int64_t x = 0; x < nc; ++x) {
+    for (int64_t y = 0; y < nc; ++y) {
+      for (int64_t z = 0; z < nc; ++z) {
+        int32_t r = rank[(x * nc + y) * nc + z];
+        if (r < 0) continue;
+        float vals[8];
+        for (int c = 0; c < 8; ++c)
+          vals[c] = grid[((x + corner_off[c][0]) * R + y + corner_off[c][1]) * R +
+                         z + corner_off[c][2]];
+        float px = 0, py = 0, pz = 0;
+        int n = 0;
+        for (int e = 0; e < 12; ++e) {
+          float va = vals[edges[e][0]], vb = vals[edges[e][1]];
+          if ((va > level) == (vb > level)) continue;
+          float d = vb - va;
+          float t = std::fabs(d) < 1e-12f ? 0.5f
+                                          : std::min(1.f, std::max(0.f, (level - va) / d));
+          const int* ca = corner_off[edges[e][0]];
+          const int* cb = corner_off[edges[e][1]];
+          px += ca[0] + t * (cb[0] - ca[0]);
+          py += ca[1] + t * (cb[1] - ca[1]);
+          pz += ca[2] + t * (cb[2] - ca[2]);
+          ++n;
+        }
+        float inv = n ? 1.f / n : 0.f;
+        out_verts[3 * r] = (x + px * inv);
+        out_verts[3 * r + 1] = (y + py * inv);
+        out_verts[3 * r + 2] = (z + pz * inv);
+      }
+    }
+  }
+
+  // pass 3: faces per sign-changing grid edge (3 axis sweeps), deterministic
+  // count→prefix→fill ordering (no atomic append races).
+  int64_t nf_total = 0;
+  const int64_t stride_cells[3] = {nc * nc, nc, 1};
+  for (int d = 0; d < 3; ++d) {
+    const int u = (d + 1) % 3, v = (d + 2) % 3;
+    std::vector<int64_t> cnt(nc, 0);
+    for (int phase = 0; phase < 2; ++phase) {
+      std::vector<int64_t> start(nc + 1, 0);
+      if (phase == 1) {
+        for (int64_t x = 0; x < nc; ++x) start[x + 1] = start[x] + cnt[x];
+        if (nf_total + start[nc] > faces_cap / 2) return -2;
+      }
+#pragma omp parallel for schedule(static)
+      for (int64_t x = 0; x < nc; ++x) {
+        int64_t w = phase ? (nf_total + start[x]) : 0;
+        int64_t idx[3];
+        for (int64_t y = 0; y < nc; ++y) {
+          for (int64_t z = 0; z < nc; ++z) {
+            idx[0] = x; idx[1] = y; idx[2] = z;
+            if (idx[u] == 0 || idx[v] == 0) continue;
+            const float lo = grid[(x * R + y) * R + z];
+            int64_t pi[3] = {x, y, z};
+            pi[d] += 1;
+            const float hi = grid[(pi[0] * R + pi[1]) * R + pi[2]];
+            const bool li = lo > level;
+            if (li == (hi > level)) continue;
+            const int64_t c0 = (x * nc + y) * nc + z;
+            const int32_t q0 = rank[c0];
+            const int32_t q1 = rank[c0 - stride_cells[u]];
+            const int32_t q2 = rank[c0 - stride_cells[u] - stride_cells[v]];
+            const int32_t q3 = rank[c0 - stride_cells[v]];
+            if (q0 < 0 || q1 < 0 || q2 < 0 || q3 < 0) continue;
+            if (phase == 0) {
+              ++cnt[x];
+            } else {
+              int64_t f = 2 * w;
+              if (li) {
+                out_faces[3 * f] = q0; out_faces[3 * f + 1] = q1; out_faces[3 * f + 2] = q2;
+                out_faces[3 * f + 3] = q0; out_faces[3 * f + 4] = q2; out_faces[3 * f + 5] = q3;
+              } else {
+                out_faces[3 * f] = q3; out_faces[3 * f + 1] = q2; out_faces[3 * f + 2] = q1;
+                out_faces[3 * f + 3] = q3; out_faces[3 * f + 4] = q1; out_faces[3 * f + 5] = q0;
+              }
+              ++w;
+            }
+          }
+        }
+      }
+      if (phase == 1) nf_total += start[nc];
+    }
+  }
+  *out_nv = n_active;
+  *out_nf = 2 * nf_total;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Surface nets from COMPACTED ACTIVE CELLS (the active-cell extraction path:
+// extract_active_cells → here). Mirrors the numpy twin
+// volume/surface.py:_sn_from_actives — one pass, no [K,12,3] float
+// intermediates (the numpy version materializes ~200 MB at K=245k).
+//
+// cells: [K,3] int32 cell coords SORTED by flat id x*nc*nc + y*nc + z.
+// vals:  [K,8] float32 corner values (corner order {0,0,0},{1,0,0},{1,1,0},
+//        {0,1,0},{0,0,1},{1,0,1},{1,1,1},{0,1,1}).
+// out_verts: [K,3] (one dual vertex per active cell, lattice coords).
+// Faces match the twin's layout exactly: per direction d∈{x,y,z}, first the
+// [0,1,2] triangle of every selected cell in cell order, then the [0,2,3]
+// triangles. Returns 0, or -1 when faces_cap would overflow.
+// ---------------------------------------------------------------------------
+int32_t hy3d_sn_actives(const int32_t* cells, const float* vals, int64_t K,
+                        int64_t nc, float level, float* out_verts,
+                        int32_t* out_faces, int64_t faces_cap,
+                        int64_t* out_nf) {
+  const int corner_off[8][3] = {{0, 0, 0}, {1, 0, 0}, {1, 1, 0}, {0, 1, 0},
+                                {0, 0, 1}, {1, 0, 1}, {1, 1, 1}, {0, 1, 1}};
+  const int edges[12][2] = {{0, 1}, {1, 2}, {2, 3}, {3, 0}, {4, 5}, {5, 6},
+                            {6, 7}, {7, 4}, {0, 4}, {1, 5}, {2, 6}, {3, 7}};
+  std::vector<int64_t> flatid(K);
+#pragma omp parallel for schedule(static)
+  for (int64_t k = 0; k < K; ++k) {
+    const int32_t* c = cells + 3 * k;
+    flatid[k] = ((int64_t)c[0] * nc + c[1]) * nc + c[2];
+  }
+
+  // vertex pass: mean of cube-edge crossings (same edge order and same
+  // degenerate-denominator rule as the numpy twin)
+#pragma omp parallel for schedule(static)
+  for (int64_t k = 0; k < K; ++k) {
+    const float* v = vals + 8 * k;
+    const int32_t* c = cells + 3 * k;
+    float px = 0.f, py = 0.f, pz = 0.f;
+    int n = 0;
+    for (int e = 0; e < 12; ++e) {
+      const float va = v[edges[e][0]], vb = v[edges[e][1]];
+      if ((va > level) == (vb > level)) continue;
+      float d = vb - va;
+      if (std::fabs(d) < 1e-12f) d = 1e-12f;
+      float t = (level - va) / d;
+      t = std::min(1.f, std::max(0.f, t));
+      const int* ca = corner_off[edges[e][0]];
+      const int* cb = corner_off[edges[e][1]];
+      px += ca[0] + t * (float)(cb[0] - ca[0]);
+      py += ca[1] + t * (float)(cb[1] - ca[1]);
+      pz += ca[2] + t * (float)(cb[2] - ca[2]);
+      ++n;
+    }
+    const float inv = n ? 1.f / (float)n : 0.f;
+    out_verts[3 * k] = c[0] + px * inv;
+    out_verts[3 * k + 1] = c[1] + py * inv;
+    out_verts[3 * k + 2] = c[2] + pz * inv;
+  }
+
+  // face pass: each cell owns its 3 min-corner lattice edges; neighbors by
+  // binary search over the sorted flat ids. Sequential fill = deterministic
+  // twin-identical ordering (two tri blocks per direction).
+  const int end_corner[3] = {1, 3, 4};  // +x, +y, +z sign partners of corner0
+  const int64_t strides[3] = {nc * nc, nc, 1};
+  auto lookup = [&](int64_t id) -> int32_t {
+    int64_t lo = 0, hi = K;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (flatid[mid] < id) lo = mid + 1; else hi = mid;
+    }
+    return (lo < K && flatid[lo] == id) ? (int32_t)lo : -1;
+  };
+  int64_t nf = 0;
+  std::vector<int32_t> quads;  // q0,q1,q2,q3 per selected cell of one dir
+  for (int d = 0; d < 3; ++d) {
+    const int u = (d + 1) % 3, w = (d + 2) % 3;
+    const int64_t su = strides[u], sv = strides[w];
+    quads.clear();
+    for (int64_t k = 0; k < K; ++k) {
+      const float* v = vals + 8 * k;
+      const bool occ0 = v[0] > level;
+      if (occ0 == (v[end_corner[d]] > level)) continue;
+      const int32_t* c = cells + 3 * k;
+      if (c[u] <= 0 || c[w] <= 0) continue;
+      const int64_t base = flatid[k];
+      const int32_t q1 = lookup(base - su);
+      const int32_t q2 = lookup(base - su - sv);
+      const int32_t q3 = lookup(base - sv);
+      if (q1 < 0 || q2 < 0 || q3 < 0) continue;
+      if (occ0) {
+        quads.push_back((int32_t)k); quads.push_back(q1);
+        quads.push_back(q2); quads.push_back(q3);
+      } else {  // flipped orientation = reversed quad
+        quads.push_back(q3); quads.push_back(q2);
+        quads.push_back(q1); quads.push_back((int32_t)k);
+      }
+    }
+    const int64_t nq = (int64_t)quads.size() / 4;
+    if (nf + 2 * nq > faces_cap) return -1;
+    for (int64_t i = 0; i < nq; ++i) {  // block A: [0,1,2]
+      out_faces[3 * (nf + i)] = quads[4 * i];
+      out_faces[3 * (nf + i) + 1] = quads[4 * i + 1];
+      out_faces[3 * (nf + i) + 2] = quads[4 * i + 2];
+    }
+    for (int64_t i = 0; i < nq; ++i) {  // block B: [0,2,3]
+      out_faces[3 * (nf + nq + i)] = quads[4 * i];
+      out_faces[3 * (nf + nq + i) + 1] = quads[4 * i + 2];
+      out_faces[3 * (nf + nq + i) + 2] = quads[4 * i + 3];
+    }
+    nf += 2 * nq;
+  }
+  *out_nf = nf;
+  return 0;
 }
 
 }  // extern "C"

@@ -9,17 +9,19 @@ three edge weights ≥ 0 (either winding), nearest fp32 depth wins and a
 depth tie goes to the lowest face id. Cameras on the paint path are
 orthographic, so the barycentrics are the screen-space edge weights.
 
-The per-face setup (screen transform, area, edge-function records, bbox and
-culling of faces with |area| < 1e-12 or entirely off screen) is plain
-PyTorch in the TPU kernel's fp32 operation order. The pixel work is the
-CUDA kernel ``csrc/rasterize.cu`` (:func:`rasterize_records`) for a CUDA
-tensor (it launches or raises)
-and :func:`rasterize_plain` for a CPU tensor. The plain twin runs the same
-records over every (face, bbox pixel) pair, in chunks of faces, and reduces
-with the same int64 token (float bits of z above the face id) by ``amin``.
+For a CUDA tensor the whole function is the CUDA kernel ``csrc/rasterize.cu``
+(:func:`rasterize_cuda`; it launches or raises): the per-face setup (screen
+transform, area, edge-function records, bbox, culling of faces with
+|area| < 1e-12 or entirely off screen) in the TPU kernel's fp32 operation
+order, the binning to screen tiles and the per-tile z-buffer. For a CPU
+tensor it is the plain twin: :func:`face_setup` (the same records in
+PyTorch) and :func:`rasterize_plain`, which runs the records over every
+(face, bbox pixel) pair, in chunks of faces, and reduces with the same
+int64 token (float bits of z above the face id) by ``amin``.
 
-The kernel has no per-tile capacity, so it cannot overflow: ``overflow``
-stays in :class:`RasterOut` for parity with the JAX API and is always 0.
+Nothing has a capacity that can be exceeded (a tile's full list spills to a
+list that every tile sweeps), so ``overflow`` stays in :class:`RasterOut`
+for parity with the JAX API and is always 0.
 """
 
 from __future__ import annotations
@@ -137,21 +139,22 @@ def rasterize_plain(recs: torch.Tensor, bbox: torch.Tensor, h: int, w: int) -> R
     return _resolve(recs, zbuf, h, w)
 
 
+_TILE = 32  # the kernel's screen tile edge (csrc/rasterize.cu kTile)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     """The kernel's C entry point, built and loaded at first use."""
     from hunyuan3d2_tpu_torch.utils import cuda_build
 
     fn = cuda_build.load("rasterize").hy3d_rasterize
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 7)
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
     return fn
 
 
-def rasterize(verts: torch.Tensor, faces: torch.Tensor, h: int, w: int) -> RasterOut:
-    """Rasterize ``faces`` [F, 3] of clip-space ``verts`` [V, 4] (float32)
-    into an h×w image → :class:`RasterOut`."""
+def _check(verts: torch.Tensor, faces: torch.Tensor, h: int, w: int):
     if verts.dim() != 2 or verts.shape[1] != 4 or verts.dtype != torch.float32:
         raise ValueError(f"rasterize takes float32 [V, 4] clip-space verts, got "
                          f"{verts.dtype} {tuple(verts.shape)}")
@@ -162,33 +165,70 @@ def rasterize(verts: torch.Tensor, faces: torch.Tensor, h: int, w: int) -> Raste
         raise ValueError("rasterize: verts and faces lie on different devices")
     if h <= 0 or w <= 0 or faces.shape[0] >= 2 ** 31:
         raise ValueError(f"rasterize: bad size {h}x{w} or face count {faces.shape[0]}")
-    recs, bbox = face_setup(verts, faces, h, w)
+
+
+def rasterize(verts: torch.Tensor, faces: torch.Tensor, h: int, w: int) -> RasterOut:
+    """Rasterize ``faces`` [F, 3] of clip-space ``verts`` [V, 4] (float32)
+    into an h×w image → :class:`RasterOut`."""
+    _check(verts, faces, h, w)
     if not verts.is_cuda:
-        return rasterize_plain(recs, bbox, h, w)
-    return rasterize_records(recs, bbox, h, w)
+        return rasterize_plain(*face_setup(verts, faces, h, w), h, w)
+    return _rasterize_cuda(verts, faces, h, w)[0]
 
 
-def rasterize_records(recs: torch.Tensor, bbox: torch.Tensor, h: int, w: int) -> RasterOut:
-    """The kernel's pixel passes from :func:`face_setup`'s records on a CUDA
-    device (the counterpart of :func:`rasterize_plain`); each call adds one
-    to ``rasterize.launches``."""
-    if not recs.is_cuda:
-        raise ValueError("rasterize_records runs the CUDA kernel: pass CUDA tensors")
-    dev = recs.device
-    nf = recs.shape[0]
-    zbuf = torch.full((h * w,), -1, dtype=torch.int64, device=dev)  # all bits set
-    big = torch.empty(max(nf, 1), dtype=torch.int32, device=dev)
-    big_count = torch.zeros(1, dtype=torch.int32, device=dev)
-    face_id = torch.empty(h, w, dtype=torch.int32, device=dev)
-    bary = torch.empty(h, w, 3, dtype=torch.float32, device=dev)
-    depth = torch.empty(h, w, dtype=torch.float32, device=dev)
-    err = _lib()(recs.data_ptr(), bbox.data_ptr(), nf, h, w, zbuf.data_ptr(), big.data_ptr(),
-                 big_count.data_ptr(), face_id.data_ptr(), bary.data_ptr(), depth.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+def _workspace(nf: int, h: int, w: int, device):
+    """The kernel's int32 workspace, sized from F and the tile count alone
+    (bbox [F, 4] | recs [F, 9] | counts [ntiles + 3] | tile lists [ntiles,
+    cap] | wide list [max(F, 1)]), and the tile lists' capacity."""
+    ntiles = -(-h // _TILE) * -(-w // _TILE)
+    cap = max(256, ((8 * nf + ntiles - 1) // ntiles + 31) // 32 * 32)
+    ws = torch.empty(13 * nf + ntiles + 3 + ntiles * cap + max(nf, 1), dtype=torch.int32,
+                     device=device)
+    return ws, cap
+
+
+def _launch(verts, faces, h: int, w: int, ws, cap: int, face_id, bary, depth):
+    """The C entry on :func:`_workspace`'s buffer (contiguous CUDA inputs)."""
+    nf = faces.shape[0]
+    c = 13 * nf                                            # the counts' offset
+    lists = c + -(-h // _TILE) * -(-w // _TILE) + 3
+    wp = ws.data_ptr()
+    err = _lib()(verts.data_ptr(), verts.shape[0], faces.data_ptr(),
+                 int(faces.dtype == torch.int64), nf, h, w, cap, wp + 16 * nf, wp, wp + 4 * c,
+                 wp + 4 * lists, wp + 4 * (lists + (lists - c - 3) * cap), face_id.data_ptr(),
+                 bary.data_ptr(), depth.data_ptr(),
+                 torch.cuda.current_stream(verts.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rasterize kernel launch failed: cudaError {err}")
+
+
+def _rasterize_cuda(verts, faces, h: int, w: int):
+    """(RasterOut, workspace); each call adds one to ``rasterize.launches``."""
+    verts, faces = verts.contiguous(), faces.contiguous()
+    dev = verts.device
+    ws, cap = _workspace(faces.shape[0], h, w, dev)
+    face_id = torch.empty((h, w), dtype=torch.int32, device=dev)
+    bary = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    depth = torch.empty((h, w), dtype=torch.float32, device=dev)
+    _launch(verts, faces, h, w, ws, cap, face_id, bary, depth)
     rasterize.launches += 1
-    return RasterOut(face_id, bary, depth, torch.zeros(2, dtype=torch.int32, device=dev))
+    c = 13 * faces.shape[0] + -(-h // _TILE) * -(-w // _TILE)   # the wide count's offset
+    return RasterOut(face_id, bary, depth, ws[c + 1:c + 3]), ws
+
+
+def rasterize_cuda(verts: torch.Tensor, faces: torch.Tensor, h: int, w: int):
+    """The CUDA kernel on CUDA tensors → (:class:`RasterOut`, recs [F, 9],
+    bbox [F, 4] int32): the records and bbox its face setup computed (those
+    of :func:`face_setup`). One memset and two kernels on the current
+    stream, no host synchronisation; each call adds one to
+    ``rasterize.launches``. A face with a vertex index outside [0, V) is
+    culled (where face_setup would fail)."""
+    _check(verts, faces, h, w)
+    if not verts.is_cuda:
+        raise ValueError("rasterize_cuda runs the CUDA kernel: pass CUDA tensors")
+    out, ws = _rasterize_cuda(verts, faces, h, w)
+    nf = faces.shape[0]
+    return out, ws[4 * nf:13 * nf].view(torch.float32).view(nf, 9), ws[:4 * nf].view(nf, 4)
 
 
 rasterize.launches = 0

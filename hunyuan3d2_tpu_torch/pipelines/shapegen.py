@@ -89,8 +89,13 @@ class Hunyuan3DDiTPipeline:
             device=device,
         )
 
-    def enable_flashvdm(self, enabled: bool = True, topk_mode: str = "mean",
-                        mc_algo: str = "dmc"):
+    def enable_flashvdm(self, enabled: bool = True, adaptive_kv_selection=True,
+                        topk_mode="mean", mc_algo="dmc", replace_vae: bool = False):
+        """The block-sparse decoder with ``SurfaceExtractors[mc_algo]``, or
+        the vanilla decoder with marching cubes when not ``enabled``. As in
+        the JAX package, only ``enabled``, ``topk_mode`` and ``mc_algo``
+        reach the VAE (``adaptive_kv_selection`` and ``replace_vae`` are
+        accepted for the reference's signature)."""
         self.vae.enable_flashvdm_decoder(enabled=enabled, topk_mode=topk_mode, mc_algo=mc_algo)
         return self
 
@@ -133,13 +138,13 @@ class Hunyuan3DDiTPipeline:
         return latents
 
     def _export(self, latents, output_type="trimesh", box_v=1.01, mc_level=0.0,
-                num_chunks=65536, octree_resolution=256):
+                num_chunks=65536, octree_resolution=256, mc_algo="mc", enable_pbar=True):
         if output_type == "latents":
             return latents
         with timed_scope("Volume Decoding"):
             outputs = self.vae.latents2mesh(latents, octree_resolution=octree_resolution,
                                             mc_level=mc_level, num_chunks=num_chunks,
-                                            box_v=box_v)
+                                            mc_algo=mc_algo, box_v=box_v)
         if output_type == "raw":
             return outputs
         return export_to_trimesh(outputs)
@@ -151,8 +156,12 @@ class Hunyuan3DDiTFlowMatchingPipeline(Hunyuan3DDiTPipeline):
     @torch.no_grad()
     def __call__(self, image=None, num_inference_steps: int = 50, guidance_scale: float = 5.0,
                  sigmas=None, octree_resolution: int = 384, mc_level: float = 0.0,
-                 num_chunks: int = 65536, box_v: float = 1.01, seed: int = 0,
-                 generator: torch.Generator = None, output_type: str = "trimesh"):
+                 mc_algo: str = "mc", num_chunks: int = 65536, box_v: float = 1.01,
+                 seed: int = 0, generator: torch.Generator = None, output_type: str = "trimesh",
+                 enable_pbar: bool = True, **kwargs):
+        """image → [Mesh] (or latents / raw extractor outputs). ``mc_algo``
+        picks the extractor when ``enable_flashvdm`` set none; ``enable_pbar``
+        and extra keywords are accepted for the reference's signature."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         do_cfg = guidance_scale >= 0 and not self.model_cfg.guidance_embed
@@ -167,4 +176,5 @@ class Hunyuan3DDiTFlowMatchingPipeline(Hunyuan3DDiTPipeline):
         latents = self.prepare_latents(img.shape[0] if view_idxs is None else 1, generator)
         with timed_scope("Diffusion Sampling"):
             latents = self.sample(latents, cond, sigma_ladder, guidance_scale, do_cfg)
-        return self._export(latents, output_type, box_v, mc_level, num_chunks, octree_resolution)
+        return self._export(latents, output_type, box_v, mc_level, num_chunks, octree_resolution,
+                            mc_algo, enable_pbar)

@@ -27,24 +27,60 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def grid_coords_from_flat(flat_idx: torch.Tensor, res: int, box_v: float) -> torch.Tensor:
+    """Flat indices in [0, res³) → xyz [.., 3] fp32 on a res³ lattice over
+    [-box_v, box_v] (x-major, 'ij' indexing)."""
+    step = 2.0 * box_v / (res - 1)
+    xyz = torch.stack([flat_idx // (res * res), (flat_idx // res) % res, flat_idx % res], -1)
+    return xyz.float() * step - box_v
+
+
+class VanillaVolumeDecoder:
+    """Dense decode of all (res+1)³ lattice points in chunks of
+    ``num_chunks`` (the tail chunk padded with the last point)."""
+
+    def __call__(self, decode_fn, batch_size: int, octree_resolution: int,
+                 num_chunks: int = 65536, box_v: float = 1.01, device=None,
+                 **kwargs) -> torch.Tensor:
+        """``decode_fn`` maps [B, P, 3] fp32 points to [B, P] logits →
+        [B, res, res, res] fp32."""
+        res = octree_resolution + 1
+        total = res ** 3
+        chunk = min(num_chunks, total)
+        logits = []
+        for start in range(0, _cdiv(total, chunk) * chunk, chunk):
+            flat = (start + torch.arange(chunk, device=device)).clamp(max=total - 1)
+            pts = grid_coords_from_flat(flat, res, box_v).expand(batch_size, chunk, 3)
+            logits.append(decode_fn(pts).float())
+        return torch.cat(logits, 1)[:, :total].reshape(batch_size, res, res, res)
+
+
 def stable_topk(scores: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest scores along the last axis, ties broken by
     the lowest index (``jax.lax.top_k``'s order)."""
     return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def _near_surface_blocks(coarse: torch.Tensor, level: float) -> torch.Tensor:
-    """[r, r, r] coarse grid → bool mask over the (r-1)³ cells: corners
-    disagree in sign, dilated by one cell (3³ max-pool)."""
-    occ = coarse > level
-    n = occ.shape[0] - 1
+def _active_mask(g: torch.Tensor, level: float) -> torch.Tensor:
+    """[R, R, R] grid → bool [R-1]³: the cells whose 8 corners straddle
+    ``level``."""
+    occ = g > level
+    nc = g.shape[0] - 1
     base = occ[:-1, :-1, :-1]
     agree = torch.ones_like(base)
     for dx in (0, 1):
         for dy in (0, 1):
             for dz in (0, 1):
-                agree &= occ[dx:n + dx, dy:n + dy, dz:n + dz] == base
-    near = (~agree).float()[None, None]
+                if dx == dy == dz == 0:
+                    continue
+                agree &= occ[dx:nc + dx, dy:nc + dy, dz:nc + dz] == base
+    return ~agree
+
+
+def _near_surface_blocks(coarse: torch.Tensor, level: float) -> torch.Tensor:
+    """[r, r, r] coarse grid → bool mask over the (r-1)³ cells: corners
+    disagree in sign, dilated by one cell (3³ max-pool)."""
+    near = _active_mask(coarse, level).float()[None, None]
     return F.max_pool3d(near, 3, stride=1, padding=1)[0, 0] > 0
 
 
@@ -110,8 +146,15 @@ class HierarchicalVolumeDecoding:
                  num_chunks: int = 65536, box_v: float = 1.01, mc_level: float = 0.0,
                  device=None) -> torch.Tensor:
         """Dense [1, res, res, res] fp32 logits."""
-        coarse16, blk_idx, fine16 = self.decode_sparse(
-            decode_fn, batch_size, octree_resolution, num_chunks, box_v, mc_level, device)
+        return self.densify(*self.decode_sparse(decode_fn, batch_size, octree_resolution,
+                                                num_chunks, box_v, mc_level, device),
+                            octree_resolution)
+
+    def densify(self, coarse16: torch.Tensor, blk_idx: torch.Tensor, fine16: torch.Tensor,
+                octree_resolution: int) -> torch.Tensor:
+        """:meth:`decode_sparse`'s output → the dense [1, res, res, res] fp32
+        grid on its device: the refined blocks over the coarse grid's exact
+        aligned trilinear upsampling."""
         coarse, fine = coarse16.float(), fine16.float()
         dev = coarse.device
         res = octree_resolution + 1
@@ -174,6 +217,48 @@ _CUBE_EDGES = ((0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7), (7, 4),
                (0, 4), (1, 5), (2, 6), (3, 7))
 
 
+def extract_active_cells(grid: torch.Tensor, level: float, capacity: int):
+    """Active-cell compaction on the grid's device: the cells whose corners
+    straddle ``level``, in ascending flat-id order, into a fixed capacity.
+    grid [1, R, R, R] or [R, R, R] → (cell_flat [capacity] int32 with -1
+    padding, corner_vals [capacity, 8] f16 in _CORNERS order (a padding
+    row holds cell 0's corners), count = the number of active cells)."""
+    g = grid[0] if grid.dim() == 4 else grid
+    R = g.shape[0]
+    nc = R - 1
+    active = _active_mask(g, level).reshape(-1)
+    ids = torch.arange(nc ** 3, dtype=torch.int32, device=g.device)
+    cell_flat, count = compact_rows(active, ids, capacity, -1)
+    safe = cell_flat.clamp(min=0).long()
+    cells = torch.stack([safe // (nc * nc), (safe // nc) % nc, safe % nc], dim=1)
+    cc = cells[:, None, :] + torch.tensor(_CORNERS, dtype=torch.int64, device=g.device)[None]
+    pflat = (cc[..., 0] * R + cc[..., 1]) * R + cc[..., 2]
+    return cell_flat, g.reshape(-1)[pflat].half(), count
+
+
+def assemble_sparse_grid(coarse16, blk_idx, fine16, octree_resolution: int, block: int,
+                         coarse_factor: int) -> np.ndarray:
+    """Host (numpy) assembly of :meth:`HierarchicalVolumeDecoding.decode_sparse`'s
+    output into a dense [1, res, res, res] f16 grid: the refined blocks over
+    the coarse grid's nearest-neighbour upsampling (every surface cell lies
+    in a refined block, so the background only has to carry the sign)."""
+    coarse, blk_idx, fine_vals = (x.cpu().numpy() for x in (coarse16, blk_idx, fine16))
+    res = octree_resolution + 1
+    s = block // coarse_factor
+    nb = _cdiv(res, block)
+    cn = np.minimum((np.arange(res) + s // 2) // s, coarse.shape[0] - 1)
+    bg = coarse[np.ix_(cn, cn, cn)]
+    loc = np.arange(block)
+    lx, ly, lz = (a.reshape(-1)[None] for a in np.meshgrid(loc, loc, loc, indexing="ij"))
+    gx = (blk_idx // (nb * nb))[:, None] * block + lx
+    gy = ((blk_idx // nb) % nb)[:, None] * block + ly
+    gz = (blk_idx % nb)[:, None] * block + lz
+    ok = (gx < res) & (gy < res) & (gz < res)
+    flat = (gx.astype(np.int64) * res + gy) * res + gz
+    bg.reshape(-1)[flat[ok]] = fine_vals[ok]
+    return bg[None]
+
+
 def surface_nets_from_grid(grid: torch.Tensor, level: float, box_v: float, capacity: int,
                            face_capacity: int, block_edge: int = 8, block_capacity: int = None):
     """Active-cell compaction + surface-nets emission on the grid's device.
@@ -191,16 +276,7 @@ def surface_nets_from_grid(grid: torch.Tensor, level: float, box_v: float, capac
     nb = _cdiv(nc, E)
     P = nb * E
 
-    occ = g > level
-    base = occ[:-1, :-1, :-1]
-    agree = torch.ones_like(base)
-    for dx in (0, 1):
-        for dy in (0, 1):
-            for dz in (0, 1):
-                if dx == dy == dz == 0:
-                    continue
-                agree &= occ[dx:nc + dx, dy:nc + dy, dz:nc + dz] == base
-    active = ~agree
+    active = _active_mask(g, level)
     count = active.sum()
     if P != nc:
         active = F.pad(active, (0, P - nc, 0, P - nc, 0, P - nc))

@@ -1,16 +1,38 @@
-"""Surface extraction records and registry (the parts of
-hunyuan3d2_tpu/volume/surface.py that the FlashVDM path uses).
+"""SDF grid → triangle mesh surface extraction on the host (port of
+hunyuan3d2_tpu/volume/surface.py; numpy, with the native surface nets).
 
-On this path the mesh is emitted on the device (volume/decoders.py
-``surface_nets_from_grid``); the extractor entry only names the algorithm:
-``'dmc'`` (and its alias ``'sn'``) is naive surface nets, a dual method like
-the reference's DMC. Vertices are in the [-box_v, box_v]³ bbox and faces
+Three extractors, registered by the reference's names:
+
+  * ``MarchingCubesExtractor`` ('mc') — classic case-table marching cubes
+    with the generated 256-entry table (volume/mc_table.py): vertices only
+    on cube edges, welded by exact lattice-edge key.
+  * ``MarchingTetrahedraExtractor`` ('mt') — the cube split into the 6 Kuhn
+    tetrahedra around the main diagonal (crack-free), table-free per-tet
+    cases, welded by lattice-edge key (~2× the triangles of 'mc').
+  * ``SurfaceNetsExtractor`` ('dmc', alias 'sn') — naive surface nets: one
+    vertex per active cell (mean of the cube-edge crossings), a quad per
+    sign-changing grid edge; a dual method like the reference's DMC. On the
+    FlashVDM path ``ShapeVAE.latents2mesh`` emits it on the device
+    (volume/decoders.py ``surface_nets_from_grid``); here it runs from
+    compacted active cells or a dense grid, natively (native/) by default.
+
+Each extractor takes a dense grid [B, R, R, R] (``__call__``, a mesh or
+``None`` per item) or the compacted active cells of one grid
+(``from_actives``). Vertices come out in the [-box_v, box_v]³ bbox and faces
 point outward (occupancy logits: inside > level).
 """
 
 from __future__ import annotations
 
+from typing import List, Optional
+
+import numpy as np
+import torch
+
 from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
+from hunyuan3d2_tpu_torch.utils.logger import get_logger
+
+logger = get_logger("hunyuan3d2_tpu_torch.surface")
 
 
 class Latent2MeshOutput:
@@ -24,11 +46,364 @@ class Latent2MeshOutput:
         return Mesh(self.mesh_v, self.mesh_f)
 
 
-class SurfaceNetsExtractor:
-    """Marks the on-device surface-nets emission of the FlashVDM path."""
+def center_vertices(vertices: np.ndarray) -> np.ndarray:
+    """Translate vertices so the bbox is centered at the origin."""
+    vmin, vmax = vertices.min(0), vertices.max(0)
+    return vertices - (vmin + vmax) / 2.0
+
+
+# cube corner offsets, index = standard MC numbering with main diagonal 0→6
+_CORNERS = np.array(
+    [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+     [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], dtype=np.int64)
+
+# Kuhn decomposition: 6 tets sharing the 0-6 diagonal; face-to-face tiling
+_TETS = np.array(
+    [[0, 1, 2, 6], [0, 2, 3, 6], [0, 3, 7, 6],
+     [0, 7, 4, 6], [0, 4, 5, 6], [0, 5, 1, 6]], dtype=np.int64)
+
+# tet edges as corner-pair indices into the 4 tet corners
+_TET_EDGES = np.array([[0, 1], [0, 2], [0, 3], [1, 2], [1, 3], [2, 3]], dtype=np.int64)
+
+_CUBE_EDGES = np.array([[0, 1], [1, 2], [2, 3], [3, 0], [4, 5], [5, 6],
+                        [6, 7], [7, 4], [0, 4], [1, 5], [2, 6], [3, 7]], dtype=np.int64)
+
+
+def _empty():
+    return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+
+
+def _build_tet_case_table():
+    """For each of 16 sign configurations: up to 2 triangles as indices into
+    the tet's 6 edges (-1 padded) and their count."""
+    def edge_id(i, j):
+        return next(e for e, (a, b) in enumerate(_TET_EDGES) if {a, b} == {i, j})
+
+    tri_table = -np.ones((16, 2, 3), dtype=np.int64)
+    ntri = np.zeros(16, dtype=np.int64)
+    for case in range(16):
+        inside = [i for i in range(4) if (case >> i) & 1]
+        outside = [i for i in range(4) if not (case >> i) & 1]
+        if len(inside) == 1:
+            tri_table[case, 0] = [edge_id(inside[0], o) for o in outside]
+            ntri[case] = 1
+        elif len(inside) == 3:
+            tri_table[case, 0] = [edge_id(i, outside[0]) for i in inside]
+            ntri[case] = 1
+        elif len(inside) == 2:
+            i1, i2 = inside
+            o1, o2 = outside
+            quad = [edge_id(i1, o1), edge_id(i1, o2), edge_id(i2, o2), edge_id(i2, o1)]
+            tri_table[case, 0] = [quad[0], quad[1], quad[2]]
+            tri_table[case, 1] = [quad[0], quad[2], quad[3]]
+            ntri[case] = 2
+    return tri_table, ntri
+
+
+_TRI_TABLE, _NTRI = _build_tet_case_table()
+
+
+def _active_cells(grid: np.ndarray, level: float):
+    """Indices [K, 3] of cells whose 2×2×2 corners straddle the level, in
+    ascending flat-id order."""
+    occ = grid > level
+    nx, ny, nz = grid.shape
+    agree = np.ones((nx - 1, ny - 1, nz - 1), dtype=bool)
+    base = occ[:-1, :-1, :-1]
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                if dx == dy == dz == 0:
+                    continue
+                agree &= occ[dx:nx - 1 + dx, dy:ny - 1 + dy, dz:nz - 1 + dz] == base
+    return np.argwhere(~agree)
+
+
+def _gather_corner_vals(grid: np.ndarray, cells: np.ndarray):
+    R = grid.shape[0]
+    corner_idx = cells[:, None, :] + _CORNERS[None]
+    flat = (corner_idx[..., 0] * R + corner_idx[..., 1]) * R + corner_idx[..., 2]
+    return grid.reshape(-1)[flat]
+
+
+def _edge_points(vals, corner_f, flat, edges, R: int, level: float):
+    """Crossing points [S, E, 3] on each of the cells' edges (lattice coords)
+    and their weld keys [S, E]: the canonical (min, max) lattice-point pair."""
+    a, b = edges[:, 0], edges[:, 1]
+    va, vb = vals[:, a], vals[:, b]
+    denom = vb - va
+    denom = np.where(np.abs(denom) < 1e-12, np.float32(1e-12), denom)
+    t = np.clip((level - va) / denom, 0.0, 1.0).astype(np.float32)
+    pa, pb = corner_f[:, a, :], corner_f[:, b, :]
+    epts = pa + t[..., None] * (pb - pa)
+    ga, gb = flat[:, a], flat[:, b]
+    ekey = np.minimum(ga, gb).astype(np.int64) * (R ** 3) + np.maximum(ga, gb)
+    return epts, ekey
+
+
+def _weld(P: np.ndarray, K3: np.ndarray):
+    """Triangles [F, 3, 3] with weld keys [F, 3] → (verts, faces)."""
+    _, first, inv = np.unique(K3.reshape(-1), return_index=True, return_inverse=True)
+    return P.reshape(-1, 3)[first].astype(np.float32), inv.reshape(-1, 3).astype(np.int32)
+
+
+def _marching_tetrahedra(grid: np.ndarray, level: float):
+    """grid [R, R, R] → (verts [V, 3] in lattice coords, faces [F, 3])."""
+    cells = _active_cells(grid, level)
+    if len(cells) == 0:
+        return _empty()
+    return _mt_from_actives(cells, _gather_corner_vals(grid, cells), grid.shape[0], level)
+
+
+def _mt_from_actives(cells: np.ndarray, vals_in: np.ndarray, R: int, level: float):
+    """Marching tetrahedra from compacted active cells (cells [K, 3], vals
+    [K, 8] in _CORNERS order; fully cell-local)."""
+    if len(cells) == 0:
+        return _empty()
+    corner_idx = cells[:, None, :].astype(np.int64) + _CORNERS[None]
+    flat = (corner_idx[..., 0] * R + corner_idx[..., 1]) * R + corner_idx[..., 2]
+    vals = vals_in.astype(np.float32)
+    corner_f = corner_idx.astype(np.float32)
+
+    all_tri_verts, all_tri_keys = [], []
+    for tet in _TETS:
+        tv, tg, tc = vals[:, tet], flat[:, tet], corner_f[:, tet, :]
+        inside = tv > level
+        case = (inside * (1 << np.arange(4))).sum(1)
+        sel = (case > 0) & (case < 15)
+        if not sel.any():
+            continue
+        tv, tg, tc, case, ins = tv[sel], tg[sel], tc[sel], case[sel], inside[sel]
+        epts, ekey = _edge_points(tv, tc, tg, _TET_EDGES, R, level)
+
+        # outward reference direction: mean(outside corners) - mean(inside)
+        w_in = ins.astype(np.float32)
+        n_in = w_in.sum(1, keepdims=True)
+        cen_in = (tc * w_in[..., None]).sum(1) / n_in
+        cen_out = (tc * (1 - w_in)[..., None]).sum(1) / (4 - n_in)
+        out_dir = cen_out - cen_in
+
+        tris, nt = _TRI_TABLE[case], _NTRI[case]
+        for ti in range(2):
+            m = nt > ti
+            if not m.any():
+                continue
+            e3 = tris[m, ti]
+            rows = np.arange(len(e3))
+            p = epts[m][rows[:, None], e3]
+            k3 = ekey[m][rows[:, None], e3]
+            n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+            flip = (n * out_dir[m]).sum(1) < 0
+            p[flip] = p[flip][:, [0, 2, 1]]
+            k3[flip] = k3[flip][:, [0, 2, 1]]
+            ok = (k3[:, 0] != k3[:, 1]) & (k3[:, 1] != k3[:, 2]) & (k3[:, 0] != k3[:, 2])
+            all_tri_verts.append(p[ok])
+            all_tri_keys.append(k3[ok])
+    if not all_tri_verts:
+        return _empty()
+    return _weld(np.concatenate(all_tri_verts), np.concatenate(all_tri_keys))
+
+
+def _mc_from_actives(cells: np.ndarray, vals_in: np.ndarray, R: int, level: float):
+    """Classic marching cubes from compacted active cells (cells [K, 3],
+    vals [K, 8]): case-table lookup, vertices only on cube edges, welded by
+    global lattice-edge key."""
+    from hunyuan3d2_tpu_torch.volume.mc_table import CORNERS, CUBE_EDGES, NTRI, TRI_TABLE
+
+    if len(cells) == 0:
+        return _empty()
+    corner_idx = cells.astype(np.int64)[:, None, :] + CORNERS[None]
+    flat = (corner_idx[..., 0] * R + corner_idx[..., 1]) * R + corner_idx[..., 2]
+    vals = vals_in.astype(np.float32)
+    corner_f = corner_idx.astype(np.float32)
+
+    case = ((vals > level) << np.arange(8)).sum(1)
+    nt = NTRI[case]
+    sel = nt > 0
+    if not sel.any():
+        return _empty()
+    vals, flat, corner_f, case, nt = vals[sel], flat[sel], corner_f[sel], case[sel], nt[sel]
+    epts, ekey = _edge_points(vals, corner_f, flat, CUBE_EDGES, R, level)
+
+    tris = TRI_TABLE[case]
+    all_p, all_k = [], []
+    for s in range(TRI_TABLE.shape[1]):
+        m = nt > s
+        if not m.any():
+            continue
+        e3 = tris[m, s]
+        rows = np.arange(len(e3))[:, None]
+        all_p.append(epts[m][rows, e3])
+        all_k.append(ekey[m][rows, e3])
+    P, K3 = np.concatenate(all_p), np.concatenate(all_k)
+    ok = (K3[:, 0] != K3[:, 1]) & (K3[:, 1] != K3[:, 2]) & (K3[:, 0] != K3[:, 2])
+    return _weld(P[ok], K3[ok])
+
+
+def _sn_from_actives(cells: np.ndarray, vals: np.ndarray, R: int, level: float,
+                     use_native: bool = True):
+    """Surface nets from compacted active cells (cells [K, 3] sorted by flat
+    id, vals [K, 8]): each cell owns its 3 min-corner lattice edges, and its
+    neighbours are found by binary search over the sorted ids. The native
+    single pass (default) and this numpy twin give identical output."""
+    if len(cells) == 0:
+        return _empty()
+    nc = R - 1
+    if use_native:
+        from hunyuan3d2_tpu_torch import native
+
+        return native.sn_from_actives(cells, vals, nc, level)
+    vals = vals.astype(np.float32)
+    cells = cells.astype(np.int64)
+    cell_flat = (cells[:, 0] * nc + cells[:, 1]) * nc + cells[:, 2]
+
+    def lookup(flat_ids):
+        pos = np.minimum(np.searchsorted(cell_flat, flat_ids), len(cell_flat) - 1)
+        return np.where(cell_flat[pos] == flat_ids, pos, -1).astype(np.int32)
+
+    corner_f = (cells[:, None, :] + _CORNERS[None]).astype(np.float32)
+    va, vb = vals[:, _CUBE_EDGES[:, 0]], vals[:, _CUBE_EDGES[:, 1]]
+    cross = (va > level) != (vb > level)
+    denom = vb - va
+    denom = np.where(np.abs(denom) < 1e-12, np.float32(1e-12), denom)
+    t = np.clip((level - va) / denom, 0.0, 1.0).astype(np.float32)
+    pa, pb = corner_f[:, _CUBE_EDGES[:, 0]], corner_f[:, _CUBE_EDGES[:, 1]]
+    pts = pa + t[..., None] * (pb - pa)
+    w = cross.astype(np.float32)
+    verts = ((pts * w[..., None]).sum(1) / np.maximum(w.sum(1, keepdims=True), 1)
+             ).astype(np.float32)
+
+    # corner0→1 = +x, corner0→3 = +y, corner0→4 = +z
+    strides = np.array([nc * nc, nc, 1], dtype=np.int64)
+    occ0 = vals[:, 0] > level
+    end_corner = (1, 3, 4)
+    faces = []
+    for d in range(3):
+        u, v = (d + 1) % 3, (d + 2) % 3
+        change = occ0 != (vals[:, end_corner[d]] > level)
+        interior = (cells[:, u] > 0) & (cells[:, v] > 0)
+        sel = np.flatnonzero(change & interior)
+        if len(sel) == 0:
+            continue
+        base = cell_flat[sel]
+        su, sv = strides[u], strides[v]
+        quad = np.stack([sel.astype(np.int32), lookup(base - su), lookup(base - su - sv),
+                         lookup(base - sv)], axis=1)
+        valid = (quad >= 0).all(1)
+        q = quad[valid]
+        flipped = ~occ0[sel[valid]]
+        q[flipped] = q[flipped][:, ::-1]
+        faces.append(q[:, [0, 1, 2]])
+        faces.append(q[:, [0, 2, 3]])
+    if not faces:
+        return verts, np.zeros((0, 3), np.int32)
+    return verts, np.concatenate(faces).astype(np.int32)
+
+
+def _surface_nets(grid: np.ndarray, level: float):
+    """Naive surface nets over a dense grid [R, R, R] (numpy)."""
+    cells = _active_cells(grid, level)
+    if len(cells) == 0:
+        return _empty()
+    return _sn_from_actives(cells, _gather_corner_vals(grid, cells), grid.shape[0], level,
+                            use_native=False)
+
+
+def _to_numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _actives_to_host(cell_flat, vals, count: int, R: int):
+    """Compacted active cells (a tensor on any device, or numpy) → (cells
+    [count, 3] int64, vals [count, 8]); only ``count`` rows leave the
+    device."""
+    cf = _to_numpy(cell_flat[:count]).astype(np.int64)
+    v = _to_numpy(vals[:count])
+    nc = R - 1
+    return np.stack([cf // (nc * nc), (cf // nc) % nc, cf % nc], axis=1), v
+
+
+def _finish(verts, faces, R: int, box_v: float):
+    verts = verts / (R - 1.0) * (2.0 * box_v) - box_v
+    return Latent2MeshOutput(verts.astype(np.float32), faces)
+
+
+class SurfaceExtractor:
+    def _extract(self, grid: np.ndarray, level: float):
+        raise NotImplementedError
+
+    def _from_actives(self, cells, vals, R: int, level: float):
+        raise NotImplementedError
+
+    def __call__(self, grid_logits, mc_level: float = 0.0, box_v: float = 1.01,
+                 **kwargs) -> List[Optional[Latent2MeshOutput]]:
+        """grid_logits [B, R, R, R] (tensor or numpy, f16/f32) → a mesh per
+        item; an item whose extraction fails gives None (reference
+        surface_extractors.py:52-63)."""
+        grid_logits = _to_numpy(grid_logits)
+        if grid_logits.dtype not in (np.float16, np.float32):
+            grid_logits = grid_logits.astype(np.float32)
+        outputs = []
+        for i in range(grid_logits.shape[0]):
+            try:
+                verts, faces = self._extract(grid_logits[i], mc_level)
+                outputs.append(_finish(verts, faces, grid_logits.shape[1], box_v))
+            except Exception as e:  # degrade per mesh, don't kill the batch
+                logger.error("surface extraction failed: %s", e)
+                outputs.append(None)
+        return outputs
+
+    def from_actives(self, cell_flat, vals, count: int, R: int, mc_level: float,
+                     box_v: float) -> Latent2MeshOutput:
+        """The mesh from ``extract_active_cells``' buffers (their first
+        ``count`` rows) of an R³ grid."""
+        cells, v = _actives_to_host(cell_flat, vals, count, R)
+        verts, faces = self._from_actives(cells, v, R, mc_level)
+        return _finish(verts, faces, R, box_v)
+
+
+class MarchingTetrahedraExtractor(SurfaceExtractor):
+    def _extract(self, grid, level):
+        return _marching_tetrahedra(grid, level)
+
+    def _from_actives(self, cells, vals, R, level):
+        return _mt_from_actives(cells, vals, R, level)
+
+
+class MarchingCubesExtractor(SurfaceExtractor):
+    """Classic case-table marching cubes, the 'mc' algorithm proper
+    (reference: skimage's path, surface_extractors.py:67-76)."""
+
+    def _extract(self, grid, level):
+        cells = _active_cells(grid, level)
+        if len(cells) == 0:
+            return _empty()
+        return _mc_from_actives(cells, _gather_corner_vals(grid, cells), grid.shape[0], level)
+
+    def _from_actives(self, cells, vals, R, level):
+        return _mc_from_actives(cells, vals, R, level)
+
+
+class SurfaceNetsExtractor(SurfaceExtractor):
+    """Surface nets through the native OpenMP pass (``use_native``, the
+    default) or the numpy twin."""
+
+    use_native = True
+
+    def _extract(self, grid, level):
+        if self.use_native:
+            from hunyuan3d2_tpu_torch import native
+
+            return native.surface_nets(np.ascontiguousarray(grid, np.float32), float(level))
+        return _surface_nets(grid, level)
+
+    def _from_actives(self, cells, vals, R, level):
+        return _sn_from_actives(cells, vals, R, level, self.use_native)
 
 
 SurfaceExtractors = {
+    "mc": MarchingCubesExtractor,
+    "mt": MarchingTetrahedraExtractor,
     "dmc": SurfaceNetsExtractor,
     "sn": SurfaceNetsExtractor,
 }

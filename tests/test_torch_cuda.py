@@ -364,31 +364,103 @@ def _raster_case(gen, n_faces):
     return v, torch.cat([f, f[:50], extra])
 
 
+def _raster_agrees(v, f, h, w):
+    """The kernel (records, bbox and pixels) against face_setup and the plain
+    twin on the same inputs: the same records and the same rounding (no FMA
+    contraction) in both, so everything is equal; NaN where NaN."""
+    from hunyuan3d2_tpu_torch.ops.rasterize import face_setup, rasterize_cuda, rasterize_plain
+
+    out, recs, bbox = rasterize_cuda(v, f, h, w)
+    ref_recs, ref_bbox = face_setup(v, f, h, w)
+    ref = rasterize_plain(ref_recs, ref_bbox, h, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(bbox, ref_bbox, atol=0, rtol=0)
+    torch.testing.assert_close(recs, ref_recs, atol=0, rtol=0, equal_nan=True)
+    finite = torch.isfinite(ref_recs)
+    assert torch.equal(recs.view(torch.int32)[finite], ref_recs.view(torch.int32)[finite])
+    torch.testing.assert_close(out.face_id, ref.face_id, atol=0, rtol=0)
+    torch.testing.assert_close(out.bary, ref.bary, atol=0, rtol=0)
+    torch.testing.assert_close(out.depth, ref.depth, atol=0, rtol=0)
+    assert out.face_id.shape == (h, w) and out.bary.shape == (h, w, 3)
+    assert int(out.overflow.abs().sum()) == 0
+    return out
+
+
 @pytest.mark.parametrize("n_faces,h,w", [(2000, 512, 512), (300, 97, 131), (40000, 2048, 2048)])
 def test_rasterize_kernel_matches_plain(gen, n_faces, h, w):
-    from hunyuan3d2_tpu_torch.ops.rasterize import (
-        face_setup,
-        rasterize,
-        rasterize_plain,
-        rasterize_records,
-    )
+    from hunyuan3d2_tpu_torch.ops.rasterize import rasterize
 
     v, f = _raster_case(gen, n_faces)
     before = rasterize.launches
     out = rasterize(v, f, h, w)
-    ref = rasterize_plain(*face_setup(v, f, h, w), h, w)
-    passes = rasterize_records(*face_setup(v, f, h, w), h, w)
-    torch.cuda.synchronize()
+    again = _raster_agrees(v, f, h, w)
     assert rasterize.launches == before + 2
-    torch.testing.assert_close(passes.face_id, out.face_id, atol=0, rtol=0)
-    # the same records and the same rounding (no FMA contraction) in both
-    torch.testing.assert_close(out.face_id, ref.face_id, atol=0, rtol=0)
-    torch.testing.assert_close(out.bary, ref.bary, atol=0, rtol=0)
-    torch.testing.assert_close(out.depth, ref.depth, atol=0, rtol=0)
+    torch.testing.assert_close(again.face_id, out.face_id, atol=0, rtol=0)
     fid = out.face_id
     assert not ((fid >= n_faces) & (fid < n_faces + 50)).any()   # ties go to the lower id
     assert not (fid == n_faces + 50).any()                        # the degenerate face
     assert (fid == n_faces + 51).any()                            # the big face
+
+
+@pytest.mark.parametrize("h,w", [(96, 80), (512, 512), (33, 1000), (2048, 2048)])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_rasterize_random_meshes_and_sizes(gen, h, w, index_dtype):
+    """Random meshes of small, tile-sized and screen-sized faces (the last
+    go to the wide list), non-square and non-tile-multiple sizes."""
+    for scale, n in ((0.05, 4000), (0.3, 500), (3.0, 40)):
+        c = torch.rand(n, 1, 2, generator=gen, device="cuda") * 2.4 - 1.2
+        xy = c + (torch.rand(n, 3, 2, generator=gen, device="cuda") - 0.5) * scale
+        v = torch.cat([xy, torch.rand(n, 3, 1, generator=gen, device="cuda") * 2 - 1,
+                       torch.ones(n, 3, 1, device="cuda")], -1).reshape(-1, 4)
+        f = torch.arange(3 * n, device="cuda", dtype=index_dtype).reshape(n, 3)
+        out = _raster_agrees(v, f, h, w)
+        assert (out.face_id >= 0).any()
+
+
+def test_rasterize_duplicate_faces_lowest_id_wins(gen):
+    """Each face drawn three times at the same depth (the copies in reverse
+    winding): every covered pixel goes to the first copy."""
+    n = 3000
+    v = torch.rand(3 * n, 4, generator=gen, device="cuda") * 1.8 - 0.9
+    v[:, 3] = 1.0
+    v[:, 2] = 0.25
+    f = torch.arange(3 * n, device="cuda", dtype=torch.int32).reshape(n, 3)
+    f = torch.cat([f, f.flip(1), f])
+    out = _raster_agrees(v, f, 300, 257)
+    assert (out.face_id >= 0).any() and int(out.face_id.max()) < n
+
+
+def test_rasterize_degenerate_nan_w0_offscreen_faces(gen):
+    n = 2000
+    v = torch.rand(3 * n, 4, generator=gen, device="cuda") * 2.2 - 1.1
+    v[:, 3] = 1.0
+    v[0::7, 3] = 0.0                        # w = 0 (taken as 1e-8)
+    v[1::11, 0] = float("nan")              # NaN vertices
+    v[2::13, 3] = -0.0
+    v[3::17, 2] = float("inf")
+    v[4::19] += 5.0                         # off screen
+    f = torch.arange(3 * n, device="cuda", dtype=torch.int32).reshape(n, 3)
+    f[5::23, 1] = f[5::23, 0]               # degenerate (zero area)
+    out = _raster_agrees(v, f, 160, 200)
+    assert (out.face_id >= 0).any()
+    culled = torch.cat([torch.tensor([[0, 0, 0]], device="cuda", dtype=torch.int32), f[:3]])
+    _raster_agrees(v, culled, 64, 64)
+
+
+def test_rasterize_screen_sized_and_crowded_faces(gen):
+    """Screen-sized faces over every tile, and thousands of faces inside one
+    tile, which overflow its list into the wide list."""
+    big = torch.rand(768, 4, generator=gen, device="cuda") * 2.0 - 1.0
+    big[:, 3] = 1.0
+    _raster_agrees(big, torch.arange(768, device="cuda", dtype=torch.int32).reshape(256, 3),
+                   2048, 2048)
+    n = 6000
+    v = torch.rand(3 * n, 4, generator=gen, device="cuda") * 0.02 - 0.01
+    v[:, 2] = torch.rand(3 * n, generator=gen, device="cuda")
+    v[:, 3] = 1.0
+    f = torch.arange(3 * n, device="cuda", dtype=torch.int32).reshape(n, 3)
+    _raster_agrees(v, f, 2048, 2048)
+    _raster_agrees(v, f[:0], 64, 48)        # no faces
 
 
 def test_kernel_wrappers_raise_on_bad_input(gen):

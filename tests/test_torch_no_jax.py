@@ -22,6 +22,7 @@ from hunyuan3d2_tpu_torch.pipelines import hunyuanpaint, multiview, paint_schedu
 from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
 from hunyuan3d2_tpu_torch.utils import cuda_build
 from hunyuan3d2_tpu_torch import native
+from hunyuan3d2_tpu_torch.volume import decoders, mc_table, surface
 
 pipe = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="tiny", dino="tiny", device="cpu")
 pipe.enable_flashvdm(mc_algo="dmc")
@@ -29,6 +30,11 @@ img = np.zeros((32, 32, 4), np.uint8)
 img[8:24, 8:24] = 200
 mesh = pipe(Image.fromarray(img), num_inference_steps=1, octree_resolution=16)[0]
 assert mesh.vertices.shape[1] == 3
+for algo in ("mc", "mt"):
+    pipe.enable_flashvdm(mc_algo=algo)
+    assert len(pipe(Image.fromarray(img), num_inference_steps=1, octree_resolution=16)[0].faces)
+pipe.enable_flashvdm(enabled=False)
+assert len(pipe(Image.fromarray(img), num_inference_steps=1, octree_resolution=16)[0].faces)
 paint = hunyuan3d2_tpu_torch.Hunyuan3DPaintPipeline.init_random(
     size="tiny", view_size=32, render_size=48, texture_size=48, num_inference_steps=1,
     device="cpu").set_turbo()

@@ -167,18 +167,34 @@ def test_slice_end_to_end_matches(pipelines, tmp_path):
 
 
 def test_overflow_raises_unless_capped(pipelines, monkeypatch):
-    """An overflow of the surface buffers raises; HY3D_CAP_ACTIVES=1 keeps
-    the stable truncation instead."""
-    _, tp = pipelines
+    """An overflow of the surface buffers without HY3D_CAP_ACTIVES falls back,
+    as in the JAX package, to the host-assembled grid and the host surface
+    nets (the same mesh in both packages); HY3D_CAP_ACTIVES=1 keeps the
+    stable truncation instead."""
+    jp, tp = pipelines
+    from hunyuan3d2_tpu.models import shapevae as jsv
     from hunyuan3d2_tpu_torch.models import shapevae
 
-    monkeypatch.setattr(shapevae, "active_capacity", lambda r: 64)
-    monkeypatch.setattr(shapevae, "face_capacity", lambda r: 96)
-    lat = torch.from_numpy(np.random.RandomState(6).randn(1, 64, 64).astype(np.float32))
+    for mod in (jsv, shapevae):
+        monkeypatch.setattr(mod, "active_capacity", lambda r: 64)
+        monkeypatch.setattr(mod, "face_capacity", lambda r: 96)
+    lat = np.random.RandomState(6).randn(1, 64, 64).astype(np.float32)
     monkeypatch.delenv("HY3D_CAP_ACTIVES", raising=False)
-    with pytest.raises(RuntimeError, match="overflow"):
-        tp.vae.latents2mesh(lat, octree_resolution=16)
+    jsv._grid_decode_jit.clear_cache()   # the capacities are fixed at trace time
+    try:
+        mj = jp.vae.latents2mesh(jnp.asarray(lat), octree_resolution=16)[0]
+    finally:
+        jsv._grid_decode_jit.clear_cache()
+    mf = tp.vae.latents2mesh(torch.from_numpy(lat), octree_resolution=16)[0]
+    assert len(mf.mesh_v) > 64 and len(mf.mesh_f) > 2 * 96
+    assert abs(len(mf.mesh_v) - len(mj.mesh_v)) <= 0.03 * len(mj.mesh_v)
+    assert abs(len(mf.mesh_f) - len(mj.mesh_f)) <= 0.03 * len(mj.mesh_f)
+    from scipy.spatial import cKDTree
+
+    dist, _ = cKDTree(mj.mesh_v).query(mf.mesh_v)
+    cell = 2 * 1.01 / 16
+    assert np.quantile(dist, 0.99) < 0.25 * cell and dist.max() < 2 * cell, (dist.max(), cell)
     monkeypatch.setenv("HY3D_CAP_ACTIVES", "1")
-    m = tp.vae.latents2mesh(lat, octree_resolution=16)[0]
+    m = tp.vae.latents2mesh(torch.from_numpy(lat), octree_resolution=16)[0]
     assert 0 < len(m.mesh_v) <= 64 and len(m.mesh_f) <= 2 * 96
     assert m.mesh_f.max() < len(m.mesh_v)

@@ -31,7 +31,7 @@ from hunyuan3d2_tpu_torch.ops.rasterize import (
     face_setup,
     interpolate,
     rasterize,
-    rasterize_records,
+    rasterize_cuda,
 )
 from hunyuan3d2_tpu_torch.volume.decoders import quads_to_tris, surface_nets_from_grid
 
@@ -164,7 +164,7 @@ def test_raster_kernel_entry_takes_only_cuda_tensors():
     f = torch.tensor([[0, 1, 2]], dtype=torch.int32)
     assert (rasterize(v, f, 8, 8).face_id == 0).any()
     with pytest.raises(ValueError):
-        rasterize_records(*face_setup(v, f, 8, 8), 8, 8)
+        rasterize_cuda(v, f, 8, 8)
 
 
 def test_bilinear_upsample_matches_jax_resize():
