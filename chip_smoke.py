@@ -50,7 +50,19 @@ Phases, in order; any failure exits non-zero:
   7. slice 2 at a small size on the card against the same stack on the CPU
      (plain twins), with the same weights and noise, at a head size and
      sequence lengths that send the UNet through both attention kernels;
-  8. a JSON line with every kernel's numbers, then the result line.
+  8. the served path at full width: checkpoints written from random weights
+     (rounded to fp16) in the published layouts under tmp/ (the mini shape
+     stack with DINOv2-giant as config.yaml + model.fp16.safetensors, the
+     paint-turbo stack as unet/ and vae/ with config.json), loaded back with
+     from_pretrained (every tensor bit for bit, one image → mesh call equal
+     to the in-memory pipeline's), then the port's API server, in-process on
+     a localhost port, answers /generate (octree 256, the app's 'mc'),
+     /generate with texture (postprocess, then paint-turbo at 6 × 512²
+     views, render and texture 2048) and /send + /status; each GLB is read
+     back; the shape stack is offloaded to the host between the first two
+     requests and the drop in device memory checked; the checkpoints are
+     deleted at the end;
+  9. a JSON line with every kernel's numbers, then the result line.
 Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -58,6 +70,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -172,9 +185,11 @@ def flash_phase(gen):
     # "dit full fast" is the v2-0 Fast DiT (3072 latents + 1370 cond tokens,
     # batch 1), "vae full" the v2-0 VAE's self-attention, "geo stream" one
     # fine chunk of the streamed decode at octree 380 (390 blocks of 8³
-    # queries) over the 3072 latents.
+    # queries) over the 3072 latents; "clip" the Dual conditioner's CLIP
+    # ViT-L/14 tower at 224² (257 tokens).
     for name, (b, h, lq, lk, d), dt, tol in (
             ("dinov2", (1, 24, 1370, 1370, 64), torch.bfloat16, 2e-2),
+            ("clip", (1, 16, 257, 257, 64), torch.bfloat16, 2e-2),
             ("dit", (2, 16, 1882, 1882, 64), torch.bfloat16, 2e-2),
             ("vae", (1, 16, 512, 512, 64), torch.float32, 1e-5),
             ("paint multiview", (1, 5, 24576, 24576, 64), torch.bfloat16, 2e-2),
@@ -1034,6 +1049,289 @@ def texture_agreement():
           "texture check: the card's textured mesh disagrees with the CPU's")
 
 
+
+def _round_to_fp16(modules):
+    """Round every tensor of ``modules`` ({top: module}) through fp16 in place
+    and return the fp16 tensors under their checkpoint keys (on the host):
+    what a model.fp16.safetensors holds, and what loading it gives back."""
+    import torch
+
+    sd = {}
+    with torch.no_grad():
+        for top, module in modules.items():
+            for k, t in module.state_dict().items():
+                h = t.half()
+                t.copy_(h)
+                sd[f"{top}.{k}" if top else k] = h.cpu()
+    return sd
+
+
+def _same_tensors(name, loaded, source):
+    """Every tensor of ``loaded`` equals ``source``'s bit for bit (dtype too)."""
+    import torch
+
+    a, b = loaded.state_dict(), source.state_dict()
+    check(a.keys() == b.keys(), f"{name}: the loaded module's keys differ")
+    for k in a:
+        check(a[k].dtype == b[k].dtype and a[k].is_cuda and torch.equal(a[k], b[k]),
+              f"{name}: {k} differs from the written checkpoint")
+    return len(a)
+
+
+def _write_checkpoints(root, shape, paint):
+    """The published layouts under ``root``: the shape stack's config.yaml and
+    model.fp16.safetensors, the paint stack's unet/ and vae/ with their
+    config.json and diffusion_pytorch_model.safetensors. Returns bytes
+    written per stack."""
+    from hunyuan3d2_tpu_torch.io.formats import dump_yaml, save_safetensors
+
+    sub = os.path.join(root, "hunyuan3d-dit-v2-mini")
+    os.makedirs(sub)
+    c, v = shape.model_cfg, shape.vae.cfg
+    d = shape.conditioner.main.cfg
+    config = {
+        "name": "hunyuan3d-dit-v2-mini",
+        "model": {"target": "hy3dgen.shapegen.models.Hunyuan3DDiT", "params": {
+            "in_channels": c.in_channels, "context_in_dim": c.context_in_dim,
+            "hidden_size": c.hidden_size, "mlp_ratio": c.mlp_ratio, "num_heads": c.num_heads,
+            "depth": c.depth, "depth_single_blocks": c.depth_single_blocks, "axes_dim": [64],
+            "theta": 10000, "qkv_bias": c.qkv_bias, "guidance_embed": c.guidance_embed}},
+        "vae": {"target": "hy3dgen.shapegen.models.ShapeVAE", "params": {
+            "num_latents": v.num_latents, "embed_dim": v.embed_dim, "num_freqs": v.num_freqs,
+            "include_pi": v.include_pi, "heads": v.heads, "width": v.width,
+            "num_decoder_layers": v.num_decoder_layers, "qkv_bias": v.qkv_bias,
+            "qk_norm": True, "scale_factor": v.scale_factor}},
+        "conditioner": {"target": "hy3dgen.shapegen.models.conditioner.SingleImageEncoder",
+                        "params": {"main_image_encoder": {"type": "DinoImageEncoder", "kwargs": {
+                            "config": {"hidden_size": d.dino.hidden_size,
+                                       "num_hidden_layers": d.dino.num_layers,
+                                       "num_attention_heads": d.dino.num_heads,
+                                       "patch_size": d.dino.patch_size, "use_swiglu_ffn": True},
+                            "image_size": d.image_size}}}},
+        "scheduler": {"target": "hy3dgen.shapegen.schedulers.FlowMatchEulerDiscreteScheduler",
+                      "params": {"num_train_timesteps": 1000}},
+        "image_processor": {"target": "hy3dgen.shapegen.preprocessors.ImageProcessorV2",
+                            "params": {"size": 512, "border_ratio": 0.15}},
+    }
+    with open(os.path.join(sub, "config.yaml"), "w") as fh:
+        fh.write(dump_yaml(config) + "\n")
+    sizes = {"shape": save_safetensors(
+        _round_to_fp16({"model": shape.model, "vae": shape.vae,
+                        "conditioner": shape.conditioner}),
+        os.path.join(sub, "model.fp16.safetensors"))}
+    inner = paint.models["multiview_model"].pipeline
+    u, s = inner.unet.cfg, inner.vae.cfg
+    parts = {"unet": (inner.unet, {"block_out_channels": list(u.block_out_channels),
+                                   "layers_per_block": u.layers_per_block,
+                                   "cross_attention_dim": u.cross_attention_dim,
+                                   "out_channels": u.out_channels,
+                                   "norm_num_groups": u.norm_num_groups}),
+             "vae": (inner.vae, {"block_out_channels": list(s.block_out_channels),
+                                 "layers_per_block": s.layers_per_block,
+                                 "latent_channels": s.latent_channels,
+                                 "scaling_factor": s.scaling_factor})}
+    sizes["paint"] = 0
+    for part, (module, cfg) in parts.items():
+        d = os.path.join(root, "hunyuan3d-paint-v2-0-turbo", part)
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as fh:
+            json.dump(cfg, fh)
+        sizes["paint"] += save_safetensors(_round_to_fp16({"": module}),
+                                           os.path.join(d, "diffusion_pytorch_model.safetensors"))
+    return sizes
+
+
+def _log_postprocess(stages):
+    """Log faces in and out of each postprocess stage the server runs."""
+    from hunyuan3d2_tpu_torch.geometry import postprocess
+
+    for name in ("FloaterRemover", "DegenerateFaceRemover", "FaceReducer"):
+        cls = getattr(postprocess, name)
+        orig = cls.__call__
+
+        def call(self, mesh, *args, _orig=orig, _name=name, **kwargs):
+            out = _orig(self, mesh, *args, **kwargs)
+            stages.append((_name, len(mesh.faces), len(out.faces)))
+            return out
+
+        cls.__call__ = call
+
+
+def _post(url, payload, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def _glb_back(name, data, filename):
+    """Write a served GLB under tmp/, read it back and check it."""
+    import numpy as np
+
+    from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
+
+    check(data[:4] == b"glTF", f"{name}: the answer is not a GLB")
+    path = os.path.join(ROOT, "tmp", filename)
+    with open(path, "wb") as fh:
+        fh.write(data)
+    mesh = Mesh.load(path)
+    check(len(mesh.faces) > 0 and mesh.faces.min() >= 0
+          and mesh.faces.max() < len(mesh.vertices) and np.isfinite(mesh.vertices).all(),
+          f"{name}: the GLB does not read back as a mesh")
+    return mesh
+
+
+def served_path():
+    """Checkpoints on disk → from_pretrained → the API server → three
+    requests, at full width, through the user's entry points."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch import Hunyuan3DDiTFlowMatchingPipeline, Hunyuan3DPaintPipeline
+    from hunyuan3d2_tpu_torch.apps import api_server
+    from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
+
+    root = os.path.join(ROOT, "tmp", "served_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
+    try:
+        src = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="mini", dino="giant",
+                                                           device="cuda", seed=7)
+        src_paint = Hunyuan3DPaintPipeline.init_random(size="default", view_size=512,
+                                                       render_size=2048, texture_size=2048,
+                                                       device="cuda", seed=7)
+        t0 = time.perf_counter()
+        sizes = _write_checkpoints(root, src, src_paint)
+        log(f"served: wrote the checkpoints in {time.perf_counter() - t0:.2f} s: "
+            f"hunyuan3d-dit-v2-mini {sizes['shape']} bytes, hunyuan3d-paint-v2-0-turbo "
+            f"{sizes['paint']} bytes (random weights, seed 7, rounded to fp16)")
+
+        t0 = time.perf_counter()
+        pipe = Hunyuan3DDiTFlowMatchingPipeline.from_pretrained(
+            root, subfolder="hunyuan3d-dit-v2-mini", device="cuda")
+        torch.cuda.synchronize()
+        t_shape = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paint = Hunyuan3DPaintPipeline.from_pretrained(
+            root, subfolder="hunyuan3d-paint-v2-0-turbo", device="cuda")
+        torch.cuda.synchronize()
+        t_paint = time.perf_counter() - t0
+        n = sum(_same_tensors(name, a, b) for name, a, b in (
+            ("model", pipe.model, src.model), ("vae", pipe.vae, src.vae),
+            ("conditioner", pipe.conditioner, src.conditioner),
+            ("unet", paint.models["multiview_model"].pipeline.unet,
+             src_paint.models["multiview_model"].pipeline.unet),
+            ("paint vae", paint.models["multiview_model"].pipeline.vae,
+             src_paint.models["multiview_model"].pipeline.vae)))
+        check(paint.models["multiview_model"].pipeline.is_turbo, "served: paint not turbo")
+        log(f"served: from_pretrained {t_shape:.2f} s (shape), {t_paint:.2f} s (paint); "
+            f"{n} tensors equal bit for bit to the written ones")
+        del src_paint
+
+        # one image → mesh call, loaded against in-memory (same fp16-rounded weights)
+        meshes = {}
+        for name, p in (("in-memory", src), ("loaded", pipe)):
+            p.enable_flashvdm(mc_algo="dmc")
+            meshes[name] = p(test_image(), seed=1234, num_inference_steps=5,
+                             guidance_scale=5.0, octree_resolution=256, num_chunks=65536)[0]
+        a, b = meshes["loaded"], meshes["in-memory"]
+        check(len(a.faces) == len(b.faces) and a.vertices.shape == b.vertices.shape
+              and np.abs(a.vertices - b.vertices).max() <= 1e-5,
+              "served: the loaded pipeline's mesh differs from the in-memory one's")
+        log(f"served: loaded vs in-memory image → mesh: {len(a.faces)} faces each, max vertex "
+            f"diff {np.abs(a.vertices - b.vertices).max():.3g}")
+        del src, meshes, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        worker = api_server.ModelWorker.from_pipelines(pipe, paint)
+        server = api_server.serve(worker, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        buf = io.BytesIO()
+        test_image().save(buf, format="PNG")
+        req = {"image": base64.b64encode(buf.getvalue()).decode(), "seed": 1234,
+               "octree_resolution": 256, "num_inference_steps": 5, "guidance_scale": 5.0}
+        stages = []
+        _log_postprocess(stages)
+        counters = _kernel_counters()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            # (a) image → mesh
+            t0 = time.perf_counter()
+            mesh = _glb_back("served (a)", _post(base + "/generate", req), "chip_smoke_served.glb")
+            log(f"served (a) /generate: {time.perf_counter() - t0:.3f} s, {len(mesh.faces)} "
+                f"faces, stages {json.dumps({k: round(LAST_TIMINGS[k], 4) for k in ('Preprocess', 'Encode Cond', 'Diffusion Sampling', 'Volume Decoding')})}")
+
+            # the shape stack to the host and back
+            stack = sum(t.numel() * t.element_size() for m in (pipe.model, pipe.vae,
+                                                                pipe.conditioner)
+                        for t in m.state_dict().values())
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            pipe.offload_to_host()
+            torch.cuda.synchronize()
+            offloaded = torch.cuda.memory_allocated()
+            pipe.restore_to_device()
+            torch.cuda.synchronize()
+            restored = torch.cuda.memory_allocated()
+            log(f"served: offload_to_host: device memory {before / 2 ** 30:.3f} → "
+                f"{offloaded / 2 ** 30:.3f} GiB (shape stack {stack / 2 ** 30:.3f} GiB); "
+                f"restore_to_device → {restored / 2 ** 30:.3f} GiB")
+            check(before - offloaded >= stack, "served: offload freed less than the shape stack")
+
+            # (b) image → postprocess → paint-turbo → textured GLB
+            t0 = time.perf_counter()
+            tex = _glb_back("served (b)", _post(base + "/generate", {**req, "texture": True}),
+                            "chip_smoke_served_textured.glb")
+            check(tex.uv is not None and tex.texture is not None
+                  and tex.texture.shape == (2048, 2048, 3), "served (b): no 2048² texture")
+            log(f"served (b) /generate texture: {time.perf_counter() - t0:.3f} s, "
+                f"{len(tex.faces)} faces; postprocess (stage, faces in, faces out) "
+                f"{json.dumps(stages)}; stages {json.dumps({k: round(LAST_TIMINGS[k], 4) for k in ('Diffusion Sampling', 'Volume Decoding', 'FloaterRemover', 'DegenerateFaceRemover', 'FaceReducer', 'Cond Maps (device)', 'Multiview Diffusion (device)', 'UV Unwrap', 'Bake Geometry (device)', 'Texture Baking (device)', 'Texture Inpaint')})}")
+
+            # (c) /send, then /status until done
+            t0 = time.perf_counter()
+            uid = json.loads(_post(base + "/send", req))["uid"]
+            while True:
+                with urllib.request.urlopen(f"{base}/status/{uid}", timeout=60) as r:
+                    st = json.loads(r.read())
+                if st["status"] != "processing":
+                    break
+                time.sleep(0.05)
+            check(st["status"] == "completed", f"served (c): job {uid} ended {st}")
+            sent = _glb_back("served (c)", base64.b64decode(st["model_base64"]),
+                             "chip_smoke_served_sent.glb")
+            log(f"served (c) /send + /status: {time.perf_counter() - t0:.3f} s, "
+                f"{len(sent.faces)} faces")
+            launches = {name: fn.launches for name, fn in counters.items()}
+            log(f"served: launches {json.dumps(launches)}, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        for name in ("flash_attention", "flash_attention_masked", "fused_geo_decode",
+                     "rasterize"):
+            check(launches[name] > 0, f"served: kernel {name} was never launched")
+        del worker, pipe, paint
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1083,9 +1381,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_tex = texture_path(sphere)
     texture_agreement()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_served = served_path()
     by_path = {"image_to_mesh": launches_mesh, "image_to_mesh_v2_0_fast": launches_v20,
                "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex,
-               "flash_sweep": launches_sweep}
+               "flash_sweep": launches_sweep, "served": launches_served}
 
     def entry(name, source, replaces, rows, main_row, path):
         """``launches`` is the count from ``path``'s warm run; every path's
@@ -1103,7 +1404,7 @@ def main() -> int:
 
     kernels = [
         entry("flash_attention", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
-              "hunyuan3d2_tpu/ops/flash_attention.py:221", flash_rows, 3, "textured_glb"),
+              "hunyuan3d2_tpu/ops/flash_attention.py:221", flash_rows, 4, "textured_glb"),
         entry("flash_attention_masked", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
               "hunyuan3d2_tpu/ops/flash_attention.py:159", masked_rows, 0, "textured_glb"),
         entry("fused_geo_decode", "hunyuan3d2_tpu_torch/csrc/geo_decode.cu",

@@ -1,7 +1,7 @@
 """Carry JAX-package parameter trees into the port's state dicts.
 
-The inverse of hunyuan3d2_tpu/io/checkpoints.py ``map_dit``, ``map_shapevae``
-and ``map_dinov2``: per-layer leaves stacked along axis 0 are unstacked,
+The inverse of hunyuan3d2_tpu/io/checkpoints.py ``map_dit``, ``map_shapevae``,
+``map_dinov2`` and ``map_clip_vit``: per-layer leaves stacked along axis 0 are unstacked,
 Linear kernels [in, out] are transposed to torch's [out, in], and every key
 is the Hunyuan3D-2 checkpoint key. The paint UNet and the SD VAE go to the
 diffusers keys that hunyuan3d2_tpu/io/diffusers_maps.py ``export_paint_unet``
@@ -128,6 +128,30 @@ def dinov2_state_dict(params: dict, cfg, prefix: str = "model.") -> Dict[str, np
     sd["layernorm.weight"] = _f32(params["final_norm_scale"])
     sd["layernorm.bias"] = _f32(params["final_norm_bias"])
     return {prefix + k: v for k, v in sd.items()}
+
+
+def clip_vit_state_dict(params: dict, cfg, prefix: str = "model.") -> Dict[str, np.ndarray]:
+    """models/clip_vit.py param tree → HF CLIPVisionModel state dict (keys
+    under ``prefix`` + ``vision_model.``, the encoder's ``model.``)."""
+    sd: Dict[str, np.ndarray] = {}
+    h, p = cfg.hidden_size, cfg.patch_size
+    sd["embeddings.class_embedding"] = _f32(params["class_embedding"])
+    pw = _f32(params["patch_proj"]["w"])                         # [3*p*p, H]
+    sd["embeddings.patch_embedding.weight"] = np.ascontiguousarray(pw.T.reshape(h, 3, p, p))
+    sd["embeddings.position_embedding.weight"] = _f32(params["pos_embed"])
+    sd["pre_layrnorm.weight"] = _f32(params["pre_ln_scale"])
+    sd["pre_layrnorm.bias"] = _f32(params["pre_ln_bias"])
+    ly = params["layers"]
+    for i in range(cfg.num_layers):
+        b = f"encoder.layers.{i}"
+        for n in ("1", "2"):
+            sd[f"{b}.layer_norm{n}.weight"] = _f32(ly[f"ln{n}_scale"][i])
+            sd[f"{b}.layer_norm{n}.bias"] = _f32(ly[f"ln{n}_bias"][i])
+        for n, k in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "out")):
+            _lin(sd, f"{b}.self_attn.{n}", ly[k], i)
+        _lin(sd, f"{b}.mlp.fc1", ly["fc1"], i)
+        _lin(sd, f"{b}.mlp.fc2", ly["fc2"], i)
+    return {prefix + "vision_model." + k: v for k, v in sd.items()}
 
 
 def _conv(out: dict, key: str, p: dict):

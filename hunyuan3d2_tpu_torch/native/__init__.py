@@ -9,9 +9,11 @@ is built when the module is imported and no library is committed. Bound here are
 port's texture path uses: the host rasterizer (the UV unwrap's chart
 overlap guard), the vertex-graph inpaint and push-pull fill (the texture
 inpaint); the surface nets over a dense grid and from compacted active cells
-(the 'dmc'/'sn' extractor); and the bilinear splat of the host bake, which
-the port does not run yet (its OpenMP fix is tested on its own). Each
-returns numpy arrays.
+(the 'dmc'/'sn' extractor); the four mesh functions of the postprocess
+(face components, quadric simplification, the weld with degenerate and
+duplicate face removal, cluster decimation); and the bilinear splat of the
+host bake, which the port does not run yet (its OpenMP fix is tested on its
+own). Each returns numpy arrays.
 """
 
 from __future__ import annotations
@@ -74,6 +76,17 @@ def get_lib() -> ctypes.CDLL:
     lib.hy3d_sn_actives.argtypes = [i32p, f32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
                                     f32p, i32p, ctypes.c_int64, i64p]
     lib.hy3d_sn_actives.restype = ctypes.c_int32
+    lib.hy3d_face_components.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64, i32p]
+    lib.hy3d_face_components.restype = ctypes.c_int32
+    mesh_out = [f32p, i64p, i32p, i64p]
+    lib.hy3d_simplify.argtypes = [f32p, ctypes.c_int64, i32p, ctypes.c_int64, ctypes.c_int64,
+                                  *mesh_out]
+    lib.hy3d_simplify.restype = None
+    lib.hy3d_weld_dedup.argtypes = [f32p, ctypes.c_int64, i32p, ctypes.c_int64, *mesh_out]
+    lib.hy3d_weld_dedup.restype = None
+    lib.hy3d_cluster_decimate.argtypes = [f32p, ctypes.c_int64, i32p, ctypes.c_int64,
+                                          ctypes.c_double, *mesh_out]
+    lib.hy3d_cluster_decimate.restype = None
     return lib
 
 
@@ -175,3 +188,58 @@ def sn_from_actives(cells: np.ndarray, vals: np.ndarray, nc: int, level: float =
     if ret != 0:
         raise MemoryError(f"sn_from_actives capacity exceeded (code {ret})")
     return out_v, out_f[:nf.value].copy()
+
+
+def _mesh_arrays(verts: np.ndarray, faces: np.ndarray, name: str):
+    """C-contiguous float32 [N, 3] / int32 [M, 3] copies, indices checked: the
+    native passes index vertex arrays by them unchecked."""
+    verts = np.ascontiguousarray(verts, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    if verts.ndim != 2 or verts.shape[1] != 3 or faces.ndim != 2 or faces.shape[1] != 3:
+        raise ValueError(f"{name}: verts {verts.shape} and faces {faces.shape} must be [N, 3]")
+    if len(faces) and (faces.min() < 0 or faces.max() >= len(verts)):
+        raise ValueError(f"{name}: face index out of range")
+    return verts, faces
+
+
+def _mesh_call(fn, verts: np.ndarray, faces: np.ndarray, *args):
+    """Run a native pass that writes at most N vertices and M faces."""
+    out_v = np.empty_like(verts)
+    out_f = np.empty_like(faces)
+    onv, onf = ctypes.c_int64(), ctypes.c_int64()
+    fn(verts, len(verts), faces, len(faces), *args, out_v, ctypes.byref(onv), out_f,
+       ctypes.byref(onf))
+    return out_v[:onv.value].copy(), out_f[:onf.value].copy()
+
+
+def face_components(faces: np.ndarray, num_vertices: int):
+    """Connected components of the face graph (faces sharing a vertex) →
+    (labels [M] int32 in first-seen order, count)."""
+    lib = get_lib()
+    faces = np.ascontiguousarray(faces, np.int32)
+    if len(faces) and (faces.min() < 0 or faces.max() >= num_vertices):
+        raise ValueError("face_components: face index out of range")
+    labels = np.empty(len(faces), np.int32)
+    n = lib.hy3d_face_components(faces, len(faces), num_vertices, labels)
+    return labels, int(n)
+
+
+def simplify(verts: np.ndarray, faces: np.ndarray, target_faces: int):
+    """Quadric edge-collapse decimation to about ``target_faces`` faces."""
+    verts, faces = _mesh_arrays(verts, faces, "simplify")
+    return _mesh_call(get_lib().hy3d_simplify, verts, faces, int(target_faces))
+
+
+def weld_dedup(verts: np.ndarray, faces: np.ndarray):
+    """Exact vertex weld (-0.0 equals 0.0) and removal of degenerate,
+    zero-area and duplicate faces in one hashing pass; first occurrences
+    keep their order."""
+    verts, faces = _mesh_arrays(verts, faces, "weld_dedup")
+    return _mesh_call(get_lib().hy3d_weld_dedup, verts, faces)
+
+
+def cluster_decimate(verts: np.ndarray, faces: np.ndarray, cell: float):
+    """Uniform vertex clustering at ``cell`` size: each cluster becomes its
+    mean, collapsed and duplicate faces go."""
+    verts, faces = _mesh_arrays(verts, faces, "cluster_decimate")
+    return _mesh_call(get_lib().hy3d_cluster_decimate, verts, faces, float(cell))

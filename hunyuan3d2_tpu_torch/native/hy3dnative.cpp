@@ -9,6 +9,10 @@
 //   * mesh_processor vertex-graph texture inpainting and the push-pull
 //     hole fill (the texture inpaint),
 //   * the bilinear splat of the host bake (not on the port's path yet),
+//   * connected-component face labelling, quadric edge-collapse
+//     simplification, the exact vertex weld with degenerate/duplicate face
+//     removal, and uniform vertex-cluster decimation (the mesh postprocess;
+//     all four serial),
 //   * surface nets over a dense grid and from compacted active cells (the
 //     'dmc'/'sn' extractor's host passes).
 //
@@ -20,6 +24,8 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <queue>
 #include <vector>
 
 extern "C" {
@@ -349,6 +355,444 @@ void hy3d_pushpull_fill(float* texture, const uint8_t* mask, int h, int w,
     for (int chn = 0; chn < c; ++chn)
       texture[p * c + chn] = col[p * c + chn] * iw;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Connected components over the face graph (shared-vertex adjacency).
+// labels: [nf] int32 component id; returns number of components.
+// ---------------------------------------------------------------------------
+int32_t hy3d_face_components(const int32_t* faces, int64_t nf, int64_t nv,
+                             int32_t* labels) {
+  std::vector<int32_t> parent(nv);
+  for (int64_t i = 0; i < nv; ++i) parent[i] = (int32_t)i;
+  std::function<int32_t(int32_t)> find = [&](int32_t x) {
+    while (parent[x] != x) {
+      parent[x] = parent[parent[x]];
+      x = parent[x];
+    }
+    return x;
+  };
+  for (int64_t f = 0; f < nf; ++f) {
+    int32_t a = find(faces[3 * f]), b = find(faces[3 * f + 1]),
+            c = find(faces[3 * f + 2]);
+    parent[b] = a;
+    parent[find(c)] = find(a);
+  }
+  std::vector<int32_t> remap(nv, -1);
+  int32_t n_comp = 0;
+  for (int64_t f = 0; f < nf; ++f) {
+    int32_t r = find(faces[3 * f]);
+    if (remap[r] < 0) remap[r] = n_comp++;
+    labels[f] = remap[r];
+  }
+  return n_comp;
+}
+
+// ---------------------------------------------------------------------------
+// Quadric edge-collapse simplification (Garland–Heckbert).
+// ---------------------------------------------------------------------------
+namespace {
+struct Quadric {
+  double m[10] = {0};  // symmetric 4x4: xx xy xz xw yy yz yw zz zw ww
+  void add_plane(double a, double b, double c, double d, double w) {
+    m[0] += w * a * a;
+    m[1] += w * a * b;
+    m[2] += w * a * c;
+    m[3] += w * a * d;
+    m[4] += w * b * b;
+    m[5] += w * b * c;
+    m[6] += w * b * d;
+    m[7] += w * c * c;
+    m[8] += w * c * d;
+    m[9] += w * d * d;
+  }
+  void add(const Quadric& o) {
+    for (int i = 0; i < 10; ++i) m[i] += o.m[i];
+  }
+  double eval(double x, double y, double z) const {
+    return m[0] * x * x + 2 * m[1] * x * y + 2 * m[2] * x * z + 2 * m[3] * x +
+           m[4] * y * y + 2 * m[5] * y * z + 2 * m[6] * y + m[7] * z * z +
+           2 * m[8] * z + m[9];
+  }
+};
+
+struct HeapEdge {
+  double cost;
+  int32_t a, b;
+  uint32_t ver;
+  bool operator<(const HeapEdge& o) const { return cost > o.cost; }
+};
+}  // namespace
+
+void hy3d_simplify(const float* verts, int64_t nv, const int32_t* faces,
+                   int64_t nf, int64_t target_faces, float* out_verts,
+                   int64_t* out_nv, int32_t* out_faces, int64_t* out_nf) {
+  std::vector<double> V(3 * nv);
+  for (int64_t i = 0; i < 3 * nv; ++i) V[i] = verts[i];
+  std::vector<int32_t> F(faces, faces + 3 * nf);
+  std::vector<Quadric> Q(nv);
+  std::vector<uint32_t> version(nv, 0);
+  std::vector<int32_t> rep(nv);
+  for (int64_t i = 0; i < nv; ++i) rep[i] = (int32_t)i;
+  std::function<int32_t(int32_t)> find = [&](int32_t x) {
+    while (rep[x] != x) {
+      rep[x] = rep[rep[x]];
+      x = rep[x];
+    }
+    return x;
+  };
+
+  std::vector<std::vector<int32_t>> vfaces(nv);
+  auto face_plane = [&](int64_t f, double* abcd) -> bool {
+    const double* p0 = &V[3 * F[3 * f]];
+    const double* p1 = &V[3 * F[3 * f + 1]];
+    const double* p2 = &V[3 * F[3 * f + 2]];
+    double ux = p1[0] - p0[0], uy = p1[1] - p0[1], uz = p1[2] - p0[2];
+    double vx = p2[0] - p0[0], vy = p2[1] - p0[1], vz = p2[2] - p0[2];
+    double nx = uy * vz - uz * vy, ny = uz * vx - ux * vz, nz = ux * vy - uy * vx;
+    double len = std::sqrt(nx * nx + ny * ny + nz * nz);
+    if (len < 1e-20) return false;
+    nx /= len;
+    ny /= len;
+    nz /= len;
+    abcd[0] = nx;
+    abcd[1] = ny;
+    abcd[2] = nz;
+    abcd[3] = -(nx * p0[0] + ny * p0[1] + nz * p0[2]);
+    abcd[4] = len * 0.5;  // area weight
+    return true;
+  };
+
+  for (int64_t f = 0; f < nf; ++f) {
+    double pl[5];
+    if (!face_plane(f, pl)) continue;
+    for (int k = 0; k < 3; ++k) {
+      Q[F[3 * f + k]].add_plane(pl[0], pl[1], pl[2], pl[3], pl[4]);
+      vfaces[F[3 * f + k]].push_back((int32_t)f);
+    }
+  }
+
+  auto edge_cost = [&](int32_t a, int32_t b, double* opt) {
+    Quadric q = Q[a];
+    q.add(Q[b]);
+    // candidate positions: midpoint, a, b (skip the 4x4 solve for robustness)
+    double cand[3][3] = {
+        {(V[3 * a] + V[3 * b]) / 2, (V[3 * a + 1] + V[3 * b + 1]) / 2,
+         (V[3 * a + 2] + V[3 * b + 2]) / 2},
+        {V[3 * a], V[3 * a + 1], V[3 * a + 2]},
+        {V[3 * b], V[3 * b + 1], V[3 * b + 2]}};
+    double best = 1e300;
+    for (auto& c : cand) {
+      double e = q.eval(c[0], c[1], c[2]);
+      if (e < best) {
+        best = e;
+        opt[0] = c[0];
+        opt[1] = c[1];
+        opt[2] = c[2];
+      }
+    }
+    return best;
+  };
+
+  std::priority_queue<HeapEdge> heap;
+  auto push_edges_of = [&](int32_t v) {
+    int32_t rv = find(v);
+    for (int32_t f : vfaces[rv]) {
+      for (int k = 0; k < 3; ++k) {
+        int32_t a = find(F[3 * f + k]), b = find(F[3 * f + (k + 1) % 3]);
+        if (a == b) continue;
+        if (a != rv && b != rv) continue;
+        if (a > b) std::swap(a, b);
+        double opt[3];
+        double c = edge_cost(a, b, opt);
+        heap.push({c, a, b, version[a] + version[b]});
+      }
+    }
+  };
+  // initial heap: each undirected edge exactly once (push_edges_of would
+  // enqueue every edge up to 4× — 2 faces × 2 endpoint scans)
+  {
+    std::vector<int64_t> ekeys;
+    ekeys.reserve(nf * 3);
+    for (int64_t f = 0; f < nf; ++f)
+      for (int k = 0; k < 3; ++k) {
+        int32_t a = F[3 * f + k], b = F[3 * f + (k + 1) % 3];
+        if (a == b) continue;
+        if (a > b) std::swap(a, b);
+        ekeys.push_back(((int64_t)a << 32) | (uint32_t)b);
+      }
+    std::sort(ekeys.begin(), ekeys.end());
+    ekeys.erase(std::unique(ekeys.begin(), ekeys.end()), ekeys.end());
+    for (int64_t key : ekeys) {
+      int32_t a = (int32_t)(key >> 32), b = (int32_t)(key & 0xffffffff);
+      double opt[3];
+      double c = edge_cost(a, b, opt);
+      heap.push({c, a, b, version[a] + version[b]});
+    }
+  }
+
+  auto face_alive = [&](int64_t f) {
+    int32_t a = find(F[3 * f]), b = find(F[3 * f + 1]), c = find(F[3 * f + 2]);
+    return a != b && b != c && a != c;
+  };
+  // exact live-face tracking: a face can only die when one of its vertices
+  // is merged, and every such face is in the merged list of the collapse —
+  // no periodic full recount (the old 512-collapse rescan dominated runtime)
+  std::vector<uint8_t> alive(nf, 0);
+  int64_t live_faces = 0;
+  for (int64_t f = 0; f < nf; ++f) {
+    alive[f] = face_alive(f) ? 1 : 0;
+    live_faces += alive[f];
+  }
+
+  while (live_faces > target_faces && !heap.empty()) {
+    HeapEdge e = heap.top();
+    heap.pop();
+    int32_t a = find(e.a), b = find(e.b);
+    if (a == b) continue;
+    if (a > b) std::swap(a, b);
+    if (version[a] + version[b] != e.ver || a != e.a || b != e.b) continue;
+
+    // collapse b → a at optimal position
+    double opt[3];
+    edge_cost(a, b, opt);
+    V[3 * a] = opt[0];
+    V[3 * a + 1] = opt[1];
+    V[3 * a + 2] = opt[2];
+    Q[a].add(Q[b]);
+    rep[b] = a;
+    version[a]++;
+    version[b]++;
+
+    // merge face lists (dedup), retire newly-degenerate faces exactly
+    auto& la = vfaces[a];
+    auto& lb = vfaces[b];
+    la.insert(la.end(), lb.begin(), lb.end());
+    lb.clear();
+    lb.shrink_to_fit();
+    std::sort(la.begin(), la.end());
+    la.erase(std::unique(la.begin(), la.end()), la.end());
+    std::vector<int32_t> keep;
+    keep.reserve(la.size());
+    for (int32_t f : la) {
+      if (!alive[f]) continue;
+      if (!face_alive(f)) {
+        alive[f] = 0;
+        --live_faces;
+        continue;
+      }
+      keep.push_back(f);
+    }
+    la = std::move(keep);
+    push_edges_of(a);
+  }
+
+  // compact output
+  std::vector<int32_t> vmap(nv, -1);
+  int64_t onv = 0, onf = 0;
+  for (int64_t f = 0; f < nf; ++f) {
+    if (!face_alive(f)) continue;
+    int32_t tri[3];
+    for (int k = 0; k < 3; ++k) {
+      int32_t v = find(F[3 * f + k]);
+      if (vmap[v] < 0) {
+        vmap[v] = (int32_t)onv;
+        out_verts[3 * onv] = (float)V[3 * v];
+        out_verts[3 * onv + 1] = (float)V[3 * v + 1];
+        out_verts[3 * onv + 2] = (float)V[3 * v + 2];
+        ++onv;
+      }
+      tri[k] = vmap[v];
+    }
+    out_faces[3 * onf] = tri[0];
+    out_faces[3 * onf + 1] = tri[1];
+    out_faces[3 * onf + 2] = tri[2];
+    ++onf;
+  }
+  *out_nv = onv;
+  *out_nf = onf;
+}
+
+// ---------------------------------------------------------------------------
+// Exact vertex weld + degenerate/duplicate face removal in one hashing pass
+// (the numpy twin — np.unique(axis=0) twice — lexsorts 500k-row arrays and
+// dominated DegenerateFaceRemover). Open-addressing tables, no sort.
+// ---------------------------------------------------------------------------
+namespace {
+struct OpenSet96 {
+  // open-addressing set/map keyed by 3×uint32; value = insertion index
+  std::vector<uint32_t> ka, kb, kc;
+  std::vector<int32_t> val;
+  size_t mask;
+  explicit OpenSet96(size_t expect) {
+    size_t cap = 16;
+    while (cap < expect * 2) cap <<= 1;
+    ka.assign(cap, 0xffffffffu);
+    kb.assign(cap, 0);
+    kc.assign(cap, 0);
+    val.assign(cap, -1);
+    mask = cap - 1;
+  }
+  static inline uint64_t mix(uint32_t a, uint32_t b, uint32_t c) {
+    uint64_t h = (uint64_t)a * 0x9e3779b97f4a7c15ull;
+    h ^= (uint64_t)b * 0xc2b2ae3d27d4eb4full;
+    h ^= (uint64_t)c * 0x165667b19e3779f9ull;
+    h ^= h >> 29;
+    return h;
+  }
+  // returns existing value, or inserts fresh and returns it
+  inline int32_t get_or_insert(uint32_t a, uint32_t b, uint32_t c,
+                               int32_t fresh, bool* inserted) {
+    size_t i = mix(a, b, c) & mask;
+    for (;;) {
+      if (val[i] < 0) {
+        ka[i] = a;
+        kb[i] = b;
+        kc[i] = c;
+        val[i] = fresh;
+        *inserted = true;
+        return fresh;
+      }
+      if (ka[i] == a && kb[i] == b && kc[i] == c) {
+        *inserted = false;
+        return val[i];
+      }
+      i = (i + 1) & mask;
+    }
+  }
+};
+}  // namespace
+
+void hy3d_weld_dedup(const float* verts, int64_t nv, const int32_t* faces,
+                     int64_t nf, float* out_verts, int64_t* out_nv,
+                     int32_t* out_faces, int64_t* out_nf) {
+  // weld by VALUE, not raw bit pattern: -0.0 must hash like +0.0 (meshes
+  // straddling a coordinate axis produce both), matching the numpy
+  // np.unique(axis=0) twin where -0.0 == 0.0 compare equal
+  auto normbits = [](float v) -> uint32_t {
+    v += 0.0f;  // -0.0f + 0.0f == +0.0f; other values unchanged
+    uint32_t b;
+    std::memcpy(&b, &v, sizeof(b));
+    return b;
+  };
+  OpenSet96 weld((size_t)nv);
+  std::vector<int32_t> remap(nv);
+  int64_t onv = 0;
+  for (int64_t i = 0; i < nv; ++i) {
+    bool fresh;
+    int32_t id = weld.get_or_insert(normbits(verts[3 * i]),
+                                    normbits(verts[3 * i + 1]),
+                                    normbits(verts[3 * i + 2]),
+                                    (int32_t)onv, &fresh);
+    if (fresh) {
+      out_verts[3 * onv] = verts[3 * i];
+      out_verts[3 * onv + 1] = verts[3 * i + 1];
+      out_verts[3 * onv + 2] = verts[3 * i + 2];
+      ++onv;
+    }
+    remap[i] = id;
+  }
+  OpenSet96 fset((size_t)nf);
+  int64_t onf = 0;
+  for (int64_t f = 0; f < nf; ++f) {
+    int32_t a = remap[faces[3 * f]], b = remap[faces[3 * f + 1]],
+            c = remap[faces[3 * f + 2]];
+    if (a == b || b == c || a == c) continue;
+    // zero-area test (float, matches the numpy twin's 1e-12 threshold)
+    const float *p0 = out_verts + 3 * a, *p1 = out_verts + 3 * b,
+                *p2 = out_verts + 3 * c;
+    float ux = p1[0] - p0[0], uy = p1[1] - p0[1], uz = p1[2] - p0[2];
+    float vx = p2[0] - p0[0], vy = p2[1] - p0[1], vz = p2[2] - p0[2];
+    float nx = uy * vz - uz * vy, ny = uz * vx - ux * vz,
+          nz = ux * vy - uy * vx;
+    if (std::sqrt((double)nx * nx + (double)ny * ny + (double)nz * nz) <=
+        1e-12)
+      continue;
+    // duplicate test on the sorted vertex set
+    int32_t s0 = a, s1 = b, s2 = c;
+    if (s0 > s1) std::swap(s0, s1);
+    if (s1 > s2) std::swap(s1, s2);
+    if (s0 > s1) std::swap(s0, s1);
+    bool fresh;
+    fset.get_or_insert((uint32_t)s0, (uint32_t)s1, (uint32_t)s2, (int32_t)onf,
+                       &fresh);
+    if (!fresh) continue;
+    out_faces[3 * onf] = a;
+    out_faces[3 * onf + 1] = b;
+    out_faces[3 * onf + 2] = c;
+    ++onf;
+  }
+  *out_nv = onv;
+  *out_nf = onf;
+}
+
+// ---------------------------------------------------------------------------
+// Uniform vertex-cluster decimation: snap vertices to a `cell`-sized grid,
+// average each cluster, drop collapsed faces. O(N) pre-pass that removes the
+// bulk of a dense surface-nets mesh before the exact quadric collapse
+// (490k→40k spent most of its time on trivial early collapses).
+// ---------------------------------------------------------------------------
+void hy3d_cluster_decimate(const float* verts, int64_t nv,
+                           const int32_t* faces, int64_t nf, double cell,
+                           float* out_verts, int64_t* out_nv,
+                           int32_t* out_faces, int64_t* out_nf) {
+  double ox = 1e300, oy = 1e300, oz = 1e300;
+  for (int64_t i = 0; i < nv; ++i) {
+    ox = std::min(ox, (double)verts[3 * i]);
+    oy = std::min(oy, (double)verts[3 * i + 1]);
+    oz = std::min(oz, (double)verts[3 * i + 2]);
+  }
+  const double inv = 1.0 / cell;
+  OpenSet96 cells((size_t)nv);
+  std::vector<int32_t> remap(nv);
+  std::vector<double> sum;  // [ncell*3] position accumulators
+  std::vector<int32_t> cnt;
+  sum.reserve(nv / 4 * 3);
+  cnt.reserve(nv / 4);
+  int64_t onc = 0;
+  for (int64_t i = 0; i < nv; ++i) {
+    uint32_t gx = (uint32_t)((verts[3 * i] - ox) * inv);
+    uint32_t gy = (uint32_t)((verts[3 * i + 1] - oy) * inv);
+    uint32_t gz = (uint32_t)((verts[3 * i + 2] - oz) * inv);
+    bool fresh;
+    int32_t id = cells.get_or_insert(gx, gy, gz, (int32_t)onc, &fresh);
+    if (fresh) {
+      sum.resize(3 * (onc + 1), 0.0);
+      cnt.resize(onc + 1, 0);
+      ++onc;
+    }
+    sum[3 * id] += verts[3 * i];
+    sum[3 * id + 1] += verts[3 * i + 1];
+    sum[3 * id + 2] += verts[3 * i + 2];
+    cnt[id]++;
+    remap[i] = id;
+  }
+  for (int64_t c = 0; c < onc; ++c) {
+    out_verts[3 * c] = (float)(sum[3 * c] / cnt[c]);
+    out_verts[3 * c + 1] = (float)(sum[3 * c + 1] / cnt[c]);
+    out_verts[3 * c + 2] = (float)(sum[3 * c + 2] / cnt[c]);
+  }
+  OpenSet96 fset((size_t)nf);
+  int64_t onf = 0;
+  for (int64_t f = 0; f < nf; ++f) {
+    int32_t a = remap[faces[3 * f]], b = remap[faces[3 * f + 1]],
+            c = remap[faces[3 * f + 2]];
+    if (a == b || b == c || a == c) continue;
+    int32_t s0 = a, s1 = b, s2 = c;
+    if (s0 > s1) std::swap(s0, s1);
+    if (s1 > s2) std::swap(s1, s2);
+    if (s0 > s1) std::swap(s0, s1);
+    bool fresh;
+    fset.get_or_insert((uint32_t)s0, (uint32_t)s1, (uint32_t)s2, (int32_t)onf,
+                       &fresh);
+    if (!fresh) continue;
+    out_faces[3 * onf] = a;
+    out_faces[3 * onf + 1] = b;
+    out_faces[3 * onf + 2] = c;
+    ++onf;
+  }
+  *out_nv = onc;
+  *out_nf = onf;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,6 +1,4 @@
-"""Multiview diffusion wrapper (port of hunyuan3d2_tpu/pipelines/multiview.py,
-the ``init_random`` form: the checkpoint loader waits for the paint
-weights).
+"""Multiview diffusion wrapper (port of hunyuan3d2_tpu/pipelines/multiview.py).
 
 Resizes the inputs to the view size, packs the normal + position control
 maps and the camera indices into the paint pipeline's call, and seeds the
@@ -20,6 +18,20 @@ class Multiview_Diffusion_Net:
         self.pipeline = pipeline
         self.view_size = view_size
         self.num_inference_steps = num_inference_steps
+
+    @classmethod
+    def from_pretrained(cls, config, device=None):
+        """The paint stack of ``config.multiview_ckpt_path`` /
+        ``config.subfolder_name`` at 512² views; turbo when the config's
+        ``pipe_name`` says so."""
+        from hunyuan3d2_tpu_torch.io import checkpoints
+
+        pipeline = checkpoints.load_paint_pipeline(config.multiview_ckpt_path,
+                                                   config.subfolder_name, view_size=512,
+                                                   device=device)
+        if config.pipe_name == "hunyuanpaint-turbo":
+            pipeline.set_turbo(True)
+        return cls(pipeline)
 
     @classmethod
     def init_random(cls, size: str = "tiny", view_size: int = 64, num_inference_steps: int = 30,

@@ -64,6 +64,26 @@ class Hunyuan3DDiTPipeline:
         return self.model.cfg
 
     @classmethod
+    def from_pretrained(cls, model_path: str, subfolder: str = "hunyuan3d-dit-v2-0",
+                        variant: str = "fp16", device=None, **kwargs):
+        """The pipeline of the checkpoint ``{model_path}/{subfolder}`` (a local
+        directory, or one under ``$HY3DGEN_MODELS``): config.yaml and
+        ``model.{variant}.safetensors`` (or ``.ckpt``), loaded onto
+        ``device`` (``cuda`` unless the caller passes another)."""
+        from hunyuan3d2_tpu_torch.io import checkpoints
+
+        return checkpoints.load_pipeline(cls, model_path, subfolder, variant, device=device,
+                                         **kwargs)
+
+    @classmethod
+    def from_single_file(cls, ckpt_path: str, config_path: str, device=None, **kwargs):
+        """The pipeline of one multi-model checkpoint file and its config.yaml."""
+        from hunyuan3d2_tpu_torch.io import checkpoints
+
+        return checkpoints.load_pipeline_single_file(cls, ckpt_path, config_path,
+                                                     device=device, **kwargs)
+
+    @classmethod
     def init_random(cls, size: str = "mini", guidance_embed: bool = False, dino: str = "tiny",
                     device=None, seed: int = 0):
         """Random-weight pipeline at the named sizes, built on ``device``
@@ -99,6 +119,30 @@ class Hunyuan3DDiTPipeline:
         self.vae.enable_flashvdm_decoder(enabled=enabled, topk_mode=topk_mode, mc_algo=mc_algo)
         return self
 
+    def _modules(self):
+        return (self.model, self.vae, self.conditioner)
+
+    def offload_to_host(self):
+        """Move every weight of the DiT, the ShapeVAE and the conditioner to
+        host memory, freeing the device's, e.g. to make room for the paint
+        stack."""
+        for m in self._modules():
+            m.to("cpu")
+        self.vae._geo_operands = None  # the geo decoder's device copies of its weights
+        return self
+
+    def restore_to_device(self):
+        """Move the weights back to the pipeline's device."""
+        for m in self._modules():
+            m.to(self.device)
+        return self
+
+    def enable_model_cpu_offload(self, *args, **kwargs):
+        """Keep the weights in host memory between calls: each call moves
+        them to the device first and back to the host after."""
+        self._auto_offload = True
+        return self
+
     def prepare_image(self, image) -> dict:
         return self.image_processor(image)
 
@@ -112,6 +156,7 @@ class Hunyuan3DDiTPipeline:
             num_views = len(view_idxs[0]) if view_idxs is not None else 1
             uncond = self.conditioner.unconditional(streams["main"].shape[0], num_views)
             streams = {k: torch.cat([v, uncond[k].to(v.dtype)]) for k, v in streams.items()}
+        self.last_cond_streams = streams  # the DiT reads "main"; a Dual encoder adds more
         return streams["main"]
 
     def prepare_latents(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
@@ -164,6 +209,9 @@ class Hunyuan3DDiTFlowMatchingPipeline(Hunyuan3DDiTPipeline):
         and extra keywords are accepted for the reference's signature."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
+        auto_offload = getattr(self, "_auto_offload", False)
+        if auto_offload:
+            self.restore_to_device()
         do_cfg = guidance_scale >= 0 and not self.model_cfg.guidance_embed
 
         with timed_scope("Preprocess"):
@@ -176,5 +224,8 @@ class Hunyuan3DDiTFlowMatchingPipeline(Hunyuan3DDiTPipeline):
         latents = self.prepare_latents(img.shape[0] if view_idxs is None else 1, generator)
         with timed_scope("Diffusion Sampling"):
             latents = self.sample(latents, cond, sigma_ladder, guidance_scale, do_cfg)
-        return self._export(latents, output_type, box_v, mc_level, num_chunks, octree_resolution,
-                            mc_algo, enable_pbar)
+        out = self._export(latents, output_type, box_v, mc_level, num_chunks, octree_resolution,
+                           mc_algo, enable_pbar)
+        if auto_offload:
+            self.offload_to_host()
+        return out

@@ -29,13 +29,25 @@ from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 
 class Hunyuan3DTexGenConfig:
-    def __init__(self):
+    """``subfolder_name`` picks the sampler: the turbo (LCM) loop for
+    ``hunyuan3d-paint-v2-0-turbo``, the standard one (not ported yet)
+    otherwise. ``light_remover_ckpt_path`` is accepted for the reference's
+    signature; the delight stage is not on this path."""
+
+    def __init__(self, light_remover_ckpt_path=None, multiview_ckpt_path=None,
+                 subfolder_name: str = "hunyuan3d-paint-v2-0-turbo"):
+        self.light_remover_ckpt_path = light_remover_ckpt_path
+        self.multiview_ckpt_path = multiview_ckpt_path
+        self.subfolder_name = subfolder_name
         self.candidate_camera_azims = [0, 90, 180, 270, 0, 180]
         self.candidate_camera_elevs = [0, 0, 0, 0, 90, -90]
         self.candidate_view_weights = [1, 0.1, 0.5, 0.1, 0.05, 0.05]
         self.render_size = 2048
         self.texture_size = 2048
         self.bake_exp = 4
+        self.pipe_dict = {"hunyuan3d-paint-v2-0": "hunyuanpaint",
+                          "hunyuan3d-paint-v2-0-turbo": "hunyuanpaint-turbo"}
+        self.pipe_name = self.pipe_dict.get(subfolder_name, "hunyuanpaint")
 
 
 def camera_info_index(azim: int, elev: int) -> int:
@@ -55,6 +67,18 @@ class Hunyuan3DPaintPipeline:
         self.device = torch.device(device if device is not None else "cuda")
         self.render = MeshRender(default_resolution=self.config.render_size,
                                  texture_size=self.config.texture_size)
+
+    @classmethod
+    def from_pretrained(cls, model_path: str, subfolder: str = "hunyuan3d-paint-v2-0-turbo",
+                        device=None, **kwargs):
+        """The paint stack of the diffusers-layout directory
+        ``{model_path}/{subfolder}`` (``unet/`` and ``vae/``; local, or under
+        ``$HY3DGEN_MODELS``) on ``device`` (``cuda`` unless the caller passes
+        another); the turbo sampler when ``subfolder`` is the turbo model's.
+        Other keywords are accepted for the reference's signature."""
+        config = Hunyuan3DTexGenConfig(multiview_ckpt_path=model_path, subfolder_name=subfolder)
+        return cls({"multiview_model": Multiview_Diffusion_Net.from_pretrained(config, device)},
+                   config, device)
 
     @classmethod
     def init_random(cls, size: str = "tiny", view_size: int = 64, render_size: int = 256,

@@ -129,3 +129,10 @@ def dino_transform(image_m11: np.ndarray, image_size: int = 518,
         x0 = (nw - image_size) // 2
         out[i] = arr[y0:y0 + image_size, x0:x0 + image_size]
     return (out - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+
+
+def clip_transform(image_m11: np.ndarray, image_size: int = 224) -> np.ndarray:
+    """:func:`dino_transform` with CLIP's normalisation: the CLIP tower's
+    transform in the Dual conditioner."""
+    return dino_transform(image_m11, image_size, mean=(0.48145466, 0.4578275, 0.40821073),
+                          std=(0.26862954, 0.26130258, 0.27577711))

@@ -6,6 +6,7 @@ PyTorch too, so a scope drains the CUDA queue with
 has initialised CUDA (the JAX package used ``jax.effects_barrier``).
 """
 
+import functools
 import os
 import time
 
@@ -25,9 +26,9 @@ def _device_sync():
 
 
 class timed_scope:
-    """``with timed_scope('stage'):`` records the elapsed wall clock (device
-    queue drained at both ends) into ``LAST_TIMINGS[tag]``, and logs it when
-    HY3DGEN_DEBUG=1."""
+    """``with timed_scope('stage'):`` or ``@timed_scope('stage')`` records the
+    elapsed wall clock (device queue drained at both ends) into
+    ``LAST_TIMINGS[tag]``, and logs it when HY3DGEN_DEBUG=1."""
 
     def __init__(self, tag: str):
         self.tag = tag
@@ -45,3 +46,11 @@ class timed_scope:
         if os.environ.get("HY3DGEN_DEBUG", "0") == "1":
             logger.info("%s takes %.4f s", self.tag, self.elapsed)
         return False
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with timed_scope(self.tag):
+                return fn(*args, **kwargs)
+
+        return wrapper

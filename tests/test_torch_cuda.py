@@ -533,3 +533,99 @@ def test_geo_stream_decode_matches_plain(gen):
     # the plain decode keeps the residual in bf16 where the stream keeps fp32
     assert np.corrcoef(out.ravel(), ref.ravel())[0, 1] > 0.9999
     assert np.abs(out - ref).max() < 0.05 * max(1.0, np.abs(ref).max())
+
+
+# ---------------------------------------------------------------------------
+# the served path: the CLIP tower's attention shape, loading onto the card
+# ---------------------------------------------------------------------------
+def test_flash_attention_clip_shape(gen):
+    """ViT-L/14 at 224: 257 tokens, 16 heads of 64."""
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = (torch.randn(1, 16, 257, 64, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_clip_tower_on_the_card_matches_the_cpu(gen):
+    from hunyuan3d2_tpu_torch.models import clip_vit
+    from hunyuan3d2_tpu_torch.models.conditioner import CLIPImageEncoder
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+    from hunyuan3d2_tpu_torch.ops.nn import build
+
+    cfg = clip_vit.CLIPVisionConfig(hidden_size=128, num_layers=2, num_heads=2, patch_size=14,
+                                    image_size=224, intermediate_size=256)
+    cpu = build(CLIPImageEncoder, cfg, device="cpu")
+    card = build(CLIPImageEncoder, cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    img = np.random.RandomState(0).uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)
+    before = flash_attention.launches
+    out = card.encode(card.preprocess(img))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers
+    ref = cpu.encode(cpu.preprocess(img))
+    assert out.shape == ref.shape == (2, 257, 128)
+    err = (out.float().cpu() - ref.float()).abs().max().item()
+    assert err <= 0.03 * ref.float().abs().max().item(), err
+
+
+def test_from_pretrained_loads_straight_to_the_card(tmp_path):
+    """Checkpoints written from CPU modules (fp16 shape stack, bf16/fp32 paint
+    stack) load onto the card equal to the source cast to each parameter's
+    dtype; the paint directory is the turbo model's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import dataclasses
+    import json
+    import os
+
+    from hunyuan3d2_tpu_torch import Hunyuan3DDiTFlowMatchingPipeline, Hunyuan3DPaintPipeline
+    from hunyuan3d2_tpu_torch.io.formats import dump_yaml, save_safetensors
+    from hunyuan3d2_tpu_torch.models import paint_unet, sd_vae
+    from hunyuan3d2_tpu_torch.ops.nn import build
+
+    src = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="tiny", dino="tiny", device="cpu")
+    sd = {f"{top}.{k}": v.half() for top, m in (("model", src.model), ("vae", src.vae),
+                                                  ("conditioner", src.conditioner))
+          for k, v in m.state_dict().items()}
+    os.makedirs(tmp_path / "tiny")
+    save_safetensors(sd, str(tmp_path / "tiny" / "model.fp16.safetensors"))
+    c, vc, d = src.model_cfg, src.vae.cfg, src.conditioner.main.cfg.dino
+    config = {"model": {"params": {k: getattr(c, k) for k in (
+        "in_channels", "context_in_dim", "hidden_size", "num_heads", "depth",
+        "depth_single_blocks")}},
+        "vae": {"params": {k: getattr(vc, k) for k in (
+            "num_latents", "embed_dim", "width", "heads", "num_decoder_layers")}},
+        "conditioner": {"params": {"main_image_encoder": {"kwargs": {
+            "config": {"hidden_size": d.hidden_size, "num_hidden_layers": d.num_layers,
+                       "num_attention_heads": d.num_heads}, "image_size": d.image_size}}}}}
+    (tmp_path / "tiny" / "config.yaml").write_text(dump_yaml(config))
+    pipe = Hunyuan3DDiTFlowMatchingPipeline.from_pretrained(str(tmp_path), subfolder="tiny",
+                                                            device="cuda")
+    for top, m in (("model", pipe.model), ("vae", pipe.vae), ("conditioner", pipe.conditioner)):
+        for k, t in m.state_dict().items():
+            assert t.is_cuda and torch.equal(t.cpu(), sd[f"{top}.{k}"].to(t.dtype)), k
+
+    ucfg = dataclasses.replace(paint_unet.TINY, block_out_channels=(64, 128),
+                               attention_head_dim=64)
+    weights = {"unet": build(paint_unet.UNet2p5D, ucfg, device="cpu").state_dict(),
+               "vae": build(sd_vae.AutoencoderKL, sd_vae.TINY, device="cpu").state_dict()}
+    configs = {"unet": {"block_out_channels": [64, 128], "layers_per_block": 1,
+                        "cross_attention_dim": 32, "norm_num_groups": 8},
+               "vae": {"block_out_channels": [32, 32], "layers_per_block": 1}}
+    root = tmp_path / "hunyuan3d-paint-v2-0-turbo"
+    for part, w in weights.items():
+        os.makedirs(root / part)
+        (root / part / "config.json").write_text(json.dumps(configs[part]))
+        save_safetensors(w, str(root / part / "diffusion_pytorch_model.safetensors"))
+    loaded = Hunyuan3DPaintPipeline.from_pretrained(str(tmp_path), device="cuda")
+    got = loaded.models["multiview_model"].pipeline
+    assert got.is_turbo
+    for part, module in (("unet", got.unet), ("vae", got.vae)):
+        for k, t in module.state_dict().items():
+            assert t.is_cuda and torch.equal(t.cpu(), weights[part][k]), k
