@@ -1062,7 +1062,7 @@ def _round_to_fp16(modules):
             for k, t in module.state_dict().items():
                 h = t.half()
                 t.copy_(h)
-                sd[f"{top}.{k}" if top else k] = h.cpu()
+                sd[f"{top}.{k}" if top else k] = h.cpu().contiguous()
     return sd
 
 
@@ -1083,7 +1083,12 @@ def _write_checkpoints(root, shape, paint):
     model.fp16.safetensors, the paint stack's unet/ and vae/ with their
     config.json and diffusion_pytorch_model.safetensors. Returns bytes
     written per stack."""
-    from hunyuan3d2_tpu_torch.io.formats import dump_yaml, save_safetensors
+    import safetensors.torch
+    import yaml
+
+    def save(tensors, path):
+        safetensors.torch.save_file(tensors, path)
+        return os.path.getsize(path)
 
     sub = os.path.join(root, "hunyuan3d-dit-v2-mini")
     os.makedirs(sub)
@@ -1114,8 +1119,8 @@ def _write_checkpoints(root, shape, paint):
                             "params": {"size": 512, "border_ratio": 0.15}},
     }
     with open(os.path.join(sub, "config.yaml"), "w") as fh:
-        fh.write(dump_yaml(config) + "\n")
-    sizes = {"shape": save_safetensors(
+        yaml.safe_dump(config, fh)
+    sizes = {"shape": save(
         _round_to_fp16({"model": shape.model, "vae": shape.vae,
                         "conditioner": shape.conditioner}),
         os.path.join(sub, "model.fp16.safetensors"))}
@@ -1136,8 +1141,8 @@ def _write_checkpoints(root, shape, paint):
         os.makedirs(d)
         with open(os.path.join(d, "config.json"), "w") as fh:
             json.dump(cfg, fh)
-        sizes["paint"] += save_safetensors(_round_to_fp16({"": module}),
-                                           os.path.join(d, "diffusion_pytorch_model.safetensors"))
+        sizes["paint"] += save(_round_to_fp16({"": module}),
+                               os.path.join(d, "diffusion_pytorch_model.safetensors"))
     return sizes
 
 

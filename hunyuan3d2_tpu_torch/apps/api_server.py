@@ -146,7 +146,6 @@ def make_handler(worker: ModelWorker):
     status = {}   # uid → {"status": ..., "path" | "message": ...}
 
     def run_job(uid: str, params: dict):
-        status[uid] = {"status": "processing"}
         try:
             status[uid] = {"status": "completed", "path": worker.generate(uid, params)}
         except Exception as e:  # noqa: BLE001 — a failed job is reported, the server goes on
@@ -208,6 +207,8 @@ def make_handler(worker: ModelWorker):
                     logger.exception("generate failed")
                     return self._json(500, {"error": str(e)})
             if self.path == "/send":
+                # Entered before the answer, so a /status poll never misses the job.
+                status[uid] = {"status": "processing"}
                 threading.Thread(target=run_job, args=(uid, params), daemon=True).start()
                 return self._json(200, {"uid": uid})
             return self._json(404, {"error": "unknown route"})

@@ -54,6 +54,8 @@ class GradioWorker:
                 args.model_path, subfolder=args.subfolder, device=device)
         if args.enable_flashvdm:
             self.shape_pipe.enable_flashvdm(True, mc_algo=args.mc_algo)
+        if args.low_vram_mode:  # the shape stack's weights wait on the host between calls
+            self.shape_pipe.enable_model_cpu_offload()
         self.tex_pipe = None
         if not args.disable_tex:
             if args.random_weights:  # the turbo loop is the one the port has
@@ -226,10 +228,9 @@ def main(argv=None):
     ap.add_argument("--enable_t23d", action="store_true")
     ap.add_argument("--disable_tex", action="store_true")
     ap.add_argument("--enable_flashvdm", action="store_true")
-    ap.add_argument("--compile", action="store_true", help="accepted; nothing to compile")
     ap.add_argument("--mc_algo", default="mc")
-    ap.add_argument("--low_vram_mode", action="store_true")
-    ap.add_argument("--cache-path", default=tempfile.gettempdir())
+    ap.add_argument("--low_vram_mode", action="store_true",
+                    help="keep the shape stack's weights on the host between calls")
     ap.add_argument("--random-weights", dest="random_weights", action="store_true")
     args = ap.parse_args(argv)
     try:

@@ -3,7 +3,10 @@ classes (copy of hunyuan3d2_tpu/config.py).
 
 Every Hunyuan3D-2 checkpoint's config.yaml names its classes by the
 reference's module paths (``hy3dgen.shapegen...``); REGISTRY maps those
-names onto the port's classes, so an unchanged config resolves here.
+names onto the port's classes, so an unchanged config resolves here. A
+``hy3dgen.`` path that REGISTRY does not list (the reference exports each
+class from more than one module) resolves by its class name. The checkpoint
+loader (``io/checkpoints.py``) finds every tower's class here.
 """
 
 from __future__ import annotations
@@ -34,8 +37,17 @@ REGISTRY = {
 }
 
 
+_BY_NAME = {path.rsplit(".", 1)[1]: path for path in REGISTRY.values()}
+
+
 def get_obj_from_str(string: str, reload: bool = False):
-    string = REGISTRY.get(string, string)
+    if string in REGISTRY:
+        string = REGISTRY[string]
+    elif string.startswith("hy3dgen."):
+        name = string.rsplit(".", 1)[-1]
+        if name not in _BY_NAME:
+            raise KeyError(f"{string}: the port has no class of that name")
+        string = _BY_NAME[name]
     module, cls = string.rsplit(".", 1)
     mod = importlib.import_module(module)
     if reload:

@@ -12,8 +12,6 @@ stage's wall time lands in ``LAST_TIMINGS`` under its class name.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
 from hunyuan3d2_tpu_torch import native
@@ -70,9 +68,8 @@ class FaceReducer:
         v, f = mesh.vertices, mesh.faces
         # Above 8× the budget an O(N) vertex-cluster pass first takes the mesh
         # to about 2× the budget, so the quadric stage spends no time on the
-        # trivial early collapses; HY3D_EXACT_SIMPLIFY=1 keeps it quadric
-        # end to end.
-        if len(f) > 8 * max_facenum and os.environ.get("HY3D_EXACT_SIMPLIFY", "0") != "1":
+        # trivial early collapses.
+        if len(f) > 8 * max_facenum:
             target_pre = 2 * max_facenum
             e1 = v[f[:, 1]] - v[f[:, 0]]
             e2 = v[f[:, 2]] - v[f[:, 0]]

@@ -1,17 +1,19 @@
 """Checkpoint loading: the unchanged Hunyuan3D-2 checkpoint files → the
 port's modules on a device (port of hunyuan3d2_tpu/io/checkpoints.py).
 
-* Readers: ``model.{variant}.safetensors`` (the port's own reader,
-  io/formats.py) and torch ``.ckpt`` files in their three layouts (nested
+* Readers: ``model.{variant}.safetensors`` and torch ``.ckpt`` files in
+  their three layouts (nested
   ``{model: sd, vae: sd, conditioner: sd}``, flat multi-model ``model.`` /
   ``vae.`` / ``conditioner.`` keys, a standalone submodel), each with the
   DeepSpeed ``_forward_module.`` wrapper stripped.
 * ``smart_load_model``: ``{model_path}/{subfolder}``, then
   ``$HY3DGEN_MODELS/{model_path}/{subfolder}`` (default ``~/.cache/hy3dgen``),
   ``model.{variant}.safetensors`` before ``.ckpt``, then the hub.
-* ``load_pipeline_single_file``: config.yaml's ``params`` (the same
-  defaults as the JAX loader) → the DiT, ShapeVAE and conditioner (single,
-  multiview or Dual DINOv2 + CLIP) configs; the scheduler by its target name.
+* ``load_pipeline_single_file``: each tower's class from its config.yaml
+  ``target`` (through the registry in ``config.py``) and its config from
+  ``params`` (the same defaults as the JAX loader): the DiT, the ShapeVAE,
+  the conditioner (single, multiview or Dual DINOv2 + CLIP) and the
+  scheduler.
 * ``load_paint_pipeline``: the diffusers layout ``unet/`` and ``vae/``, each
   a ``config.json`` beside ``diffusion_pytorch_model.{bin,safetensors}``.
 
@@ -29,10 +31,10 @@ import json
 import os
 from typing import Dict, Tuple
 
+import safetensors.torch
 import torch
+import yaml
 from torch import nn
-
-from hunyuan3d2_tpu_torch.io.formats import load_safetensors, load_yaml
 
 # Per tower, the key prefixes of a published checkpoint that no module reads:
 # the ShapeVAE's encoder half (the pipelines only decode), DINOv2's mask
@@ -76,7 +78,7 @@ def load_torch_ckpt(path: str) -> Dict[str, torch.Tensor]:
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if path.endswith(".safetensors"):
-        return load_safetensors(path)
+        return safetensors.torch.load_file(path)
     return load_torch_ckpt(path)
 
 
@@ -177,6 +179,15 @@ def _params(config: dict, section: str) -> dict:
     return (config.get(section, {}) or {}).get("params", {}) or {}
 
 
+def _target_cls(config: dict, section: str, default):
+    """The class that ``config[section]["target"]`` names, or ``default``
+    when the section names none."""
+    from hunyuan3d2_tpu_torch.config import get_obj_from_str
+
+    target = (config.get(section) or {}).get("target")
+    return default if target is None else get_obj_from_str(str(target))
+
+
 def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None, **kwargs):
     """A shape pipeline from one multi-model checkpoint and its config.yaml,
     on ``device`` (``cuda`` unless the caller passes another)."""
@@ -187,7 +198,8 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
     from hunyuan3d2_tpu_torch.pipelines import schedulers as sched_lib
 
     device = torch.device(device if device is not None else "cuda")
-    config = load_yaml(config_path)
+    with open(config_path) as fh:
+        config = yaml.safe_load(fh)
     towers = split_by_top_key(load_state_dict(ckpt_path))
     extra = sorted(set(towers) - set(IGNORED))
     if extra:
@@ -200,8 +212,8 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
         num_heads=mp.get("num_heads", 16), depth=mp.get("depth", 16),
         depth_single_blocks=mp.get("depth_single_blocks", 32),
         qkv_bias=mp.get("qkv_bias", True), guidance_embed=mp.get("guidance_embed", False))
-    model = load_weights(on_meta(dit_lib.Hunyuan3DDiT, dit_cfg), towers.get("model", {}),
-                         device, IGNORED["model"], "model")
+    model = load_weights(on_meta(_target_cls(config, "model", dit_lib.Hunyuan3DDiT), dit_cfg),
+                         towers.get("model", {}), device, IGNORED["model"], "model")
 
     vp = _params(config, "vae")
     vae_cfg = vae_lib.ShapeVAEConfig(
@@ -211,8 +223,8 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
         include_pi=vp.get("include_pi", False),
         scale_factor=vp.get("scale_factor", 1.0188137142395404),
         qkv_bias=vp.get("qkv_bias", False))
-    vae = load_weights(on_meta(vae_lib.ShapeVAE, vae_cfg), towers.get("vae", {}), device,
-                       IGNORED["vae"], "vae")
+    vae = load_weights(on_meta(_target_cls(config, "vae", vae_lib.ShapeVAE), vae_cfg),
+                       towers.get("vae", {}), device, IGNORED["vae"], "vae")
 
     cp = _params(config, "conditioner")
     cond_sd = towers.get("conditioner", {})
@@ -234,7 +246,8 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
           or "mv" in str(config.get("name") or ""))
     main_cls = cond_lib.DinoImageEncoderMV if mv else cond_lib.DinoImageEncoder
     add_spec = cp.get("additional_image_encoder") or {}
-    if "DualImageEncoder" in target or add_spec:
+    cond_cls = _target_cls(config, "conditioner", cond_lib.SingleImageEncoder)
+    if cond_cls is cond_lib.DualImageEncoder or add_spec:
         ak = add_spec.get("kwargs") or {}
         ac = ak.get("config") or {}
         ccfg = clip_vit.CLIPVisionConfig(
@@ -249,9 +262,7 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
     conditioner = load_weights(conditioner, cond_sd, device, IGNORED["conditioner"],
                                "conditioner")
 
-    name = str((config.get("scheduler") or {}).get(
-        "target", "FlowMatchEulerDiscreteScheduler")).rsplit(".", 1)[-1]
-    sched_cls = sched_lib.SCHEDULERS.get(name, sched_lib.FlowMatchEulerDiscreteScheduler)
+    sched_cls = _target_cls(config, "scheduler", sched_lib.FlowMatchEulerDiscreteScheduler)
     scheduler = sched_cls(**{k: v for k, v in _params(config, "scheduler").items()
                              if k in sched_cls.__dataclass_fields__})
     return cls(vae=vae, model=model, scheduler=scheduler, conditioner=conditioner,

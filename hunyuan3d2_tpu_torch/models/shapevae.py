@@ -240,6 +240,12 @@ class ShapeVAE(nn.Module):
     def device(self) -> torch.device:
         return self.post_kl.weight.device
 
+    def drop_device_caches(self):
+        """Forget the geo decoder's kernel operands (device copies of its
+        weights, see ``ops/geo_decoder.py``); the next decode builds them."""
+        self._geo_operands = None
+        return self
+
     # -- the pure pieces ----------------------------------------------------
     def forward(self, latents: torch.Tensor) -> torch.Tensor:
         return self.decode_latents(latents)

@@ -92,8 +92,3 @@ class ConsistencyFlowMatchEulerDiscreteScheduler:
         """Predicted x1 (reference :468 pred_original_sample)."""
         return sample + (1.0 - sigma) * velocity
 
-
-SCHEDULERS = {
-    "FlowMatchEulerDiscreteScheduler": FlowMatchEulerDiscreteScheduler,
-    "ConsistencyFlowMatchEulerDiscreteScheduler": ConsistencyFlowMatchEulerDiscreteScheduler,
-}

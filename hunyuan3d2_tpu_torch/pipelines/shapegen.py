@@ -128,7 +128,7 @@ class Hunyuan3DDiTPipeline:
         stack."""
         for m in self._modules():
             m.to("cpu")
-        self.vae._geo_operands = None  # the geo decoder's device copies of its weights
+        self.vae.drop_device_caches()
         return self
 
     def restore_to_device(self):

@@ -134,6 +134,56 @@ def test_send_then_status(server, tmp_path):
     assert code == 404
 
 
+@pytest.mark.parametrize("fails", [False, True])
+def test_status_right_after_send_finds_the_job(monkeypatch, tmp_path, fails):
+    """/send enters the job before it answers: a /status poll that comes
+    before the job's thread has run a line answers "processing", not 404;
+    once the job has run, "completed" with the file, or "error" with the
+    reason."""
+    from hunyuan3d2_tpu_torch.apps import api_server
+
+    held = []
+
+    class HeldThread(threading.Thread):   # started only when the test says so
+        def start(self):
+            held.append(self)
+
+    class StubWorker:
+        worker_id = "stub"
+
+        def generate(self, uid, params):
+            if fails:
+                raise ValueError("no surface")
+            path = tmp_path / f"{uid}.glb"
+            path.write_bytes(b"glTF")
+            return str(path)
+
+    monkeypatch.setattr(api_server, "threading", types.SimpleNamespace(Thread=HeldThread))
+    srv = api_server.serve(StubWorker(), "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        code, body = _request(url + "/send", {"image": ""})
+        uid = json.loads(body)["uid"]
+        code, body = _request(url + f"/status/{uid}")
+        assert code == 200 and json.loads(body) == {"status": "processing"}
+        (job,) = held
+        threading.Thread.start(job)
+        job.join(timeout=10)
+        code, body = _request(url + f"/status/{uid}")
+        st = json.loads(body)
+        if fails:
+            assert code == 200 and st == {"status": "error", "message": "no surface"}
+        else:
+            assert code == 200 and st["status"] == "completed"
+            assert base64.b64decode(st["model_base64"]) == b"glTF"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+
+
 @pytest.mark.parametrize("route,payload,code,message", [
     ("/nowhere", None, 404, "unknown route"),
     ("/nowhere", {}, 404, "unknown route"),
@@ -185,7 +235,7 @@ def _gradio_shim():
 
 def _args(**kw):
     base = dict(model_path="", subfolder="", texgen_model_path="", enable_t23d=False,
-                disable_tex=False, enable_flashvdm=True, compile=False, mc_algo="mc",
+                disable_tex=False, enable_flashvdm=True, mc_algo="mc",
                 low_vram_mode=False, random_weights=True, device="cpu")
     base.update(kw)
     return argparse.Namespace(**base)
@@ -273,6 +323,46 @@ def test_build_ui_drives_the_worker(gradio_worker, monkeypatch):
     assert 0 < len(Mesh.load(path).faces) <= 1000
     for p in (path, viewer):
         os.unlink(p)
+
+
+def test_gradio_main_low_vram_mode_offloads_the_shape_stack(monkeypatch):
+    """--low_vram_mode keeps the shape stack's weights on the host between
+    calls; main builds the UI and launches it."""
+    from hunyuan3d2_tpu_torch.apps import gradio_app
+
+    made, launched = [], []
+
+    class RecordingWorker(gradio_app.GradioWorker):
+        def __init__(self, args):
+            super().__init__(args)
+            made.append(self)
+
+    gr = _gradio_shim()
+    gr.Blocks.launch = lambda self, **kw: launched.append(kw)
+    _REC.clear()
+    monkeypatch.setitem(sys.modules, "gradio", gr)
+    monkeypatch.setattr(gradio_app, "GradioWorker", RecordingWorker)
+    monkeypatch.setenv("HY3D_RANDOM_SIZE", "tiny")
+    gradio_app.main(["--random-weights", "--device", "cpu", "--disable_tex", "--low_vram_mode",
+                     "--port", "0"])
+    (worker,) = made
+    assert worker.shape_pipe._auto_offload and worker.tex_pipe is None
+    assert launched == [dict(server_name="0.0.0.0", server_port=0)]
+    shape_fn = next(c for c in _REC if c.kind == "Button").clicks[0][0]
+    path, viewer, _ = shape_fn(_img(), "", None, None, None, None, 2, 5.0, 3, 32, "glb",
+                               False, 1000)
+    assert len(Mesh.load(path).faces) > 0
+    for p in (path, viewer):
+        os.unlink(p)
+
+
+@pytest.mark.parametrize("flag", ["--compile", "--cache-path=/x"])
+def test_gradio_main_refuses_flags_it_would_ignore(flag, capsys):
+    from hunyuan3d2_tpu_torch.apps import gradio_app
+
+    with pytest.raises(SystemExit) as e:
+        gradio_app.main(["--random-weights", flag])
+    assert e.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

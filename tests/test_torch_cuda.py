@@ -584,8 +584,10 @@ def test_from_pretrained_loads_straight_to_the_card(tmp_path):
     import json
     import os
 
+    import yaml
+    from safetensors.torch import save_file
+
     from hunyuan3d2_tpu_torch import Hunyuan3DDiTFlowMatchingPipeline, Hunyuan3DPaintPipeline
-    from hunyuan3d2_tpu_torch.io.formats import dump_yaml, save_safetensors
     from hunyuan3d2_tpu_torch.models import paint_unet, sd_vae
     from hunyuan3d2_tpu_torch.ops.nn import build
 
@@ -594,7 +596,7 @@ def test_from_pretrained_loads_straight_to_the_card(tmp_path):
                                                   ("conditioner", src.conditioner))
           for k, v in m.state_dict().items()}
     os.makedirs(tmp_path / "tiny")
-    save_safetensors(sd, str(tmp_path / "tiny" / "model.fp16.safetensors"))
+    save_file(sd, str(tmp_path / "tiny" / "model.fp16.safetensors"))
     c, vc, d = src.model_cfg, src.vae.cfg, src.conditioner.main.cfg.dino
     config = {"model": {"params": {k: getattr(c, k) for k in (
         "in_channels", "context_in_dim", "hidden_size", "num_heads", "depth",
@@ -604,7 +606,7 @@ def test_from_pretrained_loads_straight_to_the_card(tmp_path):
         "conditioner": {"params": {"main_image_encoder": {"kwargs": {
             "config": {"hidden_size": d.hidden_size, "num_hidden_layers": d.num_layers,
                        "num_attention_heads": d.num_heads}, "image_size": d.image_size}}}}}
-    (tmp_path / "tiny" / "config.yaml").write_text(dump_yaml(config))
+    (tmp_path / "tiny" / "config.yaml").write_text(yaml.safe_dump(config))
     pipe = Hunyuan3DDiTFlowMatchingPipeline.from_pretrained(str(tmp_path), subfolder="tiny",
                                                             device="cuda")
     for top, m in (("model", pipe.model), ("vae", pipe.vae), ("conditioner", pipe.conditioner)):
@@ -622,7 +624,8 @@ def test_from_pretrained_loads_straight_to_the_card(tmp_path):
     for part, w in weights.items():
         os.makedirs(root / part)
         (root / part / "config.json").write_text(json.dumps(configs[part]))
-        save_safetensors(w, str(root / part / "diffusion_pytorch_model.safetensors"))
+        save_file({k: v.contiguous() for k, v in w.items()},
+                  str(root / part / "diffusion_pytorch_model.safetensors"))
     loaded = Hunyuan3DPaintPipeline.from_pretrained(str(tmp_path), device="cuda")
     got = loaded.models["multiview_model"].pipeline
     assert got.is_turbo

@@ -3,8 +3,7 @@
 Every checkpoint here is written by the test, in the published layouts, from
 the JAX package's random weights carried to the checkpoint key names
 (hunyuan3d2_tpu_torch/io/convert.py) and rounded to fp16 as the published
-``model.fp16.safetensors`` are. The port's own safetensors and YAML readers
-are held to ``safetensors`` and ``yaml.safe_load``.
+``model.fp16.safetensors`` are.
 """
 
 import dataclasses
@@ -22,106 +21,11 @@ from PIL import Image
 from hunyuan3d2_tpu.io import checkpoints as jckpt
 from hunyuan3d2_tpu.pipelines.shapegen import \
     Hunyuan3DDiTFlowMatchingPipeline as JaxPipeline
-from hunyuan3d2_tpu_torch.io import checkpoints, convert, formats
+from hunyuan3d2_tpu_torch.io import checkpoints, convert
 from hunyuan3d2_tpu_torch.pipelines.shapegen import \
     Hunyuan3DDiTFlowMatchingPipeline as TorchPipeline
 
 SUB = "hunyuan3d-dit-v2-test"
-
-
-# ---------------------------------------------------------------------------
-# the port's readers
-# ---------------------------------------------------------------------------
-def test_safetensors_reader_and_writer_match_the_library(tmp_path):
-    from safetensors.torch import load_file, save_file
-
-    g = torch.Generator().manual_seed(0)
-    ts = {"a.weight": torch.randn(3, 4, generator=g).half(),
-          "b": torch.randn(5, generator=g).bfloat16(), "c": torch.arange(7),
-          "d": torch.randn(2, 2, 2, generator=g), "e": torch.zeros(0, 3),
-          "f": torch.tensor([True, False]), "g": torch.tensor(3, dtype=torch.int32)}
-    save_file(ts, str(tmp_path / "lib.safetensors"), metadata={"format": "pt"})
-    ours = formats.load_safetensors(str(tmp_path / "lib.safetensors"))
-    n = formats.save_safetensors(ts, str(tmp_path / "ours.safetensors"))
-    assert n == os.path.getsize(tmp_path / "ours.safetensors")
-    lib = load_file(str(tmp_path / "ours.safetensors"))
-    for k, t in ts.items():
-        for got in (ours[k], lib[k]):
-            assert got.dtype == t.dtype and got.shape == t.shape and torch.equal(got, t), k
-
-
-_PUBLISHED_STYLE = """
-model:
-  target: hy3dgen.shapegen.models.Hunyuan3DDiT
-  params:
-    in_channels: 64
-    mlp_ratio: 4.0
-    axes_dim: [ 64 ]
-    theta: 10000
-    qkv_bias: true
-    guidance_embed: False
-
-vae:
-  target: hy3dgen.shapegen.models.ShapeVAE
-  params:
-    num_latents: 512
-    scale_factor: 1.0188137142395404
-    label_type: binary   # a comment
-    layer_norm_eps: 1.e-6
-    not_a_float: 1e-6
-    nothing: ~
-    empty:
-    quoted: 'it''s "here"'
-    hash: "a # b"
-conditioner:
-  target: hy3dgen.shapegen.models.conditioner.SingleImageEncoder
-  params:
-    main_image_encoder:
-      type: DinoImageEncoder # dino giant
-      kwargs:
-        config:
-          hidden_act: gelu
-          hidden_size: 1536
-          layerscale_value: 1.0
-          use_swiglu_ffn: true
-        image_size: 518
-    sizes:
-    - 1
-    - -2.5
-    - name: a
-      value: [x, 2, .inf]
-    - {}
-"""
-
-
-@pytest.mark.parametrize("text", ["published", "dumped"])
-def test_yaml_reader_matches_safe_load(tmp_path, text):
-    if text == "dumped":
-        text = yaml.safe_dump({"name": "x", "n": None, "b": [True, "true", "1.0", "", 1e-06, 1e20],
-                               "m": {"k": [{"a": 1, "b": [1, 2]}, {"c": "a: b"}], "e": {},
-                                     "f": 0.15, "g": -3}})
-    else:
-        text = _PUBLISHED_STYLE
-    path = tmp_path / "c.yaml"
-    path.write_text(text)
-    assert formats.load_yaml(str(path)) == yaml.safe_load(text)
-
-
-def test_yaml_writer_round_trips():
-    obj = {"a": 1, "b": 1e-6, "c": 1e20, "inf": float("inf"), "d": [1, 2.5, "x", None, True],
-           "e": {"f": {"g": "h"}}, "i": [], "j": {}, "k": "true", "l": "1.0", "m": "a: b",
-           "n": "it's", "o": [{"p": 1, "q": [1, 2]}, {"r": None}], "s": "", "t": "#x",
-           "v": -3, "w": 2.0, "x": "1e-6", "y": "~", "z": "- a"}
-    text = formats.dump_yaml(obj)
-    assert yaml.safe_load(text) == obj and formats.parse_yaml(text) == obj
-
-
-@pytest.mark.parametrize("text", ["a: &x 1", "a: *x", "a: |\n  t", "- - 1", "a: 0x10",
-                                  "a: {b: 1}", "a: 010", "a:\n\tb: 1", "a: 1\n   b: 2",
-                                  "---\na: 1", "a: !tag 1"])
-def test_yaml_reader_refuses_what_it_does_not_read(text):
-    with pytest.raises(ValueError):
-        formats.parse_yaml(text)
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +188,20 @@ def test_from_pretrained_matches_the_jax_call(tmp_path, jax_tiny, monkeypatch):
     np.testing.assert_array_equal(tp(output_type="latents", **kw).numpy(), lat_t)
 
 
+def test_offload_to_host_drops_the_geo_decoder_operands():
+    """The geo decoder's kernel operands are device copies of its weights:
+    offloading drops them, and the next decode builds them anew."""
+    from hunyuan3d2_tpu_torch.ops import geo_decoder
+
+    tp = TorchPipeline.init_random(size="tiny", dino="tiny", device="cpu")
+    ops = geo_decoder._operands(tp.vae, tp.device)
+    assert geo_decoder._operands(tp.vae, tp.device) is ops
+    tp.offload_to_host()
+    assert tp.vae._geo_operands is None
+    tp.restore_to_device()
+    assert geo_decoder._operands(tp.vae, tp.device) is not ops
+
+
 def test_standalone_dit_checkpoint(tmp_path, jax_tiny):
     """A DeepSpeed-trained DiT on its own ('_forward_module.model.' keys):
     both readers strip the wrappers alike, and the port's DiT built from it
@@ -323,6 +241,38 @@ def test_unknown_key_raises_with_its_name(tmp_path, jax_tiny):
     _write(str(tmp_path), sd, _config(jax_tiny), "safetensors")
     with pytest.raises(KeyError, match="latent_in.bias"):
         TorchPipeline.from_pretrained(str(tmp_path), subfolder=SUB, device="cpu")
+
+
+@pytest.mark.parametrize("section,target,message", [
+    ("model", "hy3dgen.shapegen.models.NoSuchDiT", "NoSuchDiT"),
+    ("vae", "hy3dgen.shapegen.models.NoSuchVAE", "NoSuchVAE"),
+    ("conditioner", "hy3dgen.shapegen.models.NoSuchEncoder", "NoSuchEncoder"),
+    ("scheduler", "hy3dgen.shapegen.schedulers.NoSuchScheduler", "NoSuchScheduler"),
+])
+def test_unknown_target_raises_with_its_name(tmp_path, jax_tiny, section, target, message):
+    """The loader takes each tower's class from the config's target: one the
+    port has no class for raises rather than loading another."""
+    config = _config(jax_tiny)
+    config[section]["target"] = target
+    _write(str(tmp_path), _published_sd(jax_tiny), config, "safetensors")
+    with pytest.raises(KeyError, match=message):
+        TorchPipeline.from_pretrained(str(tmp_path), subfolder=SUB, device="cpu")
+
+
+def test_config_without_targets_takes_the_default_classes(tmp_path, jax_tiny):
+    """A config that names no targets loads the single-view stack and the
+    flow-matching scheduler, with the same weights as one that names them."""
+    from hunyuan3d2_tpu_torch.models import conditioner, dit, shapevae
+    from hunyuan3d2_tpu_torch.pipelines import schedulers
+
+    config = {k: {"params": v["params"]} for k, v in _config(jax_tiny).items() if k != "name"}
+    _write(str(tmp_path), _published_sd(jax_tiny), config, "safetensors")
+    tp = TorchPipeline.from_pretrained(str(tmp_path), subfolder=SUB, device="cpu")
+    assert type(tp.model) is dit.Hunyuan3DDiT and type(tp.vae) is shapevae.ShapeVAE
+    assert type(tp.conditioner) is conditioner.SingleImageEncoder
+    assert type(tp.scheduler) is schedulers.FlowMatchEulerDiscreteScheduler
+    assert tp.scheduler.num_train_timesteps == 1000
+    _assert_same_weights(tp, JaxPipeline.from_pretrained(str(tmp_path), subfolder=SUB))
 
 
 def test_missing_checkpoint_without_the_hub_raises(tmp_path, monkeypatch):
@@ -457,3 +407,18 @@ def test_config_registry_names_the_ports_classes():
     assert proc.size == 512
     with pytest.raises(KeyError):
         config.instantiate_from_config({"params": {}})
+
+
+@pytest.mark.parametrize("path,cls", [
+    ("hy3dgen.shapegen.models.SingleImageEncoder", "SingleImageEncoder"),
+    ("hy3dgen.shapegen.models.DualImageEncoder", "DualImageEncoder"),
+    ("hy3dgen.shapegen.models.denoisers.hunyuan3ddit.Hunyuan3DDiT", "Hunyuan3DDiT"),
+    ("hy3dgen.shapegen.models.autoencoders.model.ShapeVAE", "ShapeVAE"),
+])
+def test_config_registry_resolves_other_reference_paths_by_class_name(path, cls):
+    """The reference exports each class from more than one module; a path
+    the registry does not list resolves by its class name."""
+    from hunyuan3d2_tpu_torch import config
+
+    got = config.get_obj_from_str(path)
+    assert got.__name__ == cls and got.__module__.startswith("hunyuan3d2_tpu_torch.")
