@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
   3. each kernel against its plain PyTorch twin at the shapes of the three
      paths, with its time, the plain time, the time of one library call
      where one computes the same function, and its bound on the card: flash
-     attention (DINOv2, DiT, VAE, the paint UNet's shapes, the v2-0 Fast
-     DiT and the streamed geo decode's attention), the fused geo decoder
+     attention (DINOv2, DiT, VAE, the paint UNet's shapes with and without
+     CFG's batch 2, the v2-0 Fast DiT and the streamed geo decode's
+     attention), the fused geo decoder
      (kernel 3's chain) and the streamed decode's MLP tail (kernel 4's
      chain) on x2 from the v2-0 VAE, each kernel of their chain (LN rows,
      the GEMM's epilogues, ln_post) at the coarse pass and a fine chunk of
@@ -41,15 +42,19 @@ Phases, in order; any failure exits non-zero:
      its decode against the plain decode on a small grid; then one warm run
      of the multiview variant (3 views through DinoImageEncoderMV and
      MVImageProcessorV2 on the same stack); then the stack is freed;
-  6. slice 2 at full width: mesh + image → textured GLB through the
-     paint-turbo stack (2.5D UNet DEFAULT with its dual copy, SD VAE DEFAULT,
-     6 views at 512², LCM 10 steps, render 2048, texture 2048, bake exponent
-     4), random weights from a seed, on a ~40k-face sphere from the port's
-     surface nets, run cold and warm; stage times, launch counts and peak
-     memory; the textured GLB is written under tmp/ and read back;
+  6. slice 2 at full width: mesh + image → textured GLB through the paint
+     stack (2.5D UNet DEFAULT with its dual copy, SD VAE DEFAULT, 6 views at
+     512², render 2048, texture 2048, bake exponent 4), random weights from
+     a seed, on a ~40k-face sphere from the port's surface nets: first with
+     the paint-turbo sampler (LCM 10 steps), then on the same stack with the
+     standard one (EulerAncestral 30 steps, CFG 2.0: the path
+     textured_glb_standard), each run cold and warm; stage times, launch
+     counts and peak memory; each textured GLB is written under tmp/ and
+     read back;
   7. slice 2 at a small size on the card against the same stack on the CPU
-     (plain twins), with the same weights and noise, at a head size and
-     sequence lengths that send the UNet through both attention kernels;
+     (plain twins), with the same weights and noise, through each sampler,
+     at a head size and sequence lengths that send the UNet through flash
+     attention (both samplers) and the masked kernel (turbo);
   8. the served path at full width: checkpoints written from random weights
      (rounded to fp16) in the published layouts under tmp/ (the mini shape
      stack with DINOv2-giant as config.yaml + model.fp16.safetensors, the
@@ -182,6 +187,8 @@ def flash_phase(gen):
     # by ~1e-6, held to 1e-5. The "d128" rows are off the product paths: the
     # second head size the kernel takes. The paint rows are the UNet's multiview attention at 64² latents
     # (6 views), its reference attention and its cross-attention (77 keys);
+    # the "paint cfg" rows the standard loop's CFG batch 2 (multiview at the
+    # 64² and 32² levels, self and reference attention at 64²);
     # "dit full fast" is the v2-0 Fast DiT (3072 latents + 1370 cond tokens,
     # batch 1), "vae full" the v2-0 VAE's self-attention, "geo stream" one
     # fine chunk of the streamed decode at octree 380 (390 blocks of 8³
@@ -199,7 +206,10 @@ def flash_phase(gen):
             ("vae full", (1, 16, 3072, 3072, 64), torch.float32, 1e-5),
             ("geo stream", (1, 16, 199680, 3072, 64), torch.bfloat16, 2e-2),
             ("d128", (1, 8, 4096, 4096, 128), torch.bfloat16, 2e-2),
-            ("d128 fp32", (1, 8, 1024, 1024, 128), torch.float32, 1e-5)):
+            ("d128 fp32", (1, 8, 1024, 1024, 128), torch.float32, 1e-5),
+            ("paint cfg multiview", (2, 5, 24576, 24576, 64), torch.bfloat16, 2e-2),
+            ("paint cfg multiview 32", (2, 10, 6144, 6144, 64), torch.bfloat16, 2e-2),
+            ("paint cfg reference", (12, 5, 4096, 4096, 64), torch.bfloat16, 2e-2)):
         q = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt) for _ in range(2))
 
@@ -931,24 +941,17 @@ def _kernel_counters():
             **{n: getattr(g, n) for n in CHAIN_KERNELS}}
 
 
-def texture_path(sphere):
-    """Slice 2 at full width through the user's entry points."""
+def textured_runs(name, pipe, sphere, image, denoise_stage, glb):
+    """Drive ``pipe(sphere, image)`` cold and warm with the kernels' counts
+    set to 0 just before each run; log stage times, launch counts and peak
+    memory, check the textured mesh, write it under tmp/ and read it back.
+    Returns the warm run's launch counts."""
     import numpy as np
     import torch
 
-    from hunyuan3d2_tpu_torch import Hunyuan3DPaintPipeline
     from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
     from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
 
-    t0 = time.perf_counter()
-    pipe = Hunyuan3DPaintPipeline.init_random(size="default", view_size=512, render_size=2048,
-                                              texture_size=2048, device="cuda",
-                                              seed=0).set_turbo()
-    torch.cuda.synchronize()
-    log(f"texture path: stack up in {time.perf_counter() - t0:.2f} s (paint UNet DEFAULT + "
-        f"dual, SD VAE DEFAULT, random weights, seed 0); mesh {len(sphere.vertices)} vertices, "
-        f"{len(sphere.faces)} faces")
-    image = test_image()
     counters = _kernel_counters()
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
@@ -958,49 +961,79 @@ def texture_path(sphere):
         out = pipe(sphere, image)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = {n: fn.launches for n, fn in counters.items()}
         stages = {k: round(LAST_TIMINGS[k], 4) for k in (
-            "Cond Maps (device)", "Paint VAE Encode", "Paint Denoising (turbo)",
+            "Cond Maps (device)", "Paint VAE Encode", denoise_stage,
             "Multiview Diffusion (device)", "UV Unwrap", "Bake Geometry (device)",
             "Texture Baking (device)", "Texture Inpaint")}
-        log(f"texture path {run}: {elapsed:.3f} s, stages {json.dumps(stages)}, "
+        log(f"{name} {run}: {elapsed:.3f} s, stages {json.dumps(stages)}, "
             f"{len(out.vertices)} vertices, {len(out.faces)} faces, launches "
             f"{json.dumps(launches)}, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         check(out.texture is not None and out.texture.shape == (2048, 2048, 3)
-              and out.texture.dtype == np.uint8, "texture path: no 2048² RGB texture")
+              and out.texture.dtype == np.uint8, f"{name}: no 2048² RGB texture")
         check(out.uv is not None and out.uv.shape == (len(out.vertices), 2)
               and np.isfinite(out.uv).all() and out.uv.min() >= -1e-4
-              and out.uv.max() <= 1 + 1e-4, "texture path: bad UVs")
+              and out.uv.max() <= 1 + 1e-4, f"{name}: bad UVs")
         check(out.faces.min() >= 0 and out.faces.max() < len(out.vertices),
-              "texture path: face index out of range")
-        check(float(out.texture.std()) > 1.0, "texture path: flat texture")
+              f"{name}: face index out of range")
+        check(float(out.texture.std()) > 1.0, f"{name}: flat texture")
         # 6 cond views, the UV raster and 6 bake views
-        check(launches["rasterize"] == 13, f"texture path: {launches['rasterize']} "
-              "rasterize launches, 13 expected")
-    del pipe
+        check(launches["rasterize"] == 13, f"{name}: {launches['rasterize']} rasterize "
+              "launches, 13 expected")
+        check(launches["flash_attention"] > 0, f"{name}: flash_attention was never launched")
     os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
-    path = os.path.join(ROOT, "tmp", "chip_smoke_textured.glb")
+    path = os.path.join(ROOT, "tmp", glb)
     out.export(path)
     back = Mesh.load(path)
     check(back.uv is not None and np.allclose(back.uv, out.uv, atol=1e-6)
           and back.texture is not None and np.array_equal(back.texture, out.texture)
-          and np.array_equal(back.faces, out.faces), "textured GLB round trip differs")
-    log(f"texture path: wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes), "
+          and np.array_equal(back.faces, out.faces), f"{name}: textured GLB round trip differs")
+    log(f"{name}: wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes), "
         f"uv and texture read back")
     return launches
 
 
-def texture_agreement():
+def texture_paths(sphere):
+    """Slice 2 at full width through the user's entry points, on one random
+    paint stack: the paint-turbo sampler (LCM 10 steps), then the standard
+    one (set_turbo(False): EulerAncestral 30 steps at CFG 2.0). Returns the
+    launch counts of each path's warm run."""
+    import torch
+
+    from hunyuan3d2_tpu_torch import Hunyuan3DPaintPipeline
+
+    t0 = time.perf_counter()
+    pipe = Hunyuan3DPaintPipeline.init_random(size="default", view_size=512, render_size=2048,
+                                              texture_size=2048, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"texture paths: stack up in {time.perf_counter() - t0:.2f} s (paint UNet DEFAULT + "
+        f"dual, SD VAE DEFAULT, random weights, seed 0); mesh {len(sphere.vertices)} vertices, "
+        f"{len(sphere.faces)} faces")
+    image = test_image()
+    turbo = textured_runs("texture path", pipe.set_turbo(), sphere, image,
+                          "Paint Denoising (turbo)", "chip_smoke_textured.glb")
+    check(turbo["flash_attention_masked"] > 0, "texture path: the masked kernel never ran")
+    standard = textured_runs("texture path standard", pipe.set_turbo(False), sphere, image,
+                             "Paint Denoising", "chip_smoke_textured_standard.glb")
+    # the standard loop builds no voxel masks
+    check(standard["flash_attention_masked"] == 0,
+          "texture path standard: the masked kernel was launched off its path")
+    del pipe
+    return turbo, standard
+
+
+def texture_agreement(turbo: bool):
     """Slice 2 at a small size on the card (kernels, cuDNN) against the same
-    stack on the CPU (plain twins), same weights, same noise. The UNet keeps
-    the paint UNet's head size (64) at narrow channels (64, 128), and 64²
-    views give 32² latents through the tiny VAE, so the kernels' gates admit
-    it as they admit the full-width UNet: flash attention for the 32²
-    level's self, reference and cross attention, and the masked kernel for
-    its 6144-token multiview attention under the grid-32 voxel mask and the
-    16² level's 1536 tokens under the grid-16 mask. The check fails unless
-    all three kernels ran."""
+    stack on the CPU (plain twins), same weights, same noise, through either
+    sampler. The UNet keeps the paint UNet's head size (64) at narrow
+    channels (64, 128), and 64² views give 32² latents through the tiny VAE,
+    so the kernels' gates admit it as they admit the full-width UNet: flash
+    attention for the 32² level's self, reference and cross attention and
+    (standard loop) its 6144-token multiview attention at CFG batch 2; the
+    turbo loop's masked kernel for that multiview attention under the
+    grid-32 voxel mask and the 16² level's 1536 tokens under the grid-16
+    mask. The check fails unless the path's kernels ran on the card."""
     import dataclasses
 
     import numpy as np
@@ -1010,18 +1043,18 @@ def texture_agreement():
     from hunyuan3d2_tpu_torch.models import paint_unet
     from hunyuan3d2_tpu_torch.ops.nn import build
 
-    view = 64
+    view, steps = 64, 2
     ucfg = dataclasses.replace(paint_unet.TINY, block_out_channels=(64, 128),
                                attention_head_dim=64)
     rs = np.random.RandomState(0)
     lat = (1, 6, view // 2, view // 2, 4)  # the tiny VAE downsamples by 2
     init = rs.randn(*lat).astype(np.float32)
-    noises = [rs.randn(*lat).astype(np.float32) for _ in range(2)]
+    noises = [rs.randn(*lat).astype(np.float32) for _ in range(steps)]
     mesh = sphere_mesh(32)
     pipes = {dev: Hunyuan3DPaintPipeline.init_random(size="tiny", view_size=view,
                                                      render_size=256, texture_size=128,
-                                                     num_inference_steps=2, device=dev,
-                                                     seed=1).set_turbo()
+                                                     num_inference_steps=steps, device=dev,
+                                                     seed=1).set_turbo(turbo)
              for dev in ("cpu", "cuda")}
     a, b = (pipes[dev].models["multiview_model"].pipeline for dev in ("cpu", "cuda"))
     a.unet = build(paint_unet.UNet2p5D, ucfg, device="cpu",
@@ -1040,14 +1073,16 @@ def texture_agreement():
     y = outs["cpu"].texture.astype(np.float64)
     corr = np.corrcoef(x.ravel(), y.ravel())[0, 1]
     mad = np.abs(x - y).mean()
-    log(f"texture check (UNet {ucfg.block_out_channels} head 64, {view}² views, 128² "
-        f"texture): card vs CPU texture corr {corr:.6f}, mean |diff| {mad:.3f} levels, card "
-        f"launches {json.dumps(launches)}")
-    for name in ("flash_attention", "flash_attention_masked", "rasterize"):
-        check(launches[name] > 0, f"texture check: kernel {name} did not run on the card")
+    name = "texture check" if turbo else "texture check standard"
+    log(f"{name} (UNet {ucfg.block_out_channels} head 64, {view}² views, 128² "
+        f"texture, {'LCM' if turbo else 'EulerAncestral + CFG 2.0'} {steps} steps): card vs "
+        f"CPU texture corr {corr:.6f}, mean |diff| {mad:.3f} levels, card launches "
+        f"{json.dumps(launches)}")
+    for kernel in ("flash_attention", "rasterize") + (("flash_attention_masked",) if turbo
+                                                      else ()):
+        check(launches[kernel] > 0, f"{name}: kernel {kernel} did not run on the card")
     check(np.array_equal(outs["cuda"].uv, outs["cpu"].uv) and corr >= 0.99 and mad <= 3.0,
-          "texture check: the card's textured mesh disagrees with the CPU's")
-
+          f"{name}: the card's textured mesh disagrees with the CPU's")
 
 
 def _round_to_fp16(modules):
@@ -1384,14 +1419,16 @@ def main() -> int:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    launches_tex = texture_path(sphere)
-    texture_agreement()
+    launches_tex, launches_std = texture_paths(sphere)
+    texture_agreement(turbo=True)
+    texture_agreement(turbo=False)
     gc.collect()
     torch.cuda.empty_cache()
     launches_served = served_path()
     by_path = {"image_to_mesh": launches_mesh, "image_to_mesh_v2_0_fast": launches_v20,
                "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex,
-               "flash_sweep": launches_sweep, "served": launches_served}
+               "textured_glb_standard": launches_std, "flash_sweep": launches_sweep,
+               "served": launches_served}
 
     def entry(name, source, replaces, rows, main_row, path):
         """``launches`` is the count from ``path``'s warm run; every path's

@@ -67,8 +67,8 @@ class ModelWorker:
                 model_path, subfolder=subfolder, device=device)
         pipeline_tex = None
         if enable_tex:
-            if random_weights:  # the turbo loop is the one the port has
-                pipeline_tex = Hunyuan3DPaintPipeline.init_random(device=device).set_turbo()
+            if random_weights:
+                pipeline_tex = Hunyuan3DPaintPipeline.init_random(device=device)
             else:
                 pipeline_tex = Hunyuan3DPaintPipeline.from_pretrained(
                     tex_model_path or model_path, device=device)

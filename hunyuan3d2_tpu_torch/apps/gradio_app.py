@@ -58,8 +58,8 @@ class GradioWorker:
             self.shape_pipe.enable_model_cpu_offload()
         self.tex_pipe = None
         if not args.disable_tex:
-            if args.random_weights:  # the turbo loop is the one the port has
-                self.tex_pipe = Hunyuan3DPaintPipeline.init_random(device=device).set_turbo()
+            if args.random_weights:
+                self.tex_pipe = Hunyuan3DPaintPipeline.init_random(device=device)
             else:
                 self.tex_pipe = Hunyuan3DPaintPipeline.from_pretrained(args.texgen_model_path,
                                                                        device=device)

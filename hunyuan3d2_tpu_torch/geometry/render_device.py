@@ -36,15 +36,14 @@ class BakeMeshDev(NamedTuple):
 
 def upload_mesh(render, device, need_uv: bool = False) -> BakeMeshDev:
     """A loaded MeshRender's mesh on ``device``. With ``need_uv`` the mesh
-    must carry shared-corner UVs: per-corner UVs (uv_idx ≠ pos_idx) need the
-    host back-project bake, which the port does not have."""
+    must carry shared-corner UVs: the device bake takes one UV per vertex,
+    and per-corner UVs (uv_idx ≠ pos_idx) take the host bake
+    (``MeshRender.bake_texture_fused``)."""
     uv = None
     if render.vtx_uv is not None:
-        if not (render.uv_idx is render.pos_idx
-                or np.array_equal(render.uv_idx, render.pos_idx)):
-            raise NotImplementedError(
-                "per-corner UVs need the host back-project bake, which is not ported yet "
-                "(ROADMAP queue A)")
+        if not render._same_idx():
+            raise ValueError("upload_mesh: per-corner UVs (uv_idx ≠ pos_idx) take the host "
+                             "bake, MeshRender.bake_texture_fused")
         uv = torch.from_numpy(np.asarray(render.vtx_uv, np.float32)).to(device)
     if need_uv and uv is None:
         raise ValueError("upload_mesh: the mesh has no UVs (unwrap it first)")

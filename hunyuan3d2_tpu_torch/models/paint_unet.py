@@ -97,6 +97,60 @@ def compute_voxel_grid_mask(position: torch.Tensor, grid_resolution: int) -> tor
     return d2 < (1.73 / g) ** 2
 
 
+def compute_multi_resolution_mask(position_maps: torch.Tensor,
+                                  grid_resolutions=(32, 16, 8)) -> Dict[int, torch.Tensor]:
+    """{token count: [B, L, L] bool} voxel masks, keyed by the multiview
+    sequence length of each grid."""
+    masks = {}
+    for g in grid_resolutions:
+        m = compute_voxel_grid_mask(position_maps, g)
+        masks[int(m.shape[1])] = m
+    return masks
+
+
+def compute_discrete_voxel_indice(position: torch.Tensor, grid_resolution: int = 8,
+                                  voxel_resolution: int = 128) -> torch.Tensor:
+    """Quantised voxel indices per pooled grid cell: the voxel mask's
+    valid-pixel pooling, then the mean position rounded onto a
+    voxel_resolution³ lattice. The pooling runs in float16, as the reference
+    does (it casts to half up front): fp32 pooling moves ~3 % of the cells
+    across a rounding boundary.
+
+    position [B, N, H, W, 3] in [0, 1] (1 ⇒ background) → int32
+    [B, N, g, g, 3]."""
+    b, n, h, w, _ = position.shape
+    g = grid_resolution
+    position = position.to(torch.float16)
+    valid = (position != 1.0).all(dim=-1, keepdim=True)
+    zero = torch.zeros((), dtype=torch.float16, device=position.device)
+    pos = torch.where(valid, position, zero)
+    ph, pw = h // g, w // g
+    pos = pos.reshape(b, n, g, ph, g, pw, 3).sum(dim=(3, 5), dtype=torch.float16)
+    cnt = valid.to(torch.float16).reshape(b, n, g, ph, g, pw, 1).sum(dim=(3, 5),
+                                                                     dtype=torch.float16)
+    grid_pos = pos / cnt.clamp_min(1.0)
+    grid_pos = torch.where(cnt < 5, zero, grid_pos).clamp(0.0, 1.0)
+    scale = torch.tensor(voxel_resolution - 1, dtype=torch.float16, device=position.device)
+    return torch.round(grid_pos * scale).to(torch.int32)
+
+
+def compute_multi_resolution_discrete_voxel_indice(
+        position_maps: torch.Tensor, grid_resolutions=(64, 32, 16, 8),
+        voxel_resolutions=(512, 256, 128, 64)) -> Dict[int, dict]:
+    """{token count: {'voxel_indices': [B, N·g², 3] int32,
+    'voxel_resolution': int}}, keyed by multiview sequence length. The
+    reference hands these to the multiview attention, whose stock processor
+    ignores them; the masks of compute_multi_resolution_mask are what takes
+    effect."""
+    out = {}
+    for g, vr in zip(grid_resolutions, voxel_resolutions):
+        idx = compute_discrete_voxel_indice(position_maps, g, vr)
+        b, n = idx.shape[:2]
+        flat = idx.reshape(b, n * g * g, 3)
+        out[int(flat.shape[1])] = {"voxel_indices": flat, "voxel_resolution": vr}
+    return out
+
+
 def sd_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
     """diffusers Timesteps with flip_sin_to_cos=True, shift=0: [cos | sin]."""
     half = dim // 2
@@ -170,9 +224,10 @@ class Basic2p5DTransformerBlock(nn.Module):
             self.attn_multiview = Attention(dim)
 
 
-def _pinned_add(x: torch.Tensor, scale: float, out: torch.Tensor) -> torch.Tensor:
+def _pinned_add(x: torch.Tensor, scale, out: torch.Tensor) -> torch.Tensor:
     """x + (scale · out) with the product in fp32 and the sum back in x's
-    (bf16) dtype, as the JAX package pins the residual stream."""
+    (bf16) dtype, as the JAX package pins the residual stream. ``scale`` is
+    a number or an fp32 [(B·N), 1, 1] tensor (CFG's per-branch scale)."""
     return x + (scale * out.float()).to(x.dtype)
 
 
@@ -341,34 +396,43 @@ class UNetCore(nn.Module):
 
 class UNet2p5D(nn.Module):
     """The full 2.5D UNet: ``unet`` (with the extras) and, with
-    ``use_dual_stream``, ``unet_dual`` for the reference 'w' pass."""
+    ``use_dual_stream``, ``unet_dual`` for the reference 'w' pass. Without
+    the dual copy (single stream), ``unet`` itself runs the 'w' pass on the
+    reference latents with zero control channels."""
 
     def __init__(self, cfg: PaintUNetConfig = DEFAULT):
         super().__init__()
-        if not cfg.use_dual_stream:
-            raise ValueError("the port's paint UNet takes its reference pass from the dual copy")
         self.cfg = cfg
         self.unet = UNetCore(cfg, extras=True)
-        self.unet_dual = UNetCore(dual_config(cfg), extras=False)
+        if cfg.use_dual_stream:
+            self.unet_dual = UNetCore(dual_config(cfg), extras=False)
 
-    def write_cache(self, ref_latents: torch.Tensor) -> Dict:
-        """The reference 'w' pass of the dual copy: ref_latents
-        [B, N_ref, h, w, 4] → the per-layer cache {layer: [B, N_ref·L, C]}.
-        The dual copy has no camera embedding, so the reference camera
-        indices play no part."""
+    def write_cache(self, ref_latents: torch.Tensor, camera_info_ref=None) -> Dict:
+        """The reference 'w' pass: ref_latents [B, N_ref, h, w, 4] → the
+        per-layer cache {layer: [B, N_ref·L, C]}. The dual copy has no camera
+        embedding; the single-stream pass takes the reference camera indices
+        ``camera_info_ref`` [B, N_ref] (default 0)."""
         b, n_ref = ref_latents.shape[:2]
         ref = ref_latents.reshape((b * n_ref,) + ref_latents.shape[2:])
-        core = self.unet_dual
-        ctx = core.learned_text_clip_ref.to(ref.dtype).expand(b * n_ref, -1, -1)
         cache: Dict[str, torch.Tensor] = {}
-        core(ref, torch.zeros(b * n_ref, device=ref.device), ctx, None, "w", n_ref, cache)
+        if not self.cfg.use_reference_attention:
+            return cache
+        core, labels = getattr(self, "unet_dual", self.unet), None
+        if not self.cfg.use_dual_stream:  # zero control channels, the reference cameras
+            ref = torch.cat([ref, torch.zeros_like(ref), torch.zeros_like(ref)], dim=-1)
+            if self.cfg.use_camera_embedding:
+                cam = torch.zeros(b, n_ref) if camera_info_ref is None else camera_info_ref
+                labels = torch.as_tensor(cam, dtype=torch.long, device=ref.device).reshape(-1)
+        ctx = core.learned_text_clip_ref.to(ref.dtype).expand(b * n_ref, -1, -1)
+        core(ref, torch.zeros(b * n_ref, device=ref.device), ctx, labels, "w", n_ref, cache)
         return cache
 
     def forward(self, sample, timestep, normal_latents, position_latents, camera_info_gen,
                 cache: Dict, ref_scale=1.0, mva_scale=1.0, mva_masks=None) -> torch.Tensor:
         """The 'r' pass: sample / normal / position latents
         [B, N_gen, H, W, 4], camera_info_gen [B, N_gen] int → noise
-        prediction [B, N_gen, H, W, 4]."""
+        prediction [B, N_gen, H, W, 4]. ``ref_scale`` is a number or one
+        value per batch row ([B], CFG's [0, 1]), applied in fp32."""
         cfg = self.cfg
         b, n_gen = sample.shape[:2]
         x = torch.cat([sample, normal_latents, position_latents], dim=-1)
@@ -377,5 +441,8 @@ class UNet2p5D(nn.Module):
         t = torch.as_tensor(timestep, dtype=torch.float32, device=x.device).reshape(-1)
         t = t.expand(b * n_gen)
         labels = (camera_info_gen + 5).reshape(-1) if cfg.use_camera_embedding else None
+        if not isinstance(ref_scale, (int, float)):
+            rs = torch.as_tensor(ref_scale, dtype=torch.float32, device=x.device)
+            ref_scale = rs.repeat_interleave(n_gen).reshape(-1, 1, 1) if rs.ndim == 1 else rs
         out = self.unet(x, t, ctx, labels, "r", n_gen, cache, ref_scale, mva_scale, mva_masks)
         return out.reshape(b, n_gen, *out.shape[1:])

@@ -5,15 +5,16 @@ At first use the source is compiled with ``g++`` into a shared library
 under ``build/hunyuan3d2_tpu_torch/`` at the repository root, keyed by a
 hash of the source and the flags (the JAX package's Makefile flags, so the
 compiler contracts the same multiply-adds and the floats agree); nothing
-is built when the module is imported and no library is committed. Bound here are the functions the
-port's texture path uses: the host rasterizer (the UV unwrap's chart
-overlap guard), the vertex-graph inpaint and push-pull fill (the texture
-inpaint); the surface nets over a dense grid and from compacted active cells
-(the 'dmc'/'sn' extractor); the four mesh functions of the postprocess
-(face components, quadric simplification, the weld with degenerate and
-duplicate face removal, cluster decimation); and the bilinear splat of the
-host bake, which the port does not run yet (its OpenMP fix is tested on its
-own). Each returns numpy arrays.
+is built when the module is imported and no library is committed. Bound
+here: the host rasterizer (the UV unwrap's chart overlap guard) and the
+raster fused with attribute interpolation (the host renders); the host bake
+(the bilinear splat of ``back_project``, the fused per-view bake from a
+float or a uint8 view); the vertex-graph inpaint and push-pull fill (the
+texture inpaint); the surface nets over a dense grid and from compacted
+active cells (the 'dmc'/'sn' extractor); the four mesh functions of the
+postprocess (face components, quadric simplification, the weld with
+degenerate and duplicate face removal, cluster decimation). Each returns
+numpy arrays.
 """
 
 from __future__ import annotations
@@ -60,6 +61,19 @@ def get_lib() -> ctypes.CDLL:
     lib.hy3d_rasterize.argtypes = [f32p, ctypes.c_int64, i32p, ctypes.c_int64,
                                    ctypes.c_int, ctypes.c_int, i32p, f32p, f32p]
     lib.hy3d_rasterize.restype = None
+    lib.hy3d_rasterize_interp.argtypes = [f32p, ctypes.c_int64, i32p, ctypes.c_int64, f32p,
+                                          ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p, f32p,
+                                          f32p, f32p]
+    lib.hy3d_rasterize_interp.restype = None
+    lib.hy3d_bake_view.argtypes = [f32p, i32p, f32p, u8p, ctypes.c_float, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_float, ctypes.c_float, f32p, f32p]
+    lib.hy3d_bake_view.restype = ctypes.c_int
+    lib.hy3d_bake_view_u8.argtypes = [f32p, i32p, u8p, ctypes.c_int, ctypes.c_int, u8p,
+                                      ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                      ctypes.c_float, f32p, f32p]
+    lib.hy3d_bake_view_u8.restype = ctypes.c_int
     lib.hy3d_vertex_inpaint.argtypes = [
         f32p, u8p, f32p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         f32p, ctypes.c_int64, f32p, ctypes.c_int64, i32p, i32p, ctypes.c_int64]
@@ -95,9 +109,7 @@ def rasterize(verts_clip: np.ndarray, faces: np.ndarray, height: int, width: int
     (face_id [H, W] int32 with -1 empty, bary [H, W, 3], depth [H, W])."""
     lib = get_lib()
     verts_clip = np.ascontiguousarray(verts_clip, np.float32)
-    faces = np.ascontiguousarray(faces, np.int32)
-    if len(faces) and (faces.min() < 0 or faces.max() >= len(verts_clip)):
-        raise ValueError("rasterize: face index out of range")
+    faces = _checked_faces(faces, len(verts_clip), "rasterize")
     face_id = np.empty((height, width), np.int32)
     bary = np.empty((height, width, 3), np.float32)
     depth = np.empty((height, width), np.float32)
@@ -106,18 +118,112 @@ def rasterize(verts_clip: np.ndarray, faces: np.ndarray, height: int, width: int
     return face_id, bary, depth
 
 
-def grid_put_linear(coords: np.ndarray, values: np.ndarray, h: int, w: int) -> np.ndarray:
+def _checked_faces(faces: np.ndarray, num_vertices: int, name: str) -> np.ndarray:
+    faces = np.ascontiguousarray(faces, np.int32)
+    if len(faces) and (faces.min() < 0 or faces.max() >= num_vertices):
+        raise ValueError(f"{name}: face index out of range")
+    return faces
+
+
+def _buf(bufs, name: str, shape, dtype) -> np.ndarray:
+    """An uninitialised array, reused from the dict ``bufs`` when it holds
+    one of that shape and dtype (None: always a new array)."""
+    if bufs is None:
+        return np.empty(shape, dtype)
+    a = bufs.get(name)
+    if a is None or a.shape != tuple(shape) or a.dtype != dtype:
+        a = bufs[name] = np.empty(shape, dtype)
+    return a
+
+
+def rasterize_interp(verts_clip: np.ndarray, faces: np.ndarray, attrs: np.ndarray,
+                     height: int, width: int, bufs=None):
+    """Rasterization fused with the interpolation of per-vertex attributes
+    attrs [N, C] → (face_id, bary, depth, attr_map [H, W, C], 0 off the
+    mesh). ``bufs``: a dict whose buffers the outputs reuse (a caller on a
+    loop passes one and consumes the outputs before its next call)."""
+    lib = get_lib()
+    verts_clip = np.ascontiguousarray(verts_clip, np.float32)
+    faces = _checked_faces(faces, len(verts_clip), "rasterize_interp")
+    attrs = np.ascontiguousarray(attrs, np.float32)
+    if attrs.ndim != 2 or len(attrs) != len(verts_clip):
+        raise ValueError(f"rasterize_interp: attrs {attrs.shape} for {len(verts_clip)} vertices")
+    c = attrs.shape[1]
+    face_id = _buf(bufs, "ri_fid", (height, width), np.int32)
+    bary = _buf(bufs, "ri_bary", (height, width, 3), np.float32)
+    depth = _buf(bufs, "ri_depth", (height, width), np.float32)
+    out = _buf(bufs, "ri_amap", (height, width, c), np.float32)
+    lib.hy3d_rasterize_interp(verts_clip, len(verts_clip), faces, len(faces), attrs, c, height,
+                              width, face_id, bary, depth, out)
+    return face_id, bary, depth, out
+
+
+def grid_put_linear(coords: np.ndarray, values: np.ndarray, h: int, w: int,
+                    out: np.ndarray = None) -> np.ndarray:
     """Bilinear scatter splat of values [n, C] at coords [n, 2] in [0, 1]
     (x → rows, y → cols) → [h, w, C] grid normalised by the splatted
-    weight."""
+    weight, written into ``out`` when given."""
     lib = get_lib()
     coords = np.ascontiguousarray(coords, np.float32)
     values = np.ascontiguousarray(values, np.float32)
     if coords.shape != (len(values), 2):
         raise ValueError(f"grid_put_linear: coords {coords.shape} for {len(values)} values")
-    out = np.empty((h, w, values.shape[1]), np.float32)
+    shape = (h, w, values.shape[1])
+    if out is None:
+        out = np.empty(shape, np.float32)
+    elif out.shape != shape or out.dtype != np.float32 or not out.flags.c_contiguous:
+        raise ValueError(f"grid_put_linear: out must be C-contiguous float32 {shape}")
     lib.hy3d_grid_put_linear(coords, values, len(coords), h, w, values.shape[1], out)
     return out
+
+
+def _bake_args(amap, fid, reliable, tex_merge, trust, c: int, name: str):
+    h, w = np.shape(fid)
+    th, tw = np.shape(trust)
+    if (np.shape(amap) != (h, w, 6) or np.shape(reliable) != (h, w)
+            or np.shape(tex_merge) != (th, tw, c)):
+        raise ValueError(f"{name}: amap {np.shape(amap)}, reliable {np.shape(reliable)} or "
+                         f"tex_merge {np.shape(tex_merge)} disagree with fid {(h, w)}, trust "
+                         f"{(th, tw)} and {c} channels")
+    for a in (tex_merge, trust):  # accumulated in place
+        if a.dtype != np.float32 or not a.flags.c_contiguous:
+            raise ValueError(f"{name}: tex_merge and trust must be C-contiguous float32")
+    return (np.ascontiguousarray(amap, np.float32), np.ascontiguousarray(fid, np.int32),
+            np.ascontiguousarray(reliable, np.uint8), h, w, th, tw)
+
+
+def bake_view(amap: np.ndarray, fid: np.ndarray, image: np.ndarray, reliable: np.ndarray,
+              cos_thres: float, weight: float, exp: float, tex_merge: np.ndarray,
+              trust: np.ndarray) -> bool:
+    """The fused mask + splat + merge of one view (image [h, w, C] float32,
+    at the raster's size) into the running texture: tex_merge [th, tw, C]
+    and trust [th, tw] accumulate in place. Returns False when the view was
+    skipped (its texels > 99 % painted already)."""
+    image = np.ascontiguousarray(image, np.float32)
+    amap, fid, reliable, h, w, th, tw = _bake_args(amap, fid, reliable, tex_merge, trust,
+                                                   image.shape[-1], "bake_view")
+    if image.shape[:2] != (h, w):
+        raise ValueError(f"bake_view: image {image.shape} for a {(h, w)} raster")
+    return bool(get_lib().hy3d_bake_view(amap, fid, image, reliable, float(cos_thres), h, w,
+                                         image.shape[2], th, tw, float(weight), float(exp),
+                                         tex_merge, trust))
+
+
+def bake_view_u8(amap: np.ndarray, fid: np.ndarray, image_u8: np.ndarray, reliable: np.ndarray,
+                 cos_thres: float, weight: float, exp: float, tex_merge: np.ndarray,
+                 trust: np.ndarray) -> bool:
+    """bake_view from the view at its native size [ih, iw, C ≤ 8] uint8,
+    sampled bilinearly at each raster pixel (align_corners=False, a PIL
+    BILINEAR upsample)."""
+    image_u8 = np.ascontiguousarray(image_u8, np.uint8)
+    ih, iw, c = image_u8.shape
+    if c > 8:
+        raise ValueError(f"bake_view_u8: at most 8 channels, got {c}")
+    amap, fid, reliable, h, w, th, tw = _bake_args(amap, fid, reliable, tex_merge, trust, c,
+                                                   "bake_view_u8")
+    return bool(get_lib().hy3d_bake_view_u8(amap, fid, image_u8, ih, iw, reliable,
+                                            float(cos_thres), h, w, c, th, tw, float(weight),
+                                            float(exp), tex_merge, trust))
 
 
 def pushpull_fill(texture: np.ndarray, mask: np.ndarray) -> np.ndarray:

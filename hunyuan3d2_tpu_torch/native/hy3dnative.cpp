@@ -5,10 +5,14 @@
 //
 // Kept here:
 //   * z-buffer triangle rasterization with a deterministic packed
-//     depth|face-id resolve (the UV unwrap's chart overlap guard),
+//     depth|face-id resolve (the UV unwrap's chart overlap guard, the host
+//     renders), and the same raster fused with attribute interpolation,
 //   * mesh_processor vertex-graph texture inpainting and the push-pull
 //     hole fill (the texture inpaint),
-//   * the bilinear splat of the host bake (not on the port's path yet),
+//   * the host bake: the bilinear splat (back_project) and the fused
+//     per-view bake, from a full-size float view or a native-size uint8 one
+//     (both serial: their thread_local scratch is never read inside an
+//     OpenMP region),
 //   * connected-component face labelling, quadric edge-collapse
 //     simplification, the exact vertex weld with degenerate/duplicate face
 //     removal, and uniform vertex-cluster decimation (the mesh postprocess;
@@ -132,6 +136,32 @@ void hy3d_rasterize(const float* verts, int64_t nv, const int32_t* faces,
     bary[3 * p] = iw0;
     bary[3 * p + 1] = iw1;
     bary[3 * p + 2] = iw2;
+  }
+}
+
+// Rasterize + interpolate per-vertex attributes in one fused pass:
+// attrs [nv, C] → out_attr [h, w, C] (0 where empty). Shares the z-resolve
+// with hy3d_rasterize; avoids the big numpy gather temporaries on the host.
+void hy3d_rasterize_interp(const float* verts, int64_t nv, const int32_t* faces,
+                           int64_t nf, const float* attrs, int c, int h, int w,
+                           int32_t* face_id, float* bary, float* depth,
+                           float* out_attr) {
+  hy3d_rasterize(verts, nv, faces, nf, h, w, face_id, bary, depth);
+#pragma omp parallel for schedule(static)
+  for (int64_t p = 0; p < (int64_t)h * w; ++p) {
+    float* dst = out_attr + p * c;
+    int32_t f = face_id[p];
+    if (f < 0) {
+      for (int ch = 0; ch < c; ++ch) dst[ch] = 0.f;
+      continue;
+    }
+    const int32_t* tri = faces + 3 * f;
+    const float b0 = bary[3 * p], b1 = bary[3 * p + 1], b2 = bary[3 * p + 2];
+    const float* a0 = attrs + (int64_t)tri[0] * c;
+    const float* a1 = attrs + (int64_t)tri[1] * c;
+    const float* a2 = attrs + (int64_t)tri[2] * c;
+    for (int ch = 0; ch < c; ++ch)
+      dst[ch] = b0 * a0[ch] + b1 * a1[ch] + b2 * a2[ch];
   }
 }
 
@@ -275,6 +305,164 @@ void hy3d_grid_put_linear(const float* coords, const float* values, int64_t n,
     float inv = cnt[p] > 0.f ? 1.f / std::max(cnt[p], 1e-8f) : 0.f;
     for (int ch = 0; ch < c; ++ch) out_grid[p * c + ch] = acc[p * c + ch] * inv;
   }
+}
+
+// Fused per-view texture bake: applies the reliability/cosine masks, splats
+// [image | cos] bilinearly into per-view accumulators, normalizes, and merges
+// into the running texture with the reference's >99%-painted skip — one pass,
+// no intermediate full-res arrays (numerically identical to back_project →
+// fast_bake_texture, reference mesh_render.py:653-798).
+//   amap:     [h,w,6] (nx,ny,nz, u,v, depth) from hy3d_rasterize_interp
+//   fid:      [h,w] face ids (<0 = background)
+//   image:    [h,w,c] view colors
+//   reliable: [h,w] uint8 (visibility-eroded & not near a depth edge)
+//   tex_merge:[th,tw,c] running weighted sum; trust: [th,tw] running weight
+// Returns 1 if the view was merged, 0 if skipped (>99% already painted).
+int hy3d_bake_view(const float* amap, const int32_t* fid, const float* image,
+                   const uint8_t* reliable, float cos_thres, int h, int w,
+                   int c, int th, int tw, float weight, float expnt,
+                   float* tex_merge, float* trust) {
+  thread_local static std::vector<float> acc;  // [th*tw*(c+1)] color|cos
+  thread_local static std::vector<float> cnt;  // [th*tw] bilinear weights
+  const int cc = c + 1;
+  acc.assign((size_t)th * tw * cc, 0.f);
+  cnt.assign((size_t)th * tw, 0.f);
+  for (int64_t p = 0; p < (int64_t)h * w; ++p) {
+    if (!reliable[p] || fid[p] < 0) continue;
+    const float* a = amap + p * 6;
+    float cosang = -a[2];
+    if (cosang < cos_thres) cosang = 0.f;
+    // row = v, col = u (back_project coords = uv[:, [1,0]])
+    float x = a[4] * (th - 1);
+    float y = a[3] * (tw - 1);
+    int x0 = std::min(std::max((int)std::floor(x), 0), th - 1);
+    int y0 = std::min(std::max((int)std::floor(y), 0), tw - 1);
+    int x1 = std::min(x0 + 1, th - 1);
+    int y1 = std::min(y0 + 1, tw - 1);
+    float fx = x - x0, fy = y - y0;
+    const float wts[4] = {(1 - fx) * (1 - fy), (1 - fx) * fy, fx * (1 - fy),
+                          fx * fy};
+    const int64_t idx[4] = {(int64_t)x0 * tw + y0, (int64_t)x0 * tw + y1,
+                            (int64_t)x1 * tw + y0, (int64_t)x1 * tw + y1};
+    const float* col = image + p * c;
+    for (int k = 0; k < 4; ++k) {
+      cnt[idx[k]] += wts[k];
+      float* dst = acc.data() + idx[k] * cc;
+      for (int ch = 0; ch < c; ++ch) dst[ch] += wts[k] * col[ch];
+      dst[c] += wts[k] * cosang;
+    }
+  }
+  // skip check: fraction of this view's positive-cos texels already painted
+  int64_t view_sum = 0, painted = 0;
+  for (int64_t t = 0; t < (int64_t)th * tw; ++t) {
+    if (cnt[t] <= 0.f) continue;
+    float cosm = acc[t * cc + c] / std::max(cnt[t], 1e-8f);
+    if (cosm > 0.f) {
+      ++view_sum;
+      if (trust[t] > 0.f) ++painted;
+    }
+  }
+  if (view_sum > 0 && (double)painted / (double)view_sum > 0.99) return 0;
+  for (int64_t t = 0; t < (int64_t)th * tw; ++t) {
+    if (cnt[t] <= 0.f) continue;
+    float inv = 1.f / std::max(cnt[t], 1e-8f);
+    float cosm = acc[t * cc + c] * inv;
+    float cw = weight * std::pow(cosm, expnt);
+    if (!(cw > 0.f)) continue;
+    float* dst = tex_merge + t * c;
+    for (int ch = 0; ch < c; ++ch) dst[ch] += acc[t * cc + ch] * inv * cw;
+    trust[t] += cw;
+  }
+  return 1;
+}
+
+// hy3d_bake_view with the view image kept at its NATIVE resolution as uint8:
+// the diffusion views are 512² while the bake raster is 2048², and the
+// reference upsamples the view before splatting (texgen pipelines.py:237).
+// Upsampling is color-interpolation only, so instead of materializing a
+// 50 MB fp32 2048² image per view (its first-touch page faults would dominate)
+// this kernel bilinearly samples the uint8 view at the raster pixel's
+// position (align_corners=False convention, matching a PIL BILINEAR
+// upsample) inside the splat loop. image: [ih,iw,c] uint8.
+int hy3d_bake_view_u8(const float* amap, const int32_t* fid,
+                      const uint8_t* image, int ih, int iw,
+                      const uint8_t* reliable, float cos_thres, int h, int w,
+                      int c, int th, int tw, float weight, float expnt,
+                      float* tex_merge, float* trust) {
+  if (c > 8) return -1;  // fixed col[8] below; Python wrapper raises
+  thread_local static std::vector<float> acc;  // [th*tw*(c+1)] color|cos
+  thread_local static std::vector<float> cnt;  // [th*tw] bilinear weights
+  const int cc = c + 1;
+  acc.assign((size_t)th * tw * cc, 0.f);
+  cnt.assign((size_t)th * tw, 0.f);
+  const float sx = (float)ih / (float)h, sy = (float)iw / (float)w;
+  const float inv255 = 1.f / 255.f;
+  for (int64_t p = 0; p < (int64_t)h * w; ++p) {
+    if (!reliable[p] || fid[p] < 0) continue;
+    const float* a = amap + p * 6;
+    float cosang = -a[2];
+    if (cosang < cos_thres) cosang = 0.f;
+    // sample the native-size view at this raster pixel's center
+    const int pr = (int)(p / w), pc2 = (int)(p % w);
+    float ix = (pr + 0.5f) * sx - 0.5f;
+    float iy = (pc2 + 0.5f) * sy - 0.5f;
+    int ix0 = std::min(std::max((int)std::floor(ix), 0), ih - 1);
+    int iy0 = std::min(std::max((int)std::floor(iy), 0), iw - 1);
+    int ix1 = std::min(ix0 + 1, ih - 1);
+    int iy1 = std::min(iy0 + 1, iw - 1);
+    float gx = std::min(std::max(ix - ix0, 0.f), 1.f);
+    float gy = std::min(std::max(iy - iy0, 0.f), 1.f);
+    const uint8_t* r0 = image + ((int64_t)ix0 * iw + iy0) * c;
+    const uint8_t* r1 = image + ((int64_t)ix0 * iw + iy1) * c;
+    const uint8_t* r2 = image + ((int64_t)ix1 * iw + iy0) * c;
+    const uint8_t* r3 = image + ((int64_t)ix1 * iw + iy1) * c;
+    const float w0 = (1 - gx) * (1 - gy), w1 = (1 - gx) * gy,
+                w2 = gx * (1 - gy), w3 = gx * gy;
+    float col[8];
+    for (int ch = 0; ch < c; ++ch)
+      col[ch] = (w0 * r0[ch] + w1 * r1[ch] + w2 * r2[ch] + w3 * r3[ch]) *
+                inv255;
+    // row = v, col = u (back_project coords = uv[:, [1,0]])
+    float x = a[4] * (th - 1);
+    float y = a[3] * (tw - 1);
+    int x0 = std::min(std::max((int)std::floor(x), 0), th - 1);
+    int y0 = std::min(std::max((int)std::floor(y), 0), tw - 1);
+    int x1 = std::min(x0 + 1, th - 1);
+    int y1 = std::min(y0 + 1, tw - 1);
+    float fx = x - x0, fy = y - y0;
+    const float wts[4] = {(1 - fx) * (1 - fy), (1 - fx) * fy, fx * (1 - fy),
+                          fx * fy};
+    const int64_t idx[4] = {(int64_t)x0 * tw + y0, (int64_t)x0 * tw + y1,
+                            (int64_t)x1 * tw + y0, (int64_t)x1 * tw + y1};
+    for (int k = 0; k < 4; ++k) {
+      cnt[idx[k]] += wts[k];
+      float* dst = acc.data() + idx[k] * cc;
+      for (int ch = 0; ch < c; ++ch) dst[ch] += wts[k] * col[ch];
+      dst[c] += wts[k] * cosang;
+    }
+  }
+  // skip check: fraction of this view's positive-cos texels already painted
+  int64_t view_sum = 0, painted = 0;
+  for (int64_t t = 0; t < (int64_t)th * tw; ++t) {
+    if (cnt[t] <= 0.f) continue;
+    float cosm = acc[t * cc + c] / std::max(cnt[t], 1e-8f);
+    if (cosm > 0.f) {
+      ++view_sum;
+      if (trust[t] > 0.f) ++painted;
+    }
+  }
+  if (view_sum > 0 && (double)painted / (double)view_sum > 0.99) return 0;
+  for (int64_t t = 0; t < (int64_t)th * tw; ++t) {
+    if (cnt[t] <= 0.f) continue;
+    float inv = 1.f / std::max(cnt[t], 1e-8f);
+    float cosm = acc[t * cc + c] * inv;
+    float cw = weight * std::pow(cosm, expnt);
+    if (!(cw > 0.f)) continue;
+    float* dst = tex_merge + t * c;
+    for (int ch = 0; ch < c; ++ch) dst[ch] += acc[t * cc + ch] * inv * cw;
+    trust[t] += cw;
+  }
+  return 1;
 }
 
 // Push-pull pyramid hole fill: build a valid-weighted mip pyramid (push),

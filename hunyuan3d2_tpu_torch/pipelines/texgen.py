@@ -4,9 +4,11 @@ hunyuan3d2_tpu/pipelines/texgen.py, the device texture path).
 Six candidate cameras (azims [0, 90, 180, 270, 0, 180], elevs
 [0, 0, 0, 0, 90, −90], weights [1, .1, .5, .1, .05, .05]), render 2048,
 texture 2048, bake exponent 4. Stages, in order: cond maps (device raster) →
-multiview diffusion (paint-turbo) → UV unwrap (host) → bake geometry
-(device) → bake (device) → inpaint (host). A failure raises: there is no
-host-bake fallback.
+multiview diffusion (the standard EulerAncestral + CFG sampler, or
+paint-turbo) → UV unwrap (host) → bake geometry (device) → bake (device) →
+inpaint (host). A failure raises: there is no host-bake fallback. The host
+renders and bake are public stage methods (``render_normal_multiview``,
+``render_position_multiview``, ``bake_from_multiview``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 class Hunyuan3DTexGenConfig:
     """``subfolder_name`` picks the sampler: the turbo (LCM) loop for
-    ``hunyuan3d-paint-v2-0-turbo``, the standard one (not ported yet)
+    ``hunyuan3d-paint-v2-0-turbo``, the standard (EulerAncestral + CFG) one
     otherwise. ``light_remover_ckpt_path`` is accepted for the reference's
     signature; the delight stage is not on this path."""
 
@@ -74,7 +76,8 @@ class Hunyuan3DPaintPipeline:
         """The paint stack of the diffusers-layout directory
         ``{model_path}/{subfolder}`` (``unet/`` and ``vae/``; local, or under
         ``$HY3DGEN_MODELS``) on ``device`` (``cuda`` unless the caller passes
-        another); the turbo sampler when ``subfolder`` is the turbo model's.
+        another); the turbo sampler when ``subfolder`` is the turbo model's,
+        else the standard one.
         Other keywords are accepted for the reference's signature."""
         config = Hunyuan3DTexGenConfig(multiview_ckpt_path=model_path, subfolder_name=subfolder)
         return cls({"multiview_model": Multiview_Diffusion_Net.from_pretrained(config, device)},
@@ -85,8 +88,8 @@ class Hunyuan3DPaintPipeline:
                     texture_size: int = 256, num_inference_steps: int = 30, device=None,
                     seed: int = 0):
         """Random-weight paint stack (``size`` "default" or "tiny", see
-        HunyuanPaintPipeline.init_random) on ``device`` (``cuda`` unless the
-        caller passes another)."""
+        HunyuanPaintPipeline.init_random) with the standard sampler, on
+        ``device`` (``cuda`` unless the caller passes another)."""
         device = torch.device(device if device is not None else "cuda")
         config = Hunyuan3DTexGenConfig()
         config.render_size = render_size
@@ -96,7 +99,8 @@ class Hunyuan3DPaintPipeline:
         return cls({"multiview_model": mv}, config, device)
 
     def set_turbo(self, turbo: bool = True):
-        """Sample with the paint-turbo LCM loop (the only one ported)."""
+        """Sample with the paint-turbo LCM loop, or (``turbo=False``) the
+        standard EulerAncestral + CFG loop."""
         self.models["multiview_model"].pipeline.set_turbo(turbo)
         return self
 
@@ -126,6 +130,39 @@ class Hunyuan3DPaintPipeline:
         canvas.paste(cropped, ((square - width - 2 * bw) // 2 + bw,
                                (square - height - 2 * bh) // 2 + bh))
         return canvas
+
+    def render_normal_multiview(self, camera_elevs, camera_azims, use_abs_coor=True,
+                                resolution=None):
+        """Host normal maps of the loaded mesh, one uint8 PIL image a view."""
+        from PIL import Image
+
+        out = []
+        for elev, azim in zip(camera_elevs, camera_azims):
+            nm = self.render.render_normal(elev, azim, use_abs_coor=use_abs_coor,
+                                           resolution=resolution, return_type="np")
+            out.append(Image.fromarray((np.clip(nm[..., :3], 0, 1) * 255).astype(np.uint8)))
+        return out
+
+    def render_position_multiview(self, camera_elevs, camera_azims, resolution=None):
+        """Host position maps of the loaded mesh, one uint8 PIL image a view."""
+        from PIL import Image
+
+        out = []
+        for elev, azim in zip(camera_elevs, camera_azims):
+            pm = self.render.render_position(elev, azim, resolution=resolution, return_type="np")
+            out.append(Image.fromarray((np.clip(pm[..., :3], 0, 1) * 255).astype(np.uint8)))
+        return out
+
+    def bake_from_multiview(self, views, camera_elevs, camera_azims, view_weights,
+                            method: str = "fast"):
+        """The host bake of the views into the loaded mesh's UV space →
+        (texture, trust mask): the fused per-view merge, the same arithmetic
+        as back_project of each view then fast_bake_texture."""
+        if method != "fast":
+            raise ValueError(f"no method {method}")
+        return self.render.bake_texture_fused(views, camera_elevs, camera_azims,
+                                              exp=self.config.bake_exp,
+                                              weights=list(view_weights))
 
     def texture_inpaint(self, texture: np.ndarray, mask: np.ndarray):
         return self.render.uv_inpaint(texture, mask)

@@ -632,3 +632,53 @@ def test_from_pretrained_loads_straight_to_the_card(tmp_path):
     for part, module in (("unet", got.unet), ("vae", got.vae)):
         for k, t in module.state_dict().items():
             assert t.is_cuda and torch.equal(t.cpu(), weights[part][k]), k
+
+
+def test_standard_paint_loop_on_the_card_matches_the_cpu(gen):
+    """The EulerAncestral + CFG loop (3 steps) on the card against the same
+    weights and draws on the CPU: 64² views through the tiny VAE give 32²
+    latents, so the head-64 UNet's attention at that level (6144 multiview
+    tokens at CFG batch 2, 1024 self and reference tokens) passes kernel 1's
+    gate; the standard loop builds no voxel mask, so the masked kernel does
+    not run."""
+    import dataclasses
+
+    from PIL import Image
+
+    from hunyuan3d2_tpu_torch.models import paint_unet
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_masked
+    from hunyuan3d2_tpu_torch.ops.nn import build
+    from hunyuan3d2_tpu_torch.pipelines.hunyuanpaint import HunyuanPaintPipeline
+
+    view, steps = 64, 3
+    ucfg = dataclasses.replace(paint_unet.TINY, block_out_channels=(64, 128),
+                               attention_head_dim=64)
+    cpu = HunyuanPaintPipeline.init_random("tiny", view, device="cpu", seed=1)
+    cpu.unet = build(paint_unet.UNet2p5D, ucfg, device="cpu",
+                     generator=torch.Generator().manual_seed(2))
+    card = HunyuanPaintPipeline.init_random("tiny", view, device="cuda", seed=1)
+    card.unet = build(paint_unet.UNet2p5D, ucfg, device="cuda")
+    card.unet.load_state_dict(cpu.unet.state_dict())
+    card.vae.load_state_dict(cpu.vae.state_dict())
+    rs = np.random.RandomState(0)
+    lat = (1, 6, view // 2, view // 2, 4)
+    init = rs.randn(*lat).astype(np.float32)
+    noises = [rs.randn(*lat).astype(np.float32) for _ in range(steps)]
+    normal, position = (torch.from_numpy(rs.randint(0, 256, (6, view, view, 3)).astype(np.uint8))
+                        for _ in range(2))
+    img = np.zeros((96, 96, 4), np.uint8)
+    img[16:80, 24:72] = [200, 40, 40, 255]
+    outs = {}
+    for name, pipe in (("cpu", cpu), ("cuda", card)):
+        before = flash_attention.launches, flash_attention_masked.launches
+        outs[name] = pipe(Image.fromarray(img), normal_imgs=normal.to(pipe.device),
+                          position_imgs=position.to(pipe.device),
+                          camera_info_gen=[[12, 15, 18, 21, 40, 36]],
+                          num_inference_steps=steps, output_type="device", init_latents=init,
+                          step_noises=noises).images.cpu().numpy().astype(np.float64)
+    assert flash_attention.launches > before[0]
+    assert flash_attention_masked.launches == before[1]
+    a, b = outs["cuda"], outs["cpu"]
+    assert a.shape == b.shape == (6, view, view, 3)
+    corr = np.corrcoef(a.ravel(), b.ravel())[0, 1]
+    assert corr >= 0.99 and np.abs(a - b).mean() <= 3.0, (corr, np.abs(a - b).mean())

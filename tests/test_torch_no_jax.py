@@ -46,6 +46,16 @@ paint = hunyuan3d2_tpu_torch.Hunyuan3DPaintPipeline.init_random(
     device="cpu").set_turbo()
 textured = paint(mesh, Image.fromarray(img))
 assert textured.texture.shape == (48, 48, 3) and textured.uv.shape == (len(textured.vertices), 2)
+standard = hunyuan3d2_tpu_torch.Hunyuan3DPaintPipeline.init_random(
+    size="tiny", view_size=32, render_size=48, texture_size=48, num_inference_steps=1,
+    device="cpu")
+assert standard(mesh, Image.fromarray(img)).texture.shape == (48, 48, 3)
+host = render.MeshRender(default_resolution=48, texture_size=48)
+host.load_mesh(textured)
+tex, trust = host.bake_texture_fused([np.full((48, 48, 3), 128, np.uint8)] * 2, [0, 0], [0, 180])
+assert tex.shape == (48, 48, 3) and trust.any()
+assert host.render_normal(0, 0).shape == (48, 48, 4)
+assert paint_schedulers.DDIMScheduler().make_tables(5)[0].shape == (5,)
 clean = postprocess.FaceReducer()(postprocess.DegenerateFaceRemover()(
     postprocess.FloaterRemover()(mesh)), max_facenum=200)
 assert 0 < len(clean.faces) <= 200
