@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
      where one computes the same function, and its bound on the card: flash
      attention (DINOv2, DiT, VAE, the paint UNet's shapes with and without
      CFG's batch 2, the v2-0 Fast DiT and the streamed geo decode's
-     attention), the fused geo decoder
+     attention; each row's inputs from a generator seeded by its name; the
+     fp32 rows also against an fp64 evaluation, within the bound of the
+     kernel's arithmetic), the fused geo decoder
      (kernel 3's chain) and the streamed decode's MLP tail (kernel 4's
      chain) on x2 from the v2-0 VAE, each kernel of their chain (LN rows,
      the GEMM's epilogues, ln_post) at the coarse pass and a fine chunk of
@@ -63,11 +65,22 @@ Phases, in order; any failure exits non-zero:
      to the in-memory pipeline's), then the port's API server, in-process on
      a localhost port, answers /generate (octree 256, the app's 'mc'),
      /generate with texture (postprocess, then paint-turbo at 6 × 512²
-     views, render and texture 2048) and /send + /status; each GLB is read
-     back; the shape stack is offloaded to the host between the first two
-     requests and the drop in device memory checked; the checkpoints are
-     deleted at the end;
-  9. a JSON line with every kernel's numbers, then the result line.
+     views, render and texture 2048), /send + /status and /generate with
+     text (the tiny random-weight t2i pipeline the app builds, then the
+     mini stack); each GLB is read back; the shape stack is offloaded to the
+     host between the first two requests and the drop in device memory
+     checked; the checkpoints are deleted at the end;
+  9. text → image → mesh at full width (path text_to_mesh): the front end
+     utils/text2image.HunyuanDiTPipeline over HunyuanDiT v1.1 (1408 wide,
+     16 heads of 88, 40 blocks, PAG on 16-19; random weights, pseudo text
+     embeddings), the t2i SD VAE, 1024², 25 DDPM steps at CFG 5.0 and PAG
+     1.3, then rembg and the mini shape stack at octree 256, cold and warm,
+     stage times, peak memory, the warm run's launches (kernels 1 and 3),
+     the GLB written and read back; one timing of its head-88 self-attention
+     [2,16,4096,88] through the port's sdpa beside
+     F.scaled_dot_product_attention; then the TINY t2i pipeline at 64² on
+     the card against the same pipeline on the CPU;
+ 10. a JSON line with every kernel's numbers, then the result line.
 Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -174,7 +187,38 @@ def bound(flops, nbytes, kind):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def flash_phase(gen):
+def fp32_check(name, q, k, v, out, plain):
+    """An fp32 row against an fp64 evaluation of the kernel's function:
+    every element within the bound that the kernel's arithmetic allows
+    (hunyuan3d2_tpu_torch/tools/flash_fp32_error.py: 3xTF32 products, each
+    64-key tile summed apart, fp32 softmax); a max abs error within 8x the
+    plain twin's (fp32 GEMMs) on the same inputs, so that an error confined
+    to a few elements fails too (0.37-3.3x measured over 7 shapes x 8 seeds,
+    4.1x once at [1,4,1000,333,128]; a tensor-core sum carried across all
+    key tiles gave 9.5-14x at 3072 keys); and a relative RMS error within 4x
+    the twin's (0.5-2.2x measured; the carried sum gave 8x at 512 keys and
+    21x at 3072).
+    Returns (max abs err, its largest share of the bound, the largest bound,
+    the twin's max abs err, the two relative RMS errors)."""
+    import torch
+
+    from hunyuan3d2_tpu_torch.tools.flash_fp32_error import check_against_fp64, fp32_error_bound
+
+    check(torch.isfinite(out).all().item(), f"{name}: non-finite output")
+    ref, bound = fp32_error_bound(q, k, v)
+    c, t = check_against_fp64(out, ref, bound), check_against_fp64(plain, ref, bound)
+    rms, twin_rms = ((x.double() - ref).norm().item() / ref.norm().item() for x in (out, plain))
+    check(c["within"] and c["max_abs_err"] <= 8 * t["max_abs_err"] and rms <= 4 * twin_rms,
+          f"{name}: max abs err {c['max_abs_err']} against fp64 (twin {t['max_abs_err']}, "
+          f"limit 8x), {c['max_share_of_bound']} of its bound; relative RMS err {rms} "
+          f"(twin {twin_rms}, limit 4x)")
+    return c["max_abs_err"], c["max_share_of_bound"], c["max_bound"], t["max_abs_err"], rms, \
+        twin_rms
+
+
+def flash_phase():
+    import zlib
+
     import torch
     import torch.nn.functional as F
 
@@ -183,10 +227,12 @@ def flash_phase(gen):
     rows = []
     # (name, (B, H, Lq, Lk, D), dtype, ceiling on max |kernel - plain|, see
     # attention_check): bf16 output is rounded once and P is rounded before
-    # P.V in both, at other block boundaries; fp32 (3xTF32 products) differs
-    # by ~1e-6, held to 1e-5. The "d128" rows are off the product paths: the
-    # second head size the kernel takes. The paint rows are the UNet's multiview attention at 64² latents
-    # (6 views), its reference attention and its cross-attention (77 keys);
+    # P.V in both, at other block boundaries. fp32 rows (3xTF32 products)
+    # are held to an fp64 evaluation (fp32_check). Each row draws its inputs
+    # from a generator seeded by its name. The "d128" rows are off the
+    # product paths: the second head size the kernel takes. The paint rows
+    # are the UNet's multiview attention at 64² latents (6 views), its
+    # reference attention and its cross-attention (77 keys);
     # the "paint cfg" rows the standard loop's CFG batch 2 (multiview at the
     # 64² and 32² levels, self and reference attention at 64²);
     # "dit full fast" is the v2-0 Fast DiT (3072 latents + 1370 cond tokens,
@@ -198,18 +244,19 @@ def flash_phase(gen):
             ("dinov2", (1, 24, 1370, 1370, 64), torch.bfloat16, 2e-2),
             ("clip", (1, 16, 257, 257, 64), torch.bfloat16, 2e-2),
             ("dit", (2, 16, 1882, 1882, 64), torch.bfloat16, 2e-2),
-            ("vae", (1, 16, 512, 512, 64), torch.float32, 1e-5),
+            ("vae", (1, 16, 512, 512, 64), torch.float32, None),
             ("paint multiview", (1, 5, 24576, 24576, 64), torch.bfloat16, 2e-2),
             ("paint reference", (6, 5, 4096, 4096, 64), torch.bfloat16, 2e-2),
             ("paint cross", (6, 5, 4096, 77, 64), torch.bfloat16, 2e-2),
             ("dit full fast", (1, 16, 4442, 4442, 64), torch.bfloat16, 2e-2),
-            ("vae full", (1, 16, 3072, 3072, 64), torch.float32, 1e-5),
+            ("vae full", (1, 16, 3072, 3072, 64), torch.float32, None),
             ("geo stream", (1, 16, 199680, 3072, 64), torch.bfloat16, 2e-2),
             ("d128", (1, 8, 4096, 4096, 128), torch.bfloat16, 2e-2),
-            ("d128 fp32", (1, 8, 1024, 1024, 128), torch.float32, 1e-5),
+            ("d128 fp32", (1, 8, 1024, 1024, 128), torch.float32, None),
             ("paint cfg multiview", (2, 5, 24576, 24576, 64), torch.bfloat16, 2e-2),
             ("paint cfg multiview 32", (2, 10, 6144, 6144, 64), torch.bfloat16, 2e-2),
             ("paint cfg reference", (12, 5, 4096, 4096, 64), torch.bfloat16, 2e-2)):
+        gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
         q = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt) for _ in range(2))
 
@@ -220,7 +267,15 @@ def flash_phase(gen):
         out = flash_attention(q, k, v)
         ref = plain()
         torch.cuda.synchronize()
-        err, rel, rms, tol = attention_check(f"flash_attention {name}", out, ref, tol)
+        extra = {}
+        if dt == torch.float32:
+            err, share, tol, twin_err, rms, twin_rms = fp32_check(
+                f"flash_attention {name}", q, k, v, out, ref)
+            rel = err / ref.abs().max().item()
+            extra = dict(against="fp64", share_of_bound=share, twin_max_abs_err=twin_err,
+                         twin_rel_rms_err=twin_rms)
+        else:
+            err, rel, rms, tol = attention_check(f"flash_attention {name}", out, ref, tol)
         scale = d ** -0.5
         ms = time_ms(lambda: flash_attention(q, k, v), 20)
         plain_ms = time_ms(plain, 3)
@@ -229,9 +284,8 @@ def flash_phase(gen):
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         bound_ms, by = bound(flops, nbytes, "bf16" if dt == torch.bfloat16 else "fp32")
         row = dict(shape=f"{name} q {[b, h, lq, d]} k {[b, h, lk, d]} {str(dt).split('.')[-1]}",
-                   max_abs_err=err, max_rel_err=rel, rel_rms_err=rms, tol=tol, ms=ms,
-                   plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+                   max_abs_err=err, max_rel_err=rel, rel_rms_err=rms, tol=tol, **extra, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
         log("flash_attention " + json.dumps(row))
         rows.append(row)
         del q, k, v, out, ref
@@ -1224,7 +1278,7 @@ def _glb_back(name, data, filename):
 
 
 def served_path():
-    """Checkpoints on disk → from_pretrained → the API server → three
+    """Checkpoints on disk → from_pretrained → the API server → four
     requests, at full width, through the user's entry points."""
     import base64
     import io
@@ -1291,7 +1345,7 @@ def served_path():
         gc.collect()
         torch.cuda.empty_cache()
 
-        worker = api_server.ModelWorker.from_pipelines(pipe, paint)
+        worker = api_server.ModelWorker.from_pipelines(pipe, paint, random_weights=True)
         server = api_server.serve(worker, "127.0.0.1", 0)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
@@ -1354,6 +1408,19 @@ def served_path():
                              "chip_smoke_served_sent.glb")
             log(f"served (c) /send + /status: {time.perf_counter() - t0:.3f} s, "
                 f"{len(sent.faces)} faces")
+            # (d) text → image (the tiny random-weight t2i the app builds) → mesh
+            t0 = time.perf_counter()
+            text = _glb_back("served (d)", _post(base + "/generate", {
+                "text": "a wooden chair", "seed": 5, "octree_resolution": 256,
+                "num_inference_steps": 5, "guidance_scale": 5.0}), "chip_smoke_served_text.glb")
+            built = worker.pipeline_t2i.backend.pipe
+            check(built.resolution == 64 and built.device.type == "cuda",
+                  "served (d): not the tiny random-weight t2i pipeline on the card")
+            stages_d = {k: round(LAST_TIMINGS[k], 4) for k in (
+                "T2I Text States", "T2I Denoising", "T2I VAE Decode", "Diffusion Sampling",
+                "Volume Decoding")}
+            log(f"served (d) /generate text: {time.perf_counter() - t0:.3f} s, "
+                f"{len(text.faces)} faces, stages {json.dumps(stages_d)}")
             launches = {name: fn.launches for name, fn in counters.items()}
             log(f"served: launches {json.dumps(launches)}, peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -1372,6 +1439,141 @@ def served_path():
         shutil.rmtree(root, ignore_errors=True)
 
 
+def text_to_mesh_path():
+    """Text → image → mesh at full width through the user's entry points:
+    utils/text2image.HunyuanDiTPipeline over the port's HunyuanDiT v1.1
+    pipeline (FULL without style/meta conditioning: 1408 wide, 16 heads of
+    88, 40 blocks, PAG on blocks 16-19; the t2i SD VAE, scaling 0.13025;
+    1024², 25 DDPM steps, CFG 5.0, PAG 1.3; random weights from seed 0 and
+    the pseudo text embeddings), then rembg and the mini shape stack
+    (DINOv2-giant, 5 steps, FlashVDM at octree 256). Run cold and warm;
+    stage times, peak memory and the warm run's launch counts; the image is
+    checked and the GLB written and read back. Returns the warm launches."""
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
+    from hunyuan3d2_tpu_torch.pipelines.t2i import HunyuanDiTTorchPipeline
+    from hunyuan3d2_tpu_torch.utils.rembg import BackgroundRemover
+    from hunyuan3d2_tpu_torch.utils.text2image import HunyuanDiTPipeline
+    from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
+
+    os.environ["HY3D_CAP_ACTIVES"] = "1"
+    t0 = time.perf_counter()
+    t2i = HunyuanDiTTorchPipeline.init_random(size="full", resolution=1024,
+                                              num_inference_steps=25, device="cuda", seed=0)
+
+    def backend(prompt, negative_prompt, seed):
+        return t2i(prompt, seed=seed, negative_prompt=negative_prompt)
+
+    front = HunyuanDiTPipeline(backend=backend, device="cuda")
+    shape = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="mini", dino="giant",
+                                                         device="cuda", seed=0)
+    shape.enable_flashvdm(mc_algo="dmc")
+    rembg = BackgroundRemover()
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in t2i.transformer.parameters())
+    log(f"text_to_mesh: stacks up in {time.perf_counter() - t0:.2f} s (HunyuanDiT v1.1 "
+        f"{n} parameters, t2i SD VAE, DINOv2-giant, mini DiT, mini ShapeVAE; random weights, "
+        f"seed 0)")
+    counters = _kernel_counters()
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        image = front("一只可爱的猫", seed=0)
+        torch.cuda.synchronize()
+        t_image = time.perf_counter() - t0
+        stages = {k: round(LAST_TIMINGS[k], 4)
+                  for k in ("T2I Text States", "T2I Denoising", "T2I VAE Decode")}
+        t1 = time.perf_counter()
+        cut = rembg(image)
+        t_rembg = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        mesh = shape(cut, seed=1234, num_inference_steps=5, guidance_scale=5.0,
+                     octree_resolution=256, num_chunks=65536)[0]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        stages.update({"rembg": round(t_rembg, 4), "shape": round(time.perf_counter() - t1, 4)})
+        launches = {k: fn.launches for k, fn in counters.items()}
+        arr = np.asarray(image)
+        step_ms = 1e3 * LAST_TIMINGS["T2I Denoising"] / t2i.num_inference_steps
+        log(f"text_to_mesh {run}: {elapsed:.3f} s (image {t_image:.3f} s, denoise "
+            f"{step_ms:.1f} ms a step), stages "
+            f"{json.dumps(stages)}, image {image.size} mean {arr.mean():.2f} std "
+            f"{arr.std():.2f}, {len(mesh.faces)} faces, launches {json.dumps(launches)}, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check(image.size == (1024, 1024) and arr.shape == (1024, 1024, 3),
+              "text_to_mesh: not a 1024² RGB image")
+        check(arr.std() > 1.0 and len(np.unique(arr.reshape(-1, 3), axis=0)) > 16,
+              "text_to_mesh: the image is constant")
+        check(len(mesh.faces) > 0 and np.isfinite(mesh.vertices).all(), "text_to_mesh: bad mesh")
+    for name in ("flash_attention", "fused_geo_decode"):
+        check(launches[name] > 0, f"text_to_mesh: kernel {name} was never launched")
+    write_glb("text_to_mesh", mesh, "chip_smoke_text.glb")
+    del t2i, front, shape
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dit_attention_yardstick():
+    """HunyuanDiT's self-attention at 1024² CFG (head size 88, which the
+    flash kernel's gate refuses): the port's plain sdpa against
+    F.scaled_dot_product_attention, one timing each, with the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from hunyuan3d2_tpu_torch.ops.attention import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(88)
+    q, k, v = (torch.randn(2, 16, 4096, 88, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    ms = time_ms(lambda: attention(q, k, v), 5)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    flops = 4.0 * 2 * 16 * 4096 * 4096 * 88
+    bound_ms, by = bound(flops, 4 * q.numel() * 2, "bf16")
+    log("hunyuan_dit self-attention " + json.dumps(dict(
+        shape="[2,16,4096,88] bf16", route="ops.attention.sdpa (fp32 products and softmax)",
+        ms=ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+        fp32_bound_ms=bound(flops, 0, "fp32")[0])))
+    return dict(ms=ms, library_ms=lib_ms, bound_ms=bound_ms)
+
+
+def t2i_agreement():
+    """The TINY t2i pipeline at 64² on the card against the same pipeline on
+    the CPU: the same weights (drawn on the CPU), the same pseudo text
+    embeddings and the same injected noise; image corr ≥ 0.99, mean |Δ|
+    ≤ 3 levels, and finite latents."""
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch.pipelines.t2i import HunyuanDiTTorchPipeline
+
+    steps = 4
+    cpu = HunyuanDiTTorchPipeline.init_random(resolution=64, num_inference_steps=steps,
+                                              device="cpu", seed=3)
+    card = HunyuanDiTTorchPipeline.init_random(resolution=64, num_inference_steps=steps,
+                                               device="cuda", seed=4)
+    card.transformer.load_state_dict(cpu.transformer.state_dict())
+    card.vae.load_state_dict(cpu.vae.state_dict())
+    rs = np.random.RandomState(0)
+    init = rs.randn(1, 32, 32, 4).astype(np.float32)
+    noises = [rs.randn(1, 32, 32, 4).astype(np.float32) for _ in range(steps)]
+    ctx, pooled = card.context("a teapot")
+    lat = card.denoise(ctx, pooled, 32, 32, init, noises)
+    check(bool(torch.isfinite(lat).all().item()), "t2i check: non-finite latents on the card")
+    x, y = (np.asarray(p("a teapot", seed=0, init_latents=init, step_noises=noises),
+                       np.float64) for p in (card, cpu))
+    corr = np.corrcoef(x.ravel(), y.ravel())[0, 1]
+    mad = np.abs(x - y).mean()
+    log(f"t2i check (TINY HunyuanDiT + TINY VAE, 64², {steps} DDPM steps, CFG + PAG): card vs "
+        f"CPU image corr {corr:.6f}, mean |diff| {mad:.3f} levels, image std {x.std():.2f}")
+    check(x.std() > 1.0 and corr >= 0.99 and mad <= 3.0,
+          "t2i check: the card's image disagrees with the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -1381,6 +1583,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from hunyuan3d2_tpu_torch.utils import cuda_build
 
+    os.environ["HF_HUB_OFFLINE"] = "1"   # nothing here may reach a model hub
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1400,7 +1603,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     sphere = sphere_mesh()
     with torch.no_grad():
-        flash_rows = flash_phase(gen)
+        flash_rows = flash_phase()
         geo_rows, chain_mini, parts_mini = geo_phase(gen)
         tail_rows, chain_v20, parts_v20 = stream_phase(gen)
         masked_rows = masked_phase(gen, sphere)
@@ -1425,10 +1628,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches_served = served_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_text = text_to_mesh_path()
+    with torch.no_grad():
+        dit_attention_yardstick()
+    t2i_agreement()
     by_path = {"image_to_mesh": launches_mesh, "image_to_mesh_v2_0_fast": launches_v20,
                "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex,
                "textured_glb_standard": launches_std, "flash_sweep": launches_sweep,
-               "served": launches_served}
+               "served": launches_served, "text_to_mesh": launches_text}
 
     def entry(name, source, replaces, rows, main_row, path):
         """``launches`` is the count from ``path``'s warm run; every path's

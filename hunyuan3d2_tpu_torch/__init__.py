@@ -7,8 +7,10 @@ nets or host marching cubes / tetrahedra), and
 mesh + image → textured mesh through the paint-turbo stack (device cond
 maps → 2.5D UNet multiview diffusion → UV unwrap → texture-space bake);
 the published checkpoints load with ``from_pretrained`` (io/checkpoints.py),
-meshes are cleaned on the host (geometry/postprocess.py), and apps/ serves
-it all over HTTP, gradio or a one-shot demo.
+meshes are cleaned on the host (geometry/postprocess.py), text → image runs
+through HunyuanDiT (pipelines/t2i.py, utils/text2image.py), and apps/ serves
+it all over HTTP, gradio or a one-shot demo; examples/ holds the
+reference's example scripts.
 Hand-written Hopper kernels: flash attention, unmasked and masked
 (csrc/flash_attention.cu), the fused geo decoder and the streamed decode's
 MLP tail (csrc/geo_decode.cu) and the z-buffer rasterizer

@@ -1,5 +1,5 @@
-"""HTTP model server on the PyTorch port: image → (textured) mesh file (port
-of apps/api_server.py).
+"""HTTP model server on the PyTorch port: image or text → (textured) mesh
+file (port of apps/api_server.py).
 
 Routes, with the reference server's JSON contracts: POST /generate answers
 with the file; POST /send starts the job and answers ``{"uid"}``; GET
@@ -7,9 +7,11 @@ with the file; POST /send starts the job and answers ``{"uid"}``; GET
 ``{"status": "completed", "model_base64"}``; GET /healthz. Request fields:
 ``image`` (base64), ``seed``, ``octree_resolution``, ``num_inference_steps``,
 ``guidance_scale``, ``mc_algo``, ``texture``, ``face_count`` and ``type``
-(glb, obj, ply or stl). A ``text`` request gets a 400: text-to-image is not
-ported. A textured request runs the mesh postprocess (floaters, degenerate
-faces, a face budget) before the paint stack.
+(glb, obj, ply or stl). A ``text`` request (no ``image``) first makes the
+image with utils/text2image.HunyuanDiTPipeline, built at the first such
+request from ``$HY3D_T2I_MODEL`` (with random weights: the tiny
+random-weight pipeline). A textured request runs the mesh postprocess
+(floaters, degenerate faces, a face budget) before the paint stack.
 
     python -m hunyuan3d2_tpu_torch.apps.api_server --random-weights --device cpu
     python -m hunyuan3d2_tpu_torch.apps.api_server --model_path <dir> --enable_tex
@@ -72,25 +74,46 @@ class ModelWorker:
             else:
                 pipeline_tex = Hunyuan3DPaintPipeline.from_pretrained(
                     tex_model_path or model_path, device=device)
-        self._setup(pipeline, pipeline_tex, limit_model_concurrency)
+        self._setup(pipeline, pipeline_tex, limit_model_concurrency, random_weights)
 
     @classmethod
-    def from_pipelines(cls, pipeline, pipeline_tex=None, limit_model_concurrency: int = 5):
-        """A worker serving pipelines the caller already holds."""
+    def from_pipelines(cls, pipeline, pipeline_tex=None, limit_model_concurrency: int = 5,
+                       random_weights: bool = False):
+        """A worker serving pipelines the caller already holds. The text →
+        image pipeline is built at the first text request: the tiny
+        random-weight one with ``random_weights``."""
         worker = cls.__new__(cls)
-        worker._setup(pipeline, pipeline_tex, limit_model_concurrency)
+        worker._setup(pipeline, pipeline_tex, limit_model_concurrency, random_weights)
         return worker
 
-    def _setup(self, pipeline, pipeline_tex, limit_model_concurrency):
+    def _setup(self, pipeline, pipeline_tex, limit_model_concurrency, random_weights=False):
         from hunyuan3d2_tpu_torch.utils.rembg import BackgroundRemover
 
         self.worker_id = str(uuid.uuid4())[:6]
         self.model_semaphore = threading.Semaphore(limit_model_concurrency)
         self._pipeline_lock = threading.Lock()
+        self._t2i_lock = threading.Lock()
         self.rembg = BackgroundRemover()
         self.pipeline = pipeline
         self.pipeline.enable_flashvdm(True, mc_algo="mc")
         self.pipeline_tex = pipeline_tex
+        self.pipeline_t2i = None
+        self.random_weights = random_weights
+
+    def text_to_image(self, text: str, seed: int = 0):
+        """The prompt's image, from the t2i pipeline built at the first call
+        (under a lock: concurrent requests would each load it)."""
+        with self._t2i_lock:
+            if self.pipeline_t2i is None:
+                from hunyuan3d2_tpu_torch.utils.text2image import HunyuanDiTPipeline, port_backend
+
+                device = self.pipeline.device
+                self.pipeline_t2i = HunyuanDiTPipeline(
+                    model_path=os.environ.get(
+                        "HY3D_T2I_MODEL", "Tencent-Hunyuan/HunyuanDiT-v1.1-Diffusers-Distilled"),
+                    backend=port_backend(None, device) if self.random_weights else None,
+                    device=device)
+        return self.pipeline_t2i(text, seed=seed)
 
     def generate(self, uid: str, params: dict) -> str:
         """Run one request; returns the written file's path. Bad input raises
@@ -117,8 +140,7 @@ class ModelWorker:
             except (ValueError, UnidentifiedImageError) as e:
                 raise ValueError(f"image is not a base64-encoded image: {e}") from e
         elif "text" in params:
-            raise ValueError("text-to-image is not ported to hunyuan3d2_tpu_torch yet; "
-                             "send an image")
+            image = self.text_to_image(str(params["text"]), seed=params.get("seed", 0))
         else:
             raise ValueError("No input image or text provided")
         image = self.rembg(image)

@@ -1,10 +1,11 @@
-"""Gradio UI on the PyTorch port: image or multiview → 3D (port of
+"""Gradio UI on the PyTorch port: image, text or multiview → 3D (port of
 apps/gradio_app.py).
 
-Tabs for an image, a text prompt (text-to-image is not ported: the tab is
-disabled) and up to four views; options for steps, guidance, seed and
-octree resolution; export as glb, obj, ply or stl with an optional face
-budget; per-stage timings shown beside the result. ``GradioWorker`` holds
+Tabs for an image, a text prompt (with ``--enable_t23d``: text → image
+through utils/text2image.HunyuanDiTPipeline, the tiny random-weight one
+under ``--random-weights``) and up to four views; options for steps,
+guidance, seed and octree resolution; export as glb, obj, ply or stl with
+an optional face budget; per-stage timings shown beside the result. ``GradioWorker`` holds
 the pipelines and does the work; ``build_ui`` lays out the page. gradio is
 imported only by ``build_ui`` and ``main``.
 
@@ -40,12 +41,9 @@ class GradioWorker:
         from hunyuan3d2_tpu_torch import Hunyuan3DDiTFlowMatchingPipeline, Hunyuan3DPaintPipeline
         from hunyuan3d2_tpu_torch.utils.rembg import BackgroundRemover
 
-        if args.enable_t23d:
-            raise NotImplementedError("text-to-image is not ported to hunyuan3d2_tpu_torch yet")
         device = getattr(args, "device", None)
         self.args = args
         self.rembg = BackgroundRemover()
-        self.t2i = None
         if args.random_weights:
             self.shape_pipe = Hunyuan3DDiTFlowMatchingPipeline.init_random(
                 size=os.environ.get("HY3D_RANDOM_SIZE", "mini"), dino="tiny", device=device)
@@ -63,12 +61,25 @@ class GradioWorker:
             else:
                 self.tex_pipe = Hunyuan3DPaintPipeline.from_pretrained(args.texgen_model_path,
                                                                        device=device)
+        self.t2i = None
+        if args.enable_t23d:
+            from hunyuan3d2_tpu_torch.utils.text2image import HunyuanDiTPipeline, port_backend
 
-    def _prepare_input(self, image=None, mv_images=None, prompt=None):
+            device = self.shape_pipe.device
+            self.t2i = HunyuanDiTPipeline(
+                backend=port_backend(None, device) if args.random_weights else None,
+                device=device)
+
+    def text_to_image(self, prompt, seed=0):
+        if self.t2i is None:
+            raise RuntimeError("text-to-image is disabled; launch with --enable_t23d")
+        return self.t2i(prompt, seed=seed)
+
+    def _prepare_input(self, image=None, mv_images=None, prompt=None, seed=1234):
         from hunyuan3d2_tpu_torch.utils.imageproc import ImageProcessorV2, MVImageProcessorV2
 
         if prompt is not None and image is None and mv_images is None:
-            raise RuntimeError("text-to-3D is not available: text-to-image is not ported")
+            image = self.text_to_image(prompt, seed=seed)
         if mv_images is not None:
             views = {k: self.rembg(v) for k, v in mv_images.items() if v is not None}
             if not views:
@@ -94,7 +105,7 @@ class GradioWorker:
 
         stats = {}
         t0 = time.time()
-        cond_input, ref_image = self._prepare_input(image, mv_images, prompt)
+        cond_input, ref_image = self._prepare_input(image, mv_images, prompt, seed)
         stats["preprocess"] = time.time() - t0
         t1 = time.time()
         mesh = self.shape_pipe(image=cond_input, num_inference_steps=steps,
@@ -160,7 +171,8 @@ def build_ui(worker):
                         image = gr.Image(type="pil", label="Input image", image_mode="RGBA")
                     with gr.Tab("Text to 3D"):
                         prompt = gr.Textbox(label="Prompt", interactive=worker.t2i is not None,
-                                            placeholder="text-to-image is not ported")
+                                            placeholder="launch with --enable_t23d"
+                                            if worker.t2i is None else "a prompt")
                     with gr.Tab("MultiView to 3D"):
                         mv_front = gr.Image(type="pil", label="front", image_mode="RGBA")
                         mv_left = gr.Image(type="pil", label="left", image_mode="RGBA")

@@ -54,7 +54,11 @@
 // `flash_f32_kernel`): a CTA of 4 warps per 64-row q tile, K/V tiles of 64
 // keys double-buffered by cp.async, both products on mma.sync.m16n8k8.tf32
 // as 3xTF32 split products (big.big + big.small + small.big), which keep
-// fp32-grade error where plain TF32 would lose ~3 decimal digits.
+// fp32-grade error where plain TF32 would lose ~3 decimal digits. Each key
+// tile's P.V is summed in fresh accumulators and added to the running sum
+// by an FMA: a tensor-core accumulator may truncate, and one carried across
+// every tile would err in proportion to Lk. The error bound of this
+// arithmetic: hunyuan3d2_tpu_torch/tools/flash_fp32_error.py.
 #include "flash_attention.cuh"
 
 namespace {

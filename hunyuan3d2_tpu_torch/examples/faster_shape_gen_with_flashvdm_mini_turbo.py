@@ -1,0 +1,38 @@
+"""The fastest shape generation on the port: mini-turbo + FlashVDM with TopM
+('merge') K/V pruning (the reference's
+examples/faster_shape_gen_with_flashvdm_mini_turbo.py: 5 steps, octree 380,
+chunks 20000, two timed runs to show the warm latency)."""
+
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+
+from hunyuan3d2_tpu_torch.examples import _demo
+from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
+
+
+def main(device="cuda", image_path=None):
+    if _demo.random_weights():
+        pipeline = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="tiny", dino="tiny",
+                                                                device=device)
+        octree = 64
+    else:
+        pipeline = Hunyuan3DDiTFlowMatchingPipeline.from_pretrained(
+            "tencent/Hunyuan3D-2mini", subfolder="hunyuan3d-dit-v2-mini-turbo", device=device)
+        octree = 380
+    pipeline.enable_flashvdm(topk_mode="merge")
+    image = _demo.image_or_demo(image_path, (120, 90, 220))
+    os.makedirs("tmp/results", exist_ok=True)
+    for it in range(2):
+        start = time.time()
+        mesh = pipeline(image=image, num_inference_steps=5, octree_resolution=octree,
+                        num_chunks=20000, seed=12345)[0]
+        print("--- %s seconds ---" % (time.time() - start))
+        mesh.export(f"tmp/results/run_{it}.glb")
+
+
+if __name__ == "__main__":
+    args = _demo.parse_args(__doc__)
+    main(args.device, *args.inputs[:1])

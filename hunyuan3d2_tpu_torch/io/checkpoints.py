@@ -16,6 +16,10 @@ port's modules on a device (port of hunyuan3d2_tpu/io/checkpoints.py).
   scheduler.
 * ``load_paint_pipeline``: the diffusers layout ``unet/`` and ``vae/``, each
   a ``config.json`` beside ``diffusion_pytorch_model.{bin,safetensors}``.
+* ``load_t2i_pipeline``: a diffusers HunyuanDiT directory, ``transformer/``
+  and ``vae/`` (``.safetensors`` before ``.bin``), and the text encoders
+  ``text_encoder/`` (BERT) and ``text_encoder_2/`` (mT5) through
+  ``transformers`` when the package and both directories are there.
 
 The port's modules carry the checkpoint key names, so a state dict loads as
 it is: each module is built on the ``meta`` device, given storage on the
@@ -285,14 +289,16 @@ def _paint_root(model_path: str, subfolder: str) -> str:
     return os.path.join(path, subfolder)
 
 
-def _diffusers_part(root: str, part: str):
-    """(config.json dict, state dict) of ``root/part``."""
+def _diffusers_part(root: str, part: str, names=("diffusion_pytorch_model.bin",
+                                                  "diffusion_pytorch_model.safetensors")):
+    """(config.json dict, state dict) of ``root/part``, the weights from the
+    first of ``names`` that exists."""
     cfg_path = os.path.join(root, part, "config.json")
     config = {}
     if os.path.exists(cfg_path):
         with open(cfg_path) as fh:
             config = json.load(fh)
-    for name in ("diffusion_pytorch_model.bin", "diffusion_pytorch_model.safetensors"):
+    for name in names:
         path = os.path.join(root, part, name)
         if os.path.exists(path):
             return config, load_state_dict(path)
@@ -326,3 +332,88 @@ def load_paint_pipeline(model_path: str, subfolder: str = "hunyuan3d-paint-v2-0-
         scaling_factor=vj.get("scaling_factor", 0.18215))
     vae = load_weights(on_meta(sd_vae.AutoencoderKL, vcfg), vae_sd, device, (), "paint vae")
     return HunyuanPaintPipeline(unet, vae, view_size=view_size, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the text-to-image pipeline
+# ---------------------------------------------------------------------------
+def _t2i_text_encoder(root: str, dcfg, device):
+    """``encode_text(prompt, negative) → (neg, pos)`` for a diffusers
+    HunyuanDiT layout: ``text_encoder/`` is the Chinese-CLIP BertModel,
+    ``text_encoder_2/`` the mT5 encoder, each state (clip [1, 77, 1024],
+    clip_mask, t5 [1, 256, 2048], t5_mask) as float32 numpy arrays. None
+    when either directory or ``transformers`` is missing."""
+    te1, te2 = os.path.join(root, "text_encoder"), os.path.join(root, "text_encoder_2")
+    if not (os.path.isdir(te1) and os.path.isdir(te2)):
+        return None
+    try:
+        from transformers import AutoTokenizer, BertModel, T5EncoderModel
+    except ImportError:
+        return None
+    bert = BertModel.from_pretrained(te1).to(device).eval()
+    t5 = T5EncoderModel.from_pretrained(te2).to(device).eval()
+    tk1 = AutoTokenizer.from_pretrained(os.path.join(root, "tokenizer"))
+    tk2 = AutoTokenizer.from_pretrained(os.path.join(root, "tokenizer_2"))
+
+    @torch.no_grad()
+    def enc_one(text):
+        b = tk1(text, padding="max_length", max_length=dcfg.text_len, truncation=True,
+                return_tensors="pt").to(device)
+        tb = tk2(text, padding="max_length", max_length=dcfg.t5_len, truncation=True,
+                 return_tensors="pt").to(device)
+        clip = bert(input_ids=b.input_ids, attention_mask=b.attention_mask).last_hidden_state
+        t5s = t5(input_ids=tb.input_ids, attention_mask=tb.attention_mask).last_hidden_state
+        return tuple(x.float().cpu().numpy() for x in (clip, b.attention_mask, t5s,
+                                                       tb.attention_mask))
+
+    def encode_text(prompt, negative_prompt):
+        return enc_one(negative_prompt), enc_one(prompt)
+
+    return encode_text
+
+
+def _t2i_config(tj: dict):
+    """The transformer config of a diffusers HunyuanDiT ``config.json``."""
+    import dataclasses
+
+    from hunyuan3d2_tpu_torch.models import hunyuan_dit
+
+    depth = tj.get("num_layers", 40)
+    nh = tj.get("num_attention_heads", 16)
+    return dataclasses.replace(
+        hunyuan_dit.FULL, hidden_size=tj.get("attention_head_dim", 88) * nh, num_heads=nh,
+        depth=depth, in_channels=tj.get("in_channels", 4), mlp_ratio=tj.get("mlp_ratio", 4.0),
+        text_dim=tj.get("cross_attention_dim", 1024), t5_dim=tj.get("cross_attention_dim_t5", 2048),
+        text_len=tj.get("text_len", 77), t5_len=tj.get("text_len_t5", 256),
+        pooled_dim=tj.get("pooled_projection_dim", 1024),
+        # v1.1 / v1.2 checkpoints drop the style and image-meta conditioning
+        use_style_meta=bool(tj.get("use_style_cond_and_image_meta_size", True)),
+        # PAG layers past a shallow checkpoint's depth would be dead
+        pag_layers=tuple(i for i in hunyuan_dit.FULL.pag_layers if i < depth))
+
+
+def load_t2i_pipeline(cls, ckpt_path: str, device=None, **kwargs):
+    """A diffusers HunyuanDiT directory → ``cls`` (the t2i pipeline) on
+    ``device`` (``cuda`` unless the caller passes another). Without text
+    encoders the pipeline conditions on pseudo-random embeddings and says so
+    in a warning at each call."""
+    from hunyuan3d2_tpu_torch.models import hunyuan_dit, sd_vae
+
+    device = torch.device(device if device is not None else "cuda")
+    names = ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin")
+    tj, dit_sd = _diffusers_part(ckpt_path, "transformer", names)
+    dcfg = _t2i_config(tj)
+    transformer = load_weights(on_meta(hunyuan_dit.HunyuanDiT2DModel, dcfg), dit_sd, device, (),
+                               "transformer")
+    vj, vae_sd = _diffusers_part(ckpt_path, "vae", names)
+    vcfg = sd_vae.SDVAEConfig(
+        latent_channels=vj.get("latent_channels", 4),
+        block_out_channels=tuple(vj.get("block_out_channels", (128, 256, 512, 512))),
+        layers_per_block=vj.get("layers_per_block", 2),
+        scaling_factor=vj.get("scaling_factor", 0.13025))
+    vae = load_weights(on_meta(sd_vae.AutoencoderKL, vcfg), vae_sd, device, (), "t2i vae")
+    if "encode_text" not in kwargs:   # loading the encoders is costly: only when needed
+        kwargs["encode_text"] = _t2i_text_encoder(ckpt_path, dcfg, device)
+    pipe = cls(transformer, vae, device=device, **kwargs)
+    pipe.from_checkpoint = True
+    return pipe

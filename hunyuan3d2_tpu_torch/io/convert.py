@@ -5,8 +5,12 @@ The inverse of hunyuan3d2_tpu/io/checkpoints.py ``map_dit``, ``map_shapevae``,
 Linear kernels [in, out] are transposed to torch's [out, in], and every key
 is the Hunyuan3D-2 checkpoint key. The paint UNet and the SD VAE go to the
 diffusers keys that hunyuan3d2_tpu/io/diffusers_maps.py ``export_paint_unet``
-and ``export_sd_vae`` write, with conv kernels HWIO → [out, in, kh, kw]. Input leaves are numpy arrays (any float
-dtype, bf16 included); outputs are float32 numpy arrays, which
+and ``export_sd_vae`` write, with conv kernels HWIO → [out, in, kh, kw].
+HunyuanDiT goes to the diffusers ``HunyuanDiT2DModel`` keys that
+``map_hunyuan_dit`` reads: the stacked ``blocks`` and ``skip_blocks`` become
+``blocks.0 .. blocks.{depth-1}``, the flattened patch kernel the patch conv.
+Input leaves are numpy arrays (any float dtype, bf16 included); outputs are
+float32 numpy arrays, which
 ``load_state_dict`` casts to each parameter's dtype.
 """
 
@@ -267,6 +271,56 @@ def sd_vae_state_dict(params: dict) -> Dict[str, np.ndarray]:
             _conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv", blk["upsample"])
     _norm(sd, "decoder.conv_norm_out", dec["norm_out"])
     _conv(sd, "decoder.conv_out", dec["conv_out"])
+    return sd
+
+
+def _hdit_attn(out: dict, key: str, p: dict, i: int):
+    for n, k in (("to_q", "q"), ("to_k", "k"), ("to_v", "v"), ("to_out.0", "out")):
+        _lin(out, f"{key}.{n}", p[k], i)
+    for n in ("q", "k"):
+        out[f"{key}.norm_{n}.weight"] = _f32(p[f"{n}_norm_scale"][i])
+        out[f"{key}.norm_{n}.bias"] = _f32(p[f"{n}_norm_bias"][i])
+
+
+def hunyuan_dit_state_dict(params: dict, cfg) -> Dict[str, np.ndarray]:
+    """models/hunyuan_dit.py param tree → HunyuanDiT2DModel state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    h, ps, c = cfg.hidden_size, cfg.patch_size, cfg.in_channels
+    # the patch linear [(p_row, p_col, C), h] is the conv [h, C, p_row, p_col]
+    w = _f32(params["patch_embed"]["w"]).reshape(ps, ps, c, h)
+    sd["pos_embed.proj.weight"] = np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+    sd["pos_embed.proj.bias"] = _f32(params["patch_embed"]["b"])
+    _lin(sd, "text_embedder.linear_1", params["text_embedder"]["fc1"])
+    _lin(sd, "text_embedder.linear_2", params["text_embedder"]["fc2"])
+    sd["text_embedding_padding"] = _f32(params["text_embedding_padding"])
+    te = "time_extra_emb"
+    for name in ("timestep_embedder", "extra_embedder"):
+        _lin(sd, f"{te}.{name}.linear_1", params[name]["in_layer"])
+        _lin(sd, f"{te}.{name}.linear_2", params[name]["out_layer"])
+    pool = params["pooler"]
+    sd[f"{te}.pooler.positional_embedding"] = _f32(pool["pos"])
+    for n, k in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("c_proj", "out")):
+        _lin(sd, f"{te}.pooler.{n}", pool[k])
+    if "style_embedder" in params:
+        sd[f"{te}.style_embedder.weight"] = _f32(params["style_embedder"])
+    _lin(sd, "norm_out.linear", params["norm_out"]["linear"])
+    _lin(sd, "proj_out", params["proj_out"])
+    for tree, n, first in ((params["blocks"], cfg.n_pre, 0),
+                           (params["skip_blocks"], cfg.n_skip, cfg.n_pre)):
+        for i in range(n):
+            b = f"blocks.{first + i}"
+            sd[f"{b}.norm1.norm.weight"] = _f32(tree["norm1_scale"][i])
+            sd[f"{b}.norm1.norm.bias"] = _f32(tree["norm1_bias"][i])
+            _lin(sd, f"{b}.norm1.linear", tree["norm1_linear"], i)
+            _hdit_attn(sd, f"{b}.attn1", tree["attn1"], i)
+            _hdit_attn(sd, f"{b}.attn2", tree["attn2"], i)
+            for norm in ("norm2", "norm3") + (("skip_norm",) if first else ()):
+                sd[f"{b}.{norm}.weight"] = _f32(tree[f"{norm}_scale"][i])
+                sd[f"{b}.{norm}.bias"] = _f32(tree[f"{norm}_bias"][i])
+            _lin(sd, f"{b}.ff.net.0.proj", tree["mlp_in"], i)
+            _lin(sd, f"{b}.ff.net.2", tree["mlp_out"], i)
+            if first:
+                _lin(sd, f"{b}.skip_linear", tree["skip_linear"], i)
     return sd
 
 

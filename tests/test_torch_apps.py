@@ -28,6 +28,19 @@ from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: the suite runs several workers on the
+    host's cores, and torch's many small CPU calls slow down many times over
+    when every worker spins up a thread per core."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _small_paint():
     from hunyuan3d2_tpu_torch import Hunyuan3DPaintPipeline
 
@@ -100,6 +113,19 @@ def test_generate_returns_a_glb(server, tmp_path):
     assert code == 200
     mesh = _read_glb(body, tmp_path)
     assert len(mesh.faces) > 0 and mesh.faces.max() < len(mesh.vertices)
+
+
+def test_generate_from_text_returns_a_glb(server, tmp_path):
+    """A text request: the tiny random-weight t2i pipeline, built at the
+    first such request, makes the image; the shape stack its mesh."""
+    from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
+
+    code, body = _request(server + "/generate", {"text": "a chair", "octree_resolution": 32,
+                                                 "num_inference_steps": 2, "seed": 3})
+    assert code == 200
+    mesh = _read_glb(body, tmp_path)
+    assert len(mesh.faces) > 0 and mesh.faces.max() < len(mesh.vertices)
+    assert "T2I Denoising" in LAST_TIMINGS
 
 
 def test_generate_textured_runs_postprocess_and_paint(server, tmp_path):
@@ -187,7 +213,7 @@ def test_status_right_after_send_finds_the_job(monkeypatch, tmp_path, fails):
 @pytest.mark.parametrize("route,payload,code,message", [
     ("/nowhere", None, 404, "unknown route"),
     ("/nowhere", {}, 404, "unknown route"),
-    ("/generate", {"text": "a chair"}, 400, "text-to-image is not ported"),
+    ("/generate", {"text": "a chair", "type": "fbx"}, 400, "type must be one of"),
     ("/generate", {}, 400, "No input image"),
     ("/generate", {"image": "bm90IGFuIGltYWdl"}, 400, "not a base64-encoded image"),
     ("/generate", {"image": "", "type": "../x"}, 400, "type must be one of"),
@@ -294,11 +320,20 @@ def test_gradio_worker_shape_multiview_texture_and_export(gradio_worker):
     os.unlink(html)
 
 
-def test_gradio_worker_refuses_text_to_3d():
+def test_gradio_worker_refuses_text_to_3d(monkeypatch):
+    """Only without --enable_t23d (the fixture's worker refuses, see above);
+    with it, random weights give the tiny random-weight t2i pipeline, and a
+    prompt becomes an image and then a mesh."""
     from hunyuan3d2_tpu_torch.apps.gradio_app import GradioWorker
+    from hunyuan3d2_tpu_torch.pipelines.t2i import HunyuanDiTTorchPipeline
 
-    with pytest.raises(NotImplementedError, match="text-to-image"):
-        GradioWorker(_args(enable_t23d=True))
+    monkeypatch.setenv("HY3D_RANDOM_SIZE", "tiny")
+    w = GradioWorker(_args(enable_t23d=True, disable_tex=True))
+    assert isinstance(w.t2i.backend.pipe, HunyuanDiTTorchPipeline)
+    image = w.text_to_image("a chair", seed=1)
+    assert image.size == (64, 64) and image.mode == "RGB"
+    mesh, ref = w.gen_shape(prompt="a chair", steps=2, octree_resolution=32)
+    assert len(mesh.faces) > 0 and ref.size == (64, 64)
 
 
 def test_build_ui_drives_the_worker(gradio_worker, monkeypatch):

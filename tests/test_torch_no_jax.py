@@ -8,6 +8,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
+import os
 import sys
 import numpy as np
 import torch
@@ -29,6 +30,15 @@ from hunyuan3d2_tpu_torch.geometry import postprocess
 from hunyuan3d2_tpu_torch.io import checkpoints
 from hunyuan3d2_tpu_torch.models import clip_vit, conditioner
 from hunyuan3d2_tpu_torch.utils import rembg
+from hunyuan3d2_tpu_torch.models import hunyuan_dit
+from hunyuan3d2_tpu_torch.pipelines import t2i
+from hunyuan3d2_tpu_torch.utils import text2image
+from hunyuan3d2_tpu_torch.tools import flash_fp32_error
+import importlib
+for name in sorted(os.listdir(os.path.join(os.path.dirname(hunyuan3d2_tpu_torch.__file__),
+                                           "examples"))):
+    if name.endswith(".py") and name != "__init__.py":
+        importlib.import_module("hunyuan3d2_tpu_torch.examples." + name[:-3])
 
 pipe = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="tiny", dino="tiny", device="cpu")
 pipe.enable_flashvdm(mc_algo="dmc")
@@ -62,9 +72,13 @@ assert 0 < len(clean.faces) <= 200
 import base64, io, os
 buf = io.BytesIO()
 Image.fromarray(img).save(buf, format="PNG")
-worker = api_server.ModelWorker.from_pipelines(pipe)
+worker = api_server.ModelWorker.from_pipelines(pipe, random_weights=True)
 path = worker.generate("no-jax-probe", {"image": base64.b64encode(buf.getvalue()).decode(),
                                         "octree_resolution": 16, "num_inference_steps": 1})
+assert len(mesh.__class__.load(path).faces)
+os.unlink(path)
+path = worker.generate("no-jax-probe-text", {"text": "a chair", "octree_resolution": 16,
+                                             "num_inference_steps": 1})
 assert len(mesh.__class__.load(path).faces)
 os.unlink(path)
 bad = sorted(m for m in sys.modules if m in ("jax", "hunyuan3d2_tpu")
@@ -76,6 +90,8 @@ print("FORBIDDEN", bad)
 def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
+    # one intra-op thread: the suite's other workers share the host's cores
+    env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

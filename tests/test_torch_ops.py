@@ -128,6 +128,27 @@ def test_plain_flash_matches_pallas_kernel(lq, lk, d, dt):
     np.testing.assert_allclose(out, ref, **TOL[dt])
 
 
+def test_plain_flash_fp32_error_within_the_analysed_bound():
+    """The plain twin's fp32 result against an fp64 evaluation of the same
+    function at the v2-0 VAE's shape [1, 16, 3072, 64]: every element within
+    the bound of tools/flash_fp32_error.py (its fp32 GEMMs sum in another
+    order than the kernel, within the same analysis). The bound is tight
+    enough to refuse products in TF32: a logit error of 2^-11 per product
+    exceeds it."""
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention_plain
+    from hunyuan3d2_tpu_torch.tools.flash_fp32_error import check_against_fp64, fp32_error_bound
+
+    gen = torch.Generator().manual_seed(3072)
+    q, k, v = (torch.randn(1, 16, 3072, 64, generator=gen) for _ in range(3))
+    ref, bound = fp32_error_bound(q, k, v)
+    res = check_against_fp64(flash_attention_plain(q, k, v), ref, bound)
+    assert res["within"] and res["max_share_of_bound"] < 0.1, res
+    # the same products with each operand rounded to TF32 (10 mantissa bits)
+    tf32 = [(x.view(torch.int32) + 0x1000 & ~0x1FFF).view(torch.float32) for x in (q, k)]
+    res = check_against_fp64(flash_attention_plain(*tf32, v), ref, bound)
+    assert not res["within"], res
+
+
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
     x = torch.zeros(1, 2, 16, 64)
     with pytest.raises(ValueError):
