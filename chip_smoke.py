@@ -80,7 +80,20 @@ Phases, in order; any failure exits non-zero:
      [2,16,4096,88] through the port's sdpa beside
      F.scaled_dot_product_attention; then the TINY t2i pipeline at 64² on
      the card against the same pipeline on the CPU;
- 10. a JSON line with every kernel's numbers, then the result line.
+ 10. the secondary image pipelines at full width, each cold and warm with
+     stage times, peak memory and the warm run's launches: delight
+     (Light_Shadow_Remover over the InstructPix2Pix UNet, 512², 50 steps;
+     path delight), x4 upscale (Image_Super_Net over the x4 UNet, 128² →
+     512², 5 DDIM steps at CFG 9.0; path upscale, where kernel 1 takes the
+     64² and 32² levels' attention: 100 launches a call), and align
+     (Img2img_Control_Ip_adapter, 20 steps at CFG 8.0 with the SD1.5
+     ControlNet and the IP-Adapter-plus resampler, then HesModel img2img at
+     strength 0.8 over 40 steps; path align); one timing of the delight
+     UNet's head-40 self-attention [3,8,4096,40] through the port's sdpa
+     beside F.scaled_dot_product_attention; then the three TINY pipelines
+     on the card against the CPU (the upscaler at head size 64, so that
+     kernel 1 runs in it);
+ 11. a JSON line with every kernel's numbers, then the result line.
 Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -239,7 +252,9 @@ def flash_phase():
     # batch 1), "vae full" the v2-0 VAE's self-attention, "geo stream" one
     # fine chunk of the streamed decode at octree 380 (390 blocks of 8³
     # queries) over the 3072 latents; "clip" the Dual conditioner's CLIP
-    # ViT-L/14 tower at 224² (257 tokens).
+    # ViT-L/14 tower at 224² (257 tokens); the "upscale" rows the x4
+    # upscaler's UNet at CFG batch 2 on a 128² image: self-attention and
+    # cross-attention (77 keys) at its 64² and 32² levels.
     for name, (b, h, lq, lk, d), dt, tol in (
             ("dinov2", (1, 24, 1370, 1370, 64), torch.bfloat16, 2e-2),
             ("clip", (1, 16, 257, 257, 64), torch.bfloat16, 2e-2),
@@ -255,7 +270,11 @@ def flash_phase():
             ("d128 fp32", (1, 8, 1024, 1024, 128), torch.float32, None),
             ("paint cfg multiview", (2, 5, 24576, 24576, 64), torch.bfloat16, 2e-2),
             ("paint cfg multiview 32", (2, 10, 6144, 6144, 64), torch.bfloat16, 2e-2),
-            ("paint cfg reference", (12, 5, 4096, 4096, 64), torch.bfloat16, 2e-2)):
+            ("paint cfg reference", (12, 5, 4096, 4096, 64), torch.bfloat16, 2e-2),
+            ("upscale self 64", (2, 8, 4096, 4096, 64), torch.bfloat16, 2e-2),
+            ("upscale cross 64", (2, 8, 4096, 77, 64), torch.bfloat16, 2e-2),
+            ("upscale self 32", (2, 8, 1024, 1024, 64), torch.bfloat16, 2e-2),
+            ("upscale cross 32", (2, 8, 1024, 77, 64), torch.bfloat16, 2e-2)):
         gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
         q = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt) for _ in range(2))
@@ -1518,29 +1537,6 @@ def text_to_mesh_path():
     return launches
 
 
-def dit_attention_yardstick():
-    """HunyuanDiT's self-attention at 1024² CFG (head size 88, which the
-    flash kernel's gate refuses): the port's plain sdpa against
-    F.scaled_dot_product_attention, one timing each, with the bound."""
-    import torch
-    import torch.nn.functional as F
-
-    from hunyuan3d2_tpu_torch.ops.attention import attention
-
-    gen = torch.Generator(device="cuda").manual_seed(88)
-    q, k, v = (torch.randn(2, 16, 4096, 88, generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    ms = time_ms(lambda: attention(q, k, v), 5)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
-    flops = 4.0 * 2 * 16 * 4096 * 4096 * 88
-    bound_ms, by = bound(flops, 4 * q.numel() * 2, "bf16")
-    log("hunyuan_dit self-attention " + json.dumps(dict(
-        shape="[2,16,4096,88] bf16", route="ops.attention.sdpa (fp32 products and softmax)",
-        ms=ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
-        fp32_bound_ms=bound(flops, 0, "fp32")[0])))
-    return dict(ms=ms, library_ms=lib_ms, bound_ms=bound_ms)
-
-
 def t2i_agreement():
     """The TINY t2i pipeline at 64² on the card against the same pipeline on
     the CPU: the same weights (drawn on the CPU), the same pseudo text
@@ -1572,6 +1568,195 @@ def t2i_agreement():
         f"CPU image corr {corr:.6f}, mean |diff| {mad:.3f} levels, image std {x.std():.2f}")
     check(x.std() > 1.0 and corr >= 0.99 and mad <= 3.0,
           "t2i check: the card's image disagrees with the CPU's")
+
+
+def image_runs(name, fn, stage, steps, expect):
+    """Drive ``fn()`` cold and warm with the kernels' counts set to 0 just
+    before each run; log the time, the denoise stage's time a step, peak
+    memory and the launches; check the output image (PIL) against
+    ``expect`` = (width, height). Returns (the warm image, its launches)."""
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
+
+    counters = _kernel_counters()
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        image = fn()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        arr = np.asarray(image)
+        log(f"{name} {run}: {elapsed:.3f} s ({stage} {LAST_TIMINGS[stage]:.3f} s, "
+            f"{1e3 * LAST_TIMINGS[stage] / steps:.1f} ms a step), image {image.size} mean "
+            f"{arr.mean():.2f} std {arr.std():.2f}, launches {json.dumps(launches)}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check(image.size == expect and arr.shape == (expect[1], expect[0], 3)
+              and arr.dtype == np.uint8, f"{name}: not a {expect} RGB image")
+        check(arr.std() > 1.0 and len(np.unique(arr.reshape(-1, 3), axis=0)) > 16,
+              f"{name}: the image is constant")
+    return image, launches
+
+
+def delight_path():
+    """The delight stage at full width (path delight): utils/dehighlight's
+    Light_Shadow_Remover over DelightPipeline(size="full") (IP2P_UNET, SD1.5
+    geometry with an 8-channel conv_in and 8 heads of 40/80/160 channels,
+    ≈ 0.86 B parameters; SD VAE DEFAULT; random weights from seed 0) on one
+    512² RGBA image, 50 EulerAncestral steps at guidance 1.0 / image
+    guidance 1.5 (the reference's call). Returns the warm launches."""
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch.pipelines.delight import DelightPipeline
+    from hunyuan3d2_tpu_torch.utils.dehighlight import Light_Shadow_Remover
+
+    t0 = time.perf_counter()
+    pipe = DelightPipeline.init_random(size="full", resolution=512, num_inference_steps=50,
+                                       device="cuda", seed=0)
+    remover = Light_Shadow_Remover(pipeline=pipe)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in pipe.unet.parameters())
+    log(f"delight: stack up in {time.perf_counter() - t0:.2f} s (IP2P UNet {n} parameters, "
+        f"SD VAE DEFAULT, random weights, seed 0)")
+    image = test_image()
+    out, launches = image_runs("delight", lambda: remover(image), "Delight Denoising", 50,
+                               (512, 512))
+    arr, alpha = np.asarray(out), np.asarray(image)[..., 3]
+    check((arr[alpha == 0] == 255).all(), "delight: the background is not composited on white")
+    del pipe, remover
+    return launches
+
+
+def upscale_path():
+    """The x4 upscale stage at full width (path upscale): utils/imagesuper's
+    Image_Super_Net over UpscalePipeline(size="full") (X4_UNET: 256/512/512/
+    1024 channels, 8 heads, cross 1024, 7-channel conv_in, noise-level class
+    table; X4_VAE f = 4; random weights from seed 0) on one 128² image → 512²,
+    5 DDIM steps at CFG 9.0, noise level 20 (the reference's call). Kernel 1
+    takes the 64² and 32² levels' self and cross attention (head size 64):
+    10 transformer blocks × 2 a UNet call, 5 calls. Returns the warm
+    launches."""
+    import torch
+    from PIL import Image
+
+    from hunyuan3d2_tpu_torch.pipelines.upscale import UpscalePipeline
+    from hunyuan3d2_tpu_torch.utils.imagesuper import Image_Super_Net
+
+    t0 = time.perf_counter()
+    pipe = UpscalePipeline.init_random(size="full", num_inference_steps=5, device="cuda", seed=0)
+    net = Image_Super_Net(pipeline=pipe)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in pipe.unet.parameters())
+    log(f"upscale: stack up in {time.perf_counter() - t0:.2f} s (x4 UNet {n} parameters, "
+        f"X4_VAE, random weights, seed 0)")
+    image = test_image().convert("RGB").resize((128, 128), Image.LANCZOS)
+    _, launches = image_runs("upscale", lambda: net(image), "Upscale Denoising", 5, (512, 512))
+    check(launches["flash_attention"] == 100,
+          f"upscale: {launches['flash_attention']} flash_attention launches, 100 expected")
+    del pipe, net
+    return launches
+
+
+def align_path():
+    """The align helpers at full width (path align): ControlNetSDPipeline
+    (size="full", 512²: the SD1.5 UNet, the SD1.5 ControlNet, the PLUS_SD15
+    resampler; random weights from seed 0, the adapter's to_k_ip / to_v_ip
+    and the ControlNet's zero convs then seeded non-zero, and an image
+    encoder that returns seeded [1, 257, 1280] states), driven through
+    Img2img_Control_Ip_adapter (20 steps, CFG 8.0, IP scale 0.7) and then
+    HesModel (img2img at strength 0.8 over 40 steps), each cold and warm.
+    Returns the warm launches of both calls together."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from hunyuan3d2_tpu_torch.pipelines.align import ControlNetSDPipeline, HesModel
+    from hunyuan3d2_tpu_torch.utils.align_img4tex import Img2img_Control_Ip_adapter
+
+    t0 = time.perf_counter()
+    pipe = ControlNetSDPipeline.init_random(size="full", resolution=512, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with torch.no_grad():
+        for name, p in (list(pipe.unet.named_parameters())
+                        + list(pipe.controlnet.named_parameters())):
+            if "_ip." in name or name.startswith(("controlnet_down", "controlnet_mid")):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    states = np.random.RandomState(8).randn(1, 257, 1280).astype(np.float32)
+    pipe.image_encoder = lambda image: states
+    torch.cuda.synchronize()
+    n = sum(p.numel() for m in (pipe.unet, pipe.controlnet, pipe.resampler)
+            for p in m.parameters())
+    log(f"align: stack up in {time.perf_counter() - t0:.2f} s (SD1.5 UNet + ControlNet + "
+        f"PLUS_SD15 resampler, {n} parameters; random weights, seed 0, adapter and zero convs "
+        f"seeded non-zero)")
+    image = test_image().convert("RGB")
+    depth = Image.fromarray(np.asarray(image.convert("L")))
+    aligner, hes = Img2img_Control_Ip_adapter(pipeline=pipe), HesModel(pipeline=pipe)
+    _, first = image_runs("align", lambda: aligner("a chair", depth, image, "", height=512,
+                                                   width=512, num_inference_steps=20),
+                          "Align Denoising", 20, (512, 512))
+    # img2img at strength 0.8 runs int(40 · 0.8) = 32 of the 40 steps
+    _, second = image_runs("align HesModel", lambda: hes(image, depth, image), "Align Denoising",
+                           32, (512, 512))
+    del pipe, aligner, hes
+    return {k: first[k] + second[k] for k in first}
+
+
+def sdpa_yardstick(name, shape, dtype):
+    """One timing of the port's plain sdpa (fp32 products and softmax) at
+    an attention shape the flash kernel's gate refuses, beside
+    F.scaled_dot_product_attention, with the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from hunyuan3d2_tpu_torch.ops.attention import attention
+
+    b, h, l, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = (torch.randn(b, h, l, d, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    ms = time_ms(lambda: attention(q, k, v), 5)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    flops = 4.0 * b * h * l * l * d
+    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+    bound_ms, by = bound(flops, 4 * q.numel() * q.element_size(), kind)
+    log(f"{name} " + json.dumps(dict(
+        shape=f"{list(shape)} {kind}", route="ops.attention.sdpa (fp32 products and softmax)",
+        ms=ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+        fp32_bound_ms=bound(flops, 0, "fp32")[0])))
+    return dict(ms=ms, library_ms=lib_ms, bound_ms=bound_ms)
+
+
+def secondary_agreement():
+    """The three TINY pipelines on the card against the same weights and
+    draws on the CPU (tools/card_agreement.py, which the card tests share),
+    image corr ≥ 0.99 and mean |Δ| ≤ 3 levels: delight (32², 3 steps), the
+    upscaler at head size 64 (channels (64, 128), 2 heads, a 64² image:
+    kernel 1 takes its 32² level's and mid block's attention, which is
+    checked), and align (text-to-image and img2img at strength 0.5, the
+    adapter and the zero convs non-zero)."""
+    from hunyuan3d2_tpu_torch.tools import card_agreement as ca
+
+    def agree(name, a, b, extra=""):
+        corr, mad, std = ca.image_agreement(a, b)
+        log(f"{name}: card vs CPU image corr {corr:.6f}, mean |diff| {mad:.3f} levels, image "
+            f"std {std:.2f}{extra}")
+        check(ca.agrees(a, b), f"{name}: the card's image disagrees with the CPU's")
+
+    agree("delight check (TINY, 32², 3 steps)", *ca.delight_images())
+    a, b, launches = ca.upscale_images()
+    agree("upscale check (head-64 TINY (64, 128), 64² → 256², 2 steps)", a, b,
+          f", flash_attention launches {launches}")
+    check(launches == ca.UPSCALE_FLASH_LAUNCHES,
+          f"upscale check: {launches} flash_attention launches, "
+          f"{ca.UPSCALE_FLASH_LAUNCHES} expected")
+    for strength, a, b in ca.align_images():
+        agree(f"align check (TINY, 32², 4 steps, strength {strength})", a, b)
 
 
 def main() -> int:
@@ -1632,12 +1817,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_text = text_to_mesh_path()
     with torch.no_grad():
-        dit_attention_yardstick()
+        # HunyuanDiT's self-attention at 1024² CFG: head size 88, refused by
+        # the flash kernel's gate
+        sdpa_yardstick("hunyuan_dit self-attention", (2, 16, 4096, 88), torch.bfloat16)
     t2i_agreement()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_delight = delight_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_upscale = upscale_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_align = align_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        # the delight UNet's first level: CFG batch 3, 8 heads of 40 at 64²
+        sdpa_yardstick("delight self-attention", (3, 8, 4096, 40), torch.bfloat16)
+    secondary_agreement()
     by_path = {"image_to_mesh": launches_mesh, "image_to_mesh_v2_0_fast": launches_v20,
                "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex,
                "textured_glb_standard": launches_std, "flash_sweep": launches_sweep,
-               "served": launches_served, "text_to_mesh": launches_text}
+               "served": launches_served, "text_to_mesh": launches_text,
+               "delight": launches_delight, "upscale": launches_upscale,
+               "align": launches_align}
 
     def entry(name, source, replaces, rows, main_row, path):
         """``launches`` is the count from ``path``'s warm run; every path's

@@ -10,7 +10,9 @@ the published checkpoints load with ``from_pretrained`` (io/checkpoints.py),
 meshes are cleaned on the host (geometry/postprocess.py), text → image runs
 through HunyuanDiT (pipelines/t2i.py, utils/text2image.py), and apps/ serves
 it all over HTTP, gradio or a one-shot demo; examples/ holds the
-reference's example scripts.
+reference's example scripts. The secondary image pipelines (delight, x4
+upscale, ControlNet + IP-Adapter align: pipelines/{delight,upscale,align}.py
+behind utils/{dehighlight,imagesuper,align_img4tex}.py) run standalone.
 Hand-written Hopper kernels: flash attention, unmasked and masked
 (csrc/flash_attention.cu), the fused geo decoder and the streamed decode's
 MLP tail (csrc/geo_decode.cu) and the z-buffer rasterizer

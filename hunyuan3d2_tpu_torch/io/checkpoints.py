@@ -20,6 +20,12 @@ port's modules on a device (port of hunyuan3d2_tpu/io/checkpoints.py).
   and ``vae/`` (``.safetensors`` before ``.bin``), and the text encoders
   ``text_encoder/`` (BERT) and ``text_encoder_2/`` (mT5) through
   ``transformers`` when the package and both directories are there.
+* ``load_delight_pipeline``, ``load_upscale_pipeline`` and
+  ``load_align_pipeline``: the diffusers InstructPix2Pix, x4-upscaler and
+  SD1.5 directories (``unet/``, ``vae/``, the x4's ``scheduler/`` and
+  ``low_res_scheduler/``), a ControlNetModel directory and an IP-Adapter
+  file, ``.safetensors`` before ``.bin``; the "" prompt's CLIP embedding
+  through ``transformers`` (``empty_prompt_embed``).
 
 The port's modules carry the checkpoint key names, so a state dict loads as
 it is: each module is built on the ``meta`` device, given storage on the
@@ -31,10 +37,12 @@ are drawn. The keys the JAX mappers read nothing from are skipped by name
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Dict, Tuple
 
+import numpy as np
 import safetensors.torch
 import torch
 import yaml
@@ -306,12 +314,27 @@ def _diffusers_part(root: str, part: str, names=("diffusion_pytorch_model.bin",
                             f"{os.path.join(root, part)}")
 
 
+def _sd_vae(root: str, device, block_out_channels, scaling_factor: float, what: str,
+            names=("diffusion_pytorch_model.bin", "diffusion_pytorch_model.safetensors")):
+    """The SD VAE of ``root/vae``, its config from ``config.json`` with the
+    given defaults."""
+    from hunyuan3d2_tpu_torch.models import sd_vae
+
+    vj, vae_sd = _diffusers_part(root, "vae", names)
+    vcfg = sd_vae.SDVAEConfig(
+        latent_channels=vj.get("latent_channels", 4),
+        block_out_channels=tuple(vj.get("block_out_channels", block_out_channels)),
+        layers_per_block=vj.get("layers_per_block", 2),
+        scaling_factor=vj.get("scaling_factor", scaling_factor))
+    return load_weights(on_meta(sd_vae.AutoencoderKL, vcfg), vae_sd, device, (), what)
+
+
 def load_paint_pipeline(model_path: str, subfolder: str = "hunyuan3d-paint-v2-0-turbo",
                         view_size: int = 512, device=None):
     """The HunyuanPaint stack (2.5D UNet with its dual copy, SD VAE) from a
     diffusers-layout directory, on ``device`` (``cuda`` unless the caller
     passes another)."""
-    from hunyuan3d2_tpu_torch.models import paint_unet, sd_vae
+    from hunyuan3d2_tpu_torch.models import paint_unet
     from hunyuan3d2_tpu_torch.pipelines.hunyuanpaint import HunyuanPaintPipeline
 
     device = torch.device(device if device is not None else "cuda")
@@ -324,19 +347,16 @@ def load_paint_pipeline(model_path: str, subfolder: str = "hunyuan3d-paint-v2-0-
         cross_attention_dim=uj.get("cross_attention_dim", 1024), attention_head_dim=64,
         norm_num_groups=uj.get("norm_num_groups", 32))
     unet = load_weights(on_meta(paint_unet.UNet2p5D, ucfg), unet_sd, device, (), "unet")
-    vj, vae_sd = _diffusers_part(root, "vae")
-    vcfg = sd_vae.SDVAEConfig(
-        latent_channels=vj.get("latent_channels", 4),
-        block_out_channels=tuple(vj.get("block_out_channels", (128, 256, 512, 512))),
-        layers_per_block=vj.get("layers_per_block", 2),
-        scaling_factor=vj.get("scaling_factor", 0.18215))
-    vae = load_weights(on_meta(sd_vae.AutoencoderKL, vcfg), vae_sd, device, (), "paint vae")
+    vae = _sd_vae(root, device, (128, 256, 512, 512), 0.18215, "paint vae")
     return HunyuanPaintPipeline(unet, vae, view_size=view_size, device=device)
 
 
 # ---------------------------------------------------------------------------
 # the text-to-image pipeline
 # ---------------------------------------------------------------------------
+SAFETENSORS_FIRST = ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin")
+
+
 def _t2i_text_encoder(root: str, dcfg, device):
     """``encode_text(prompt, negative) → (neg, pos)`` for a diffusers
     HunyuanDiT layout: ``text_encoder/`` is the Chinese-CLIP BertModel,
@@ -374,8 +394,6 @@ def _t2i_text_encoder(root: str, dcfg, device):
 
 def _t2i_config(tj: dict):
     """The transformer config of a diffusers HunyuanDiT ``config.json``."""
-    import dataclasses
-
     from hunyuan3d2_tpu_torch.models import hunyuan_dit
 
     depth = tj.get("num_layers", 40)
@@ -397,23 +415,142 @@ def load_t2i_pipeline(cls, ckpt_path: str, device=None, **kwargs):
     ``device`` (``cuda`` unless the caller passes another). Without text
     encoders the pipeline conditions on pseudo-random embeddings and says so
     in a warning at each call."""
-    from hunyuan3d2_tpu_torch.models import hunyuan_dit, sd_vae
+    from hunyuan3d2_tpu_torch.models import hunyuan_dit
 
     device = torch.device(device if device is not None else "cuda")
-    names = ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin")
-    tj, dit_sd = _diffusers_part(ckpt_path, "transformer", names)
+    tj, dit_sd = _diffusers_part(ckpt_path, "transformer", SAFETENSORS_FIRST)
     dcfg = _t2i_config(tj)
     transformer = load_weights(on_meta(hunyuan_dit.HunyuanDiT2DModel, dcfg), dit_sd, device, (),
                                "transformer")
-    vj, vae_sd = _diffusers_part(ckpt_path, "vae", names)
-    vcfg = sd_vae.SDVAEConfig(
-        latent_channels=vj.get("latent_channels", 4),
-        block_out_channels=tuple(vj.get("block_out_channels", (128, 256, 512, 512))),
-        layers_per_block=vj.get("layers_per_block", 2),
-        scaling_factor=vj.get("scaling_factor", 0.13025))
-    vae = load_weights(on_meta(sd_vae.AutoencoderKL, vcfg), vae_sd, device, (), "t2i vae")
+    vae = _sd_vae(ckpt_path, device, (128, 256, 512, 512), 0.13025, "t2i vae",
+                  SAFETENSORS_FIRST)
     if "encode_text" not in kwargs:   # loading the encoders is costly: only when needed
         kwargs["encode_text"] = _t2i_text_encoder(ckpt_path, dcfg, device)
     pipe = cls(transformer, vae, device=device, **kwargs)
     pipe.from_checkpoint = True
     return pipe
+
+
+# ---------------------------------------------------------------------------
+# the secondary image pipelines: delight, x4 upscale, align
+# ---------------------------------------------------------------------------
+def empty_prompt_embed(ckpt_path: str) -> np.ndarray:
+    """[77, D] CLIP text hidden states of the "" prompt (the delight and
+    upscale models' only prompt), computed once on the host through
+    ``transformers`` CLIPTextModel from ``text_encoder/`` and
+    ``tokenizer/``."""
+    from transformers import CLIPTextModel, CLIPTokenizer
+
+    tok = CLIPTokenizer.from_pretrained(os.path.join(ckpt_path, "tokenizer"))
+    te = CLIPTextModel.from_pretrained(os.path.join(ckpt_path, "text_encoder"))
+    ids = tok("", padding="max_length", max_length=tok.model_max_length,
+              return_tensors="pt").input_ids
+    with torch.no_grad():
+        return te(ids)[0][0].float().numpy()
+
+
+def _sd_unet_config(base, uj: dict, **overrides):
+    """An SD-class UNet config from a diffusers ``config.json``. An int
+    ``attention_head_dim`` is the SD1.5 convention's head count; a list
+    (SD2.x-style configs) leaves the head size at 64."""
+    head = uj.get("attention_head_dim", 8)
+    return dataclasses.replace(
+        base, in_channels=uj.get("in_channels", base.in_channels),
+        block_out_channels=tuple(uj.get("block_out_channels", base.block_out_channels)),
+        layers_per_block=uj.get("layers_per_block", base.layers_per_block),
+        cross_attention_dim=uj.get("cross_attention_dim", base.cross_attention_dim),
+        norm_num_groups=uj.get("norm_num_groups", base.norm_num_groups),
+        num_heads=head if isinstance(head, int) else None, **overrides)
+
+
+def load_delight_pipeline(cls, ckpt_path: str, device=None, **kwargs):
+    """A diffusers InstructPix2Pix directory → ``cls`` (DelightPipeline) on
+    ``device`` (``cuda`` unless the caller passes another)."""
+    from hunyuan3d2_tpu_torch.models.paint_unet import plain_unet
+    from hunyuan3d2_tpu_torch.pipelines.delight import IP2P_UNET
+
+    device = torch.device(device if device is not None else "cuda")
+    uj, unet_sd = _diffusers_part(ckpt_path, "unet", SAFETENSORS_FIRST)
+    unet = load_weights(on_meta(plain_unet, _sd_unet_config(IP2P_UNET, uj)), unet_sd, device,
+                        (), "delight unet")
+    vae = _sd_vae(ckpt_path, device, (128, 256, 512, 512), 0.18215, "delight vae",
+                  SAFETENSORS_FIRST)
+    return cls(unet, vae, empty_prompt_embed(ckpt_path), device=device, **kwargs)
+
+
+def load_upscale_pipeline(cls, ckpt_path: str, device=None, **kwargs):
+    """A diffusers StableDiffusionUpscalePipeline directory → ``cls``
+    (UpscalePipeline) on ``device``: ``down_block_types`` give the
+    cross-attention flags, ``class_embed_type`` the class embedding,
+    ``scheduler/`` the DDIM and ``low_res_scheduler/`` the low-res noising
+    table."""
+    from hunyuan3d2_tpu_torch.models.paint_unet import plain_unet
+    from hunyuan3d2_tpu_torch.pipelines.paint_schedulers import (
+        DDIMScheduler,
+        alphas_cumprod_from_config,
+    )
+    from hunyuan3d2_tpu_torch.pipelines.upscale import X4_UNET
+
+    device = torch.device(device if device is not None else "cuda")
+    uj, unet_sd = _diffusers_part(ckpt_path, "unet", SAFETENSORS_FIRST)
+    types = uj.get("down_block_types")
+    ucfg = _sd_unet_config(
+        X4_UNET, uj,
+        down_cross=tuple("CrossAttn" in t for t in types) if types else X4_UNET.down_cross,
+        class_embed_type="timestep" if uj.get("class_embed_type") == "timestep" else "table",
+        num_class_embeds=uj.get("num_class_embeds") or 1000)
+    unet = load_weights(on_meta(plain_unet, ucfg), unet_sd, device, (), "upscale unet")
+    vae = _sd_vae(ckpt_path, device, (128, 256, 512), 0.08333, "upscale vae", SAFETENSORS_FIRST)
+    for sub, key, build_fn in (("scheduler", "scheduler", DDIMScheduler.from_config),
+                               ("low_res_scheduler", "low_res_alphas_cumprod",
+                                alphas_cumprod_from_config)):
+        path = os.path.join(ckpt_path, sub, "scheduler_config.json")
+        if os.path.exists(path):
+            with open(path) as fh:
+                kwargs.setdefault(key, build_fn(json.load(fh)))
+    return cls(unet, vae, empty_prompt_embed(ckpt_path), device=device, **kwargs)
+
+
+def load_align_pipeline(cls, sd_path: str, controlnet_path: str, ip_adapter_path: str = None,
+                        device=None, **kwargs):
+    """An SD1.5 diffusers directory + a ControlNetModel directory (+ an
+    IP-Adapter file, ``image_proj.*`` and ``ip_adapter.*``) → ``cls``
+    (ControlNetSDPipeline) on ``device``. Without an IP-Adapter file the
+    UNet gets the zero graft and a seed-0 ``PLUS_SD15`` resampler, which it
+    then ignores; a file that is named and missing raises."""
+    from hunyuan3d2_tpu_torch.models import controlnet as cn
+    from hunyuan3d2_tpu_torch.models import ip_adapter as ipa
+    from hunyuan3d2_tpu_torch.models.paint_unet import plain_unet
+    from hunyuan3d2_tpu_torch.ops.nn import build
+    from hunyuan3d2_tpu_torch.pipelines.align import SD15_UNET
+
+    device = torch.device(device if device is not None else "cuda")
+    names = SAFETENSORS_FIRST + ("diffusion_pytorch_model.fp16.safetensors",)
+    uj, unet_sd = _diffusers_part(sd_path, "unet", names)
+    ucfg = _sd_unet_config(SD15_UNET, uj)
+    unet = load_weights(on_meta(plain_unet, ucfg), unet_sd, device, (), "align unet")
+    _, ctrl_sd = _diffusers_part(controlnet_path, "", names)
+    controlnet = load_weights(on_meta(cn.ControlNet, ucfg), ctrl_sd, device, (), "controlnet")
+    vae = _sd_vae(sd_path, device, (128, 256, 512, 512), 0.18215, "align vae", names)
+    if ip_adapter_path is not None:
+        ip_sd = load_state_dict(ip_adapter_path)
+        proj = {k[len("image_proj."):]: v for k, v in ip_sd.items()
+                if k.startswith("image_proj.")}
+        dim = int(proj["layers.0.0.to_q.weight"].shape[1])
+        rcfg = dataclasses.replace(
+            ipa.PLUS_SD15, dim=dim, heads=dim // ipa.PLUS_SD15.dim_head,
+            depth=sum(k.endswith(".0.to_q.weight") for k in proj),
+            num_queries=int(proj["latents"].shape[-2]),
+            embedding_dim=int(proj["proj_in.weight"].shape[1]),
+            output_dim=int(proj["proj_out.weight"].shape[0]),
+            ff_mult=int(proj["layers.0.1.1.weight"].shape[0]) // dim)
+        resampler = load_weights(on_meta(ipa.Resampler, rcfg), proj, device, (),
+                                 "IP-Adapter image_proj")
+        ipa.load_ip_adapter(unet, ip_sd)
+    else:
+        rcfg = dataclasses.replace(ipa.PLUS_SD15, output_dim=ucfg.cross_attention_dim)
+        resampler = build(ipa.Resampler, rcfg, device=device)
+        ipa.add_ip_adapter(unet, ucfg.cross_attention_dim)
+    text = empty_prompt_embed(sd_path)
+    return cls(unet, controlnet, vae, resampler, text, np.zeros_like(text), device=device,
+               **kwargs)

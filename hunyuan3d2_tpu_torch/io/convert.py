@@ -9,6 +9,11 @@ and ``export_sd_vae`` write, with conv kernels HWIO → [out, in, kh, kw].
 HunyuanDiT goes to the diffusers ``HunyuanDiT2DModel`` keys that
 ``map_hunyuan_dit`` reads: the stacked ``blocks`` and ``skip_blocks`` become
 ``blocks.0 .. blocks.{depth-1}``, the flattened patch kernel the patch conv.
+The plain SD-class UNets (delight, x4 upscale, align) go to the
+UNet2DConditionModel keys, a ControlNet to the ControlNetModel keys that
+``export_controlnet`` writes, and an IP-Adapter (resampler and grafted
+``to_k_ip`` / ``to_v_ip``) to its checkpoint's ``image_proj.*`` /
+``ip_adapter.{1,3,5,…}`` keys, as ``export_ip_adapter`` writes them.
 Input leaves are numpy arrays (any float dtype, bf16 included); outputs are
 float32 numpy arrays, which
 ``load_state_dict`` casts to each parameter's dtype.
@@ -180,8 +185,9 @@ def _resnet(out: dict, key: str, p: dict):
 
 
 def _attn(out: dict, key: str, p: dict):
-    for n in ("to_q", "to_k", "to_v"):
-        _lin(out, f"{key}.{n}", p[n])
+    for n in ("to_q", "to_k", "to_v", "to_k_ip", "to_v_ip"):
+        if n in p:
+            _lin(out, f"{key}.{n}", p[n])
     _lin(out, f"{key}.to_out.0", p["to_out"])
 
 
@@ -202,17 +208,16 @@ def _transformer2d(out: dict, key: str, p: dict, wrapped: bool):
     _lin(out, f"{key}.proj_out", p["proj_out"])
 
 
-def _unet_core(params: dict, prefix: str, wrapped: bool) -> Dict[str, np.ndarray]:
-    sd: Dict[str, np.ndarray] = {}
+def _trunk(sd: dict, params: dict, wrapped: bool, up: bool):
+    """conv_in, the time MLP, the down blocks and the mid block (and the up
+    blocks with ``up``): what a UNet and a ControlNet share."""
     _conv(sd, "conv_in", params["conv_in"])
     _lin(sd, "time_embedding.linear_1", params["time_mlp_in"])
     _lin(sd, "time_embedding.linear_2", params["time_mlp_out"])
-    if "class_embedding" in params:
-        sd["class_embedding.weight"] = _f32(params["class_embedding"])
-    sd["learned_text_clip_gen"] = _f32(params["learned_text_clip_gen"])
-    sd["learned_text_clip_ref"] = _f32(params["learned_text_clip_ref"])
-    for tag, blocks, sampler in (("down", params["down"], "downsample"),
-                                 ("up", params["up"], "upsample")):
+    parts = [("down", params["down"], "downsample")]
+    if up:
+        parts.append(("up", params["up"], "upsample"))
+    for tag, blocks, sampler in parts:
         for i, blk in enumerate(blocks):
             for j, r in enumerate(blk["resnets"]):
                 _resnet(sd, f"{tag}_blocks.{i}.resnets.{j}", r)
@@ -223,8 +228,90 @@ def _unet_core(params: dict, prefix: str, wrapped: bool) -> Dict[str, np.ndarray
     _resnet(sd, "mid_block.resnets.0", params["mid"]["res1"])
     _transformer2d(sd, "mid_block.attentions.0", params["mid"]["attn"], wrapped)
     _resnet(sd, "mid_block.resnets.1", params["mid"]["res2"])
+
+
+def _unet_core(params: dict, prefix: str, wrapped: bool,
+               learned_text: bool = True) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    _trunk(sd, params, wrapped, up=True)
+    if "class_embedding" in params:
+        sd["class_embedding.weight"] = _f32(params["class_embedding"])
+    if "class_mlp_in" in params:   # class_embed_type "timestep"
+        _lin(sd, "class_embedding.linear_1", params["class_mlp_in"])
+        _lin(sd, "class_embedding.linear_2", params["class_mlp_out"])
+    if learned_text:
+        sd["learned_text_clip_gen"] = _f32(params["learned_text_clip_gen"])
+        sd["learned_text_clip_ref"] = _f32(params["learned_text_clip_ref"])
     _norm(sd, "conv_norm_out", params["norm_out"])
     _conv(sd, "conv_out", params["conv_out"])
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def unet_core_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """A plain SD-class UNet's param tree (models/paint_unet.py ``init``
+    without its dual copy, any class embedding, ``to_k_ip`` / ``to_v_ip``
+    where grafted) → UNet2DConditionModel state dict, for
+    ``UNetCore(cfg, extras=False, learned_text=False)``. The paint UNet's
+    learned text embeddings, which a plain checkpoint lacks, are left
+    out."""
+    return _unet_core(params, "", wrapped=False, learned_text=False)
+
+
+def controlnet_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """models/controlnet.py param tree → ControlNetModel state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    _trunk(sd, params, wrapped=False, up=False)
+    ce = params["cond_embed"]
+    _conv(sd, "controlnet_cond_embedding.conv_in", ce["conv_in"])
+    for i, b in enumerate(ce["blocks"]):
+        _conv(sd, f"controlnet_cond_embedding.blocks.{i}", b)
+    _conv(sd, "controlnet_cond_embedding.conv_out", ce["conv_out"])
+    for i, zc in enumerate(params["ctrl_down"]):
+        _conv(sd, f"controlnet_down_blocks.{i}", zc)
+    _conv(sd, "controlnet_mid_block", params["ctrl_mid"])
+    return sd
+
+
+def resampler_state_dict(params: dict, prefix: str = "image_proj.") -> Dict[str, np.ndarray]:
+    """models/ip_adapter.py resampler tree → the IP-Adapter checkpoint's
+    ``image_proj.*`` keys (``latents`` as [1, Q, D])."""
+    sd: Dict[str, np.ndarray] = {"latents": _f32(params["latents"])[None]}
+    _lin(sd, "proj_in", params["proj_in"])
+    _lin(sd, "proj_out", params["proj_out"])
+    _norm(sd, "norm_out", params["norm_out"])
+    for i, lp in enumerate(params["layers"]):
+        _norm(sd, f"layers.{i}.0.norm1", lp["norm1"])
+        _norm(sd, f"layers.{i}.0.norm2", lp["norm2"])
+        for n in ("to_q", "to_kv", "to_out"):
+            _lin(sd, f"layers.{i}.0.{n}", lp[n])
+        _norm(sd, f"layers.{i}.1.0", lp["ff_norm"])
+        _lin(sd, f"layers.{i}.1.1", lp["ff_in"])
+        _lin(sd, f"layers.{i}.1.3", lp["ff_out"])
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def ip_adapter_state_dict(unet_params: dict, resampler_params: dict) -> Dict[str, np.ndarray]:
+    """(UNet tree with ``to_k_ip`` / ``to_v_ip``, resampler tree) → the
+    IP-Adapter checkpoint: ``image_proj.*`` and
+    ``ip_adapter.{1,3,5,…}.to_{k,v}_ip.weight`` numbered in the JAX graft
+    order (diffusers' processor order: all down blocks, all up blocks, then
+    mid)."""
+    sd = resampler_state_dict(resampler_params)
+    order = [t["block"]["attn2"] for part in ("down", "up")
+             for blk in unet_params[part] for t in blk["attns"]]
+    order.append(unet_params["mid"]["attn"]["block"]["attn2"])
+    for i, a in enumerate(order):
+        _lin(sd, f"ip_adapter.{2 * i + 1}.to_k_ip", a["to_k_ip"])
+        _lin(sd, f"ip_adapter.{2 * i + 1}.to_v_ip", a["to_v_ip"])
+    return sd
+
+
+def image_proj_state_dict(params: dict, prefix: str = "image_proj.") -> Dict[str, np.ndarray]:
+    """The plain IP-Adapter's projection tree → ``image_proj.proj`` /
+    ``image_proj.norm`` keys."""
+    sd: Dict[str, np.ndarray] = {}
+    _lin(sd, "proj", params["proj"])
+    _norm(sd, "norm", params["norm"])
     return {prefix + k: v for k, v in sd.items()}
 
 

@@ -17,6 +17,14 @@ io/diffusers_maps.py ``export_paint_unet`` writes: ``unet.*`` for the main
 UNet (wrapped blocks at ``...transformer_blocks.0.transformer.*``, extras at
 ``...transformer_blocks.0.attn_refview`` / ``attn_multiview``) and
 ``unet_dual.*`` for the dual copy. Views are folded into the batch axis.
+
+``UNetCore`` without the extras is also the plain SD-class
+UNet2DConditionModel of the delight, x4 upscale and align pipelines: a head
+count per block (``num_heads``), per-block cross-attention flags
+(``down_cross``), a class embedding that is a table or a timestep MLP, the
+IP-Adapter's image branch in every ``attn2`` that carries ``to_k_ip`` /
+``to_v_ip`` (models/ip_adapter.py), and ControlNet residuals
+(models/controlnet.py) added to the skips and after the mid block.
 """
 
 from __future__ import annotations
@@ -47,15 +55,35 @@ class PaintUNetConfig:
     use_reference_attention: bool = True
     use_camera_embedding: bool = True
     use_dual_stream: bool = True
+    # SD2.1-class UNets fix the head size (attention_head_dim channels a
+    # head); SD1.5-class ones (the delight and align UNets) fix the head
+    # count at 8 with per-block head sizes: num_heads sets that count
+    num_heads: Optional[int] = None
+    # per-down-block cross-attention flags, the up blocks mirroring them
+    # reversed; None is the SD default (all but the deepest down block). The
+    # x4 upscaler has (False, True, True, True)
+    down_cross: Optional[tuple] = None
+    # "table": learned rows indexed by the class label (camera indices, the
+    # x4 upscaler's noise level); "timestep": the label is sinusoid-embedded
+    # and run through an MLP like the timestep (diffusers
+    # class_embed_type="timestep")
+    class_embed_type: str = "table"
 
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
 
     def is_cross(self, i: int, down: bool) -> bool:
-        """Down blocks: CrossAttn × (n-1), then Down; up blocks mirror."""
+        """Down blocks: CrossAttn × (n-1), then Down; up blocks mirror. An
+        explicit ``down_cross`` overrides (the up blocks reversed)."""
         n = len(self.block_out_channels)
+        if self.down_cross is not None:
+            return self.down_cross[i if down else n - 1 - i]
         return (i < n - 1) if down else (i > 0)
+
+    def heads(self, c: int) -> int:
+        """The head count of a transformer block at ``c`` channels."""
+        return self.num_heads or c // self.attention_head_dim
 
 
 DEFAULT = PaintUNetConfig()
@@ -174,11 +202,22 @@ class Attention(nn.Module):
         self.to_v = Linear(kv_dim, dim, bias=False)
         self.to_out = nn.ModuleList([Linear(dim, dim)])
 
-    def forward(self, x, kv, heads: int, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, kv, heads: int, mask: Optional[torch.Tensor] = None,
+                ip_context: Optional[torch.Tensor] = None, ip_scale=1.0):
+        """With ``ip_context`` and the grafted ``to_k_ip`` / ``to_v_ip``
+        (diffusers IPAdapterAttnProcessor): the same queries attend over the
+        image tokens through their own K/V, and ``ip_scale`` times that
+        attention is added before the shared ``to_out``. The sum is taken in
+        fp32, as the JAX pipelines' fp32 scale promotes it; the residual
+        stream after it is then fp32 too."""
         q = split_heads(self.to_q(x), heads)
         k = split_heads(self.to_k(kv), heads)
         v = split_heads(self.to_v(kv), heads)
         out = attention(q, k, v) if mask is None else masked_attention(q, k, v, mask)
+        if ip_context is not None and hasattr(self, "to_k_ip"):
+            k_ip = split_heads(self.to_k_ip(ip_context), heads)
+            v_ip = split_heads(self.to_v_ip(ip_context), heads)
+            out = out.float() + ip_scale * attention(q, k_ip, v_ip).float()
         return self.to_out[0](merge_heads(out))
 
 
@@ -242,14 +281,14 @@ class Transformer2D(nn.Module):
         self.proj_out = Linear(ch, ch)
 
     def forward(self, x, context, layer: str, mode: str, num_views: int, cache: Dict,
-                ref_scale, mva_scale, mva_masks):
+                ref_scale, mva_scale, mva_masks, ip_context=None, ip_scale=1.0):
         cfg = self.cfg
         b, hh, ww, c = x.shape
         # diffusers Transformer2DModel GroupNorm eps is 1e-6
         y = self.proj_in(self.norm(x, cfg.norm_num_groups, 1e-6).reshape(b, hh * ww, c))
         wrapped = self.transformer_blocks[0]
         blk = getattr(wrapped, "transformer", wrapped)
-        heads = c // cfg.attention_head_dim
+        heads = cfg.heads(c)
 
         h = blk.norm1(y)
         y = y + blk.attn1(h, h, heads)
@@ -265,7 +304,8 @@ class Transformer2D(nn.Module):
             mask = (mva_masks or {}).get(num_views * l)
             out = wrapped.attn_multiview(mv, mv, heads, mask=mask)
             y = _pinned_add(y, mva_scale, out.reshape(bn, l, c))
-        y = y + blk.attn2(blk.norm2(y), context, heads)
+        y = y + blk.attn2(blk.norm2(y), context, heads, ip_context=ip_context,
+                          ip_scale=ip_scale)
         y = y + blk.ff(blk.norm3(y))
         return x + self.proj_out(y).reshape(b, hh, ww, c)
 
@@ -313,9 +353,11 @@ class _TimestepEmbedding(nn.Module):
 
 
 class UNetCore(nn.Module):
-    """UNet2DConditionModel (+2.5D extras with ``extras``)."""
+    """UNet2DConditionModel (+2.5D extras with ``extras``). The paint UNet's
+    learned text embeddings are there with ``learned_text``; a plain SD
+    checkpoint has none."""
 
-    def __init__(self, cfg: PaintUNetConfig, extras: bool):
+    def __init__(self, cfg: PaintUNetConfig, extras: bool, learned_text: bool = True):
         super().__init__()
         self.cfg = cfg
         chs = cfg.block_out_channels
@@ -323,11 +365,15 @@ class UNetCore(nn.Module):
         self.conv_in = Conv2d(cfg.in_channels, chs[0], 3)
         self.time_embedding = _TimestepEmbedding(chs[0], cfg.time_embed_dim)
         if cfg.use_camera_embedding:
-            self.class_embedding = _ClassEmbedding(cfg.num_class_embeds, cfg.time_embed_dim)
-        self.learned_text_clip_gen = nn.Parameter(
-            torch.empty(1, 77, cfg.cross_attention_dim, dtype=torch.float32))
-        self.learned_text_clip_ref = nn.Parameter(
-            torch.empty(1, 77, cfg.cross_attention_dim, dtype=torch.float32))
+            self.class_embedding = (
+                _TimestepEmbedding(chs[0], cfg.time_embed_dim)
+                if cfg.class_embed_type == "timestep"
+                else _ClassEmbedding(cfg.num_class_embeds, cfg.time_embed_dim))
+        if learned_text:
+            self.learned_text_clip_gen = nn.Parameter(
+                torch.empty(1, 77, cfg.cross_attention_dim, dtype=torch.float32))
+            self.learned_text_clip_ref = nn.Parameter(
+                torch.empty(1, 77, cfg.cross_attention_dim, dtype=torch.float32))
         down, c_in = [], chs[0]
         for i, c_out in enumerate(chs):
             down.append(_UpDownBlock(
@@ -351,22 +397,38 @@ class UNetCore(nn.Module):
         self.conv_out = Conv2d(chs[0], cfg.out_channels, 3)
 
     def init_random_(self, generator):
-        self.learned_text_clip_gen.normal_(generator=generator)
-        self.learned_text_clip_ref.normal_(generator=generator)
+        if hasattr(self, "learned_text_clip_gen"):
+            self.learned_text_clip_gen.normal_(generator=generator)
+            self.learned_text_clip_ref.normal_(generator=generator)
 
     def forward(self, sample, t, context, class_labels, mode: str, num_views: int, cache: Dict,
-                ref_scale=1.0, mva_scale=1.0, mva_masks=None):
+                ref_scale=1.0, mva_scale=1.0, mva_masks=None, ip_context=None, ip_scale=1.0,
+                ctrl_down=None, ctrl_mid=None):
         """sample [(B·N), H, W, C_in] NHWC; t [(B·N)]; context
-        [(B·N), 77, D]. ``cache`` is filled in 'w' mode and read in 'r'."""
+        [(B·N), 77, D]. ``cache`` is filled in 'w' mode and read in 'r'.
+
+        ``ip_context`` / ``ip_scale``: the IP-Adapter's image tokens, used by
+        every ``attn2`` that carries ``to_k_ip``. ``ctrl_down`` /
+        ``ctrl_mid``: ControlNet residuals, one per skip (conv_in and every
+        down-block output), added to the skips after the down path, and one
+        added after the mid block (diffusers
+        down_block_additional_residuals / mid_block_additional_residual)."""
         cfg = self.cfg
         g = cfg.norm_num_groups
         temb = sd_timestep_embedding(t, cfg.block_out_channels[0]).to(sample.dtype)
         temb = self.time_embedding.linear_2(silu(self.time_embedding.linear_1(temb)))
         if cfg.use_camera_embedding and class_labels is not None:
-            temb = temb + self.class_embedding.weight[class_labels].to(temb.dtype)
+            if cfg.class_embed_type == "timestep":
+                cemb = sd_timestep_embedding(torch.as_tensor(class_labels, device=t.device),
+                                             cfg.block_out_channels[0]).to(temb.dtype)
+                ce = self.class_embedding
+                temb = temb + ce.linear_2(silu(ce.linear_1(cemb)))
+            else:
+                temb = temb + self.class_embedding.weight[class_labels].to(temb.dtype)
 
         def attn(mod, x, layer):
-            return mod(x, context, layer, mode, num_views, cache, ref_scale, mva_scale, mva_masks)
+            return mod(x, context, layer, mode, num_views, cache, ref_scale, mva_scale, mva_masks,
+                       ip_context, ip_scale)
 
         x = self.conv_in(sample)
         residuals = [x]
@@ -380,9 +442,13 @@ class UNetCore(nn.Module):
                 # diffusers UNet Downsample2D pads symmetrically by 1
                 x = blk.downsamplers[0].conv(x, stride=2, padding=1)
                 residuals.append(x)
+        if ctrl_down is not None:   # fp32 residuals promote the skips, as in the JAX package
+            residuals = [r + c for r, c in zip(residuals, ctrl_down)]
         x = self.mid_block.resnets[0](x, temb, g, eps=1e-5)
         x = attn(self.mid_block.attentions[0], x, "mid_0")
         x = self.mid_block.resnets[1](x, temb, g, eps=1e-5)
+        if ctrl_mid is not None:
+            x = x + ctrl_mid
         for i, blk in enumerate(self.up_blocks):
             for j, r in enumerate(blk.resnets):
                 x = r(torch.cat([x, residuals.pop()], dim=-1), temb, g, eps=1e-5)
@@ -392,6 +458,13 @@ class UNetCore(nn.Module):
                 x = blk.upsamplers[0].conv(upsample_nearest2x(x))
         x = self.conv_norm_out(x, g, eps=1e-5)
         return self.conv_out(silu(x))
+
+
+def plain_unet(cfg: PaintUNetConfig) -> UNetCore:
+    """The SD-class UNet of the secondary pipelines (delight, upscale,
+    align): no 2.5D extras, no learned text embeddings (the diffusers
+    UNet2DConditionModel keys)."""
+    return UNetCore(cfg, extras=False, learned_text=False)
 
 
 class UNet2p5D(nn.Module):

@@ -28,26 +28,35 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1,
     before the single cast, as the JAX package's Conv2d.apply does.
 
     ``padding``: "same" (odd kernels, stride 1), "valid", or an int for
-    symmetric padding. On the card cuDNN runs the product in the activation
-    dtype with an fp32 accumulator; on the CPU it is taken in fp32
-    explicitly, so the CPU tests see the JAX package's rounding."""
+    symmetric padding. The weight is rounded to the activations' dtype
+    first, as the JAX package casts it. On the card, with a bias of the
+    activations' dtype, cuDNN runs the product in that dtype with an fp32
+    accumulator and adds the bias before its one rounding. Otherwise (on the
+    CPU, or an fp32 bias under bf16 activations) the product of those
+    rounded operands is taken in fp32 explicitly, which is exact per term,
+    and the fp32 bias is added before the one cast: the JAX package's
+    rounding."""
     xc = x.permute(0, 3, 1, 2)
     pad = 0 if padding == "valid" else (w.shape[-1] // 2 if padding == "same" else padding)
-    if x.is_cuda:
-        y = F.conv2d(xc, w.to(x.dtype), b.to(x.dtype), stride=stride, padding=pad)
+    if x.is_cuda and b.dtype == x.dtype:
+        y = F.conv2d(xc, w.to(x.dtype), b, stride=stride, padding=pad)
     else:
-        y = F.conv2d(xc.float(), w.float(), b.float(), stride=stride, padding=pad).to(x.dtype)
+        y = F.conv2d(xc.float(), w.to(x.dtype).float(), b.float(), stride=stride,
+                     padding=pad).to(x.dtype)
     return y.permute(0, 2, 3, 1)
 
 
 class Conv2d(nn.Module):
-    """bf16 [out, in, k, k] conv with a bias (diffusers names)."""
+    """[out, in, k, k] conv with a bias (diffusers names), bf16 unless
+    ``dtype`` says otherwise. The weight is rounded to the activations'
+    dtype for the product either way; an fp32 ``dtype`` keeps the bias's
+    precision, added in fp32 before the output's one rounding (conv2d)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3):
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, dtype=PARAM_DTYPE):
         super().__init__()
         self.in_ch, self.kernel = in_ch, kernel
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel, dtype=PARAM_DTYPE))
-        self.bias = nn.Parameter(torch.empty(out_ch, dtype=PARAM_DTYPE))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(out_ch, dtype=dtype))
 
     def init_random_(self, generator: torch.Generator):
         bound = 1.0 / math.sqrt(self.in_ch * self.kernel * self.kernel)

@@ -27,6 +27,7 @@ from hunyuan3d2_tpu_torch.ops.nn import build
 from hunyuan3d2_tpu_torch.pipelines.paint_schedulers import (
     EulerAncestralDiscreteScheduler,
     LCMScheduler,
+    draw,
 )
 from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
@@ -76,16 +77,6 @@ def _stack_views(views, size: int) -> torch.Tensor:
         return views[None]
     views = views[0] if isinstance(views[0], list) else views
     return torch.from_numpy(np.stack([_control_array(v, size) for v in views])[None])
-
-
-def _draw(given, shape, generator, device) -> torch.Tensor:
-    """A unit normal draw of ``shape`` in fp32: ``given`` (an injected
-    array) or one from ``generator``."""
-    if given is None:
-        return torch.randn(shape, generator=generator, device=device)
-    if not isinstance(given, torch.Tensor):
-        given = torch.from_numpy(np.array(given, np.float32))
-    return given.to(device=device, dtype=torch.float32).reshape(shape)
 
 
 class PaintResult:
@@ -160,7 +151,7 @@ class HunyuanPaintPipeline:
             normal_latents, position_latents, cam_gen, cam_ref = (
                 torch.cat([x, x]) for x in (normal_latents, position_latents, cam_gen, cam_ref))
         shape = (1,) + tuple(normal_latents.shape[1:4]) + (4,)
-        latents = _draw(init_latents, shape, generator, dev) * float(sigmas[0])
+        latents = draw(init_latents, shape, generator, dev) * float(sigmas[0])
         ref_scale = torch.tensor([0.0, 1.0], device=dev) if do_cfg else 1.0
         cache = self.unet.write_cache(ref_latents, cam_ref)
         sched = self.scheduler
@@ -172,7 +163,7 @@ class HunyuanPaintPipeline:
             if do_cfg:
                 uncond, cond = pred.chunk(2)
                 pred = uncond + guidance_scale * (cond - uncond)
-            noise = _draw(None if step_noises is None else step_noises[i], shape, generator, dev)
+            noise = draw(None if step_noises is None else step_noises[i], shape, generator, dev)
             latents, _ = sched.step(pred, latents, sigmas[i], sigmas[i + 1], noise)
         return self._decode_views(latents)
 
@@ -191,7 +182,7 @@ class HunyuanPaintPipeline:
             masks = paint_unet.compute_multi_resolution_mask(
                 position_u8.to(dev).float() / 255.0, mask_grids)
         shape = tuple(normal_latents.shape[:4]) + (4,)
-        latents = _draw(init_latents, shape, generator, dev)
+        latents = draw(init_latents, shape, generator, dev)
         cache = self.unet.write_cache(ref_latents)
         ac = torch.from_numpy(np.asarray(alphas_cumprod, np.float32)).to(dev)
         steps = [int(t) for t in timesteps]
@@ -199,7 +190,7 @@ class HunyuanPaintPipeline:
             t_next = steps[i + 1] if i + 1 < len(steps) else 0
             pred = self.unet(latents.to(normal_latents.dtype), float(t), normal_latents,
                              position_latents, cam_gen, cache, mva_masks=masks)
-            noise = _draw(None if step_noises is None else step_noises[i], shape, generator, dev)
+            noise = draw(None if step_noises is None else step_noises[i], shape, generator, dev)
             latents, _ = self.scheduler.step(pred.float(), latents, t, t_next, ac, noise)
         return self._decode_views(latents)
 

@@ -61,6 +61,22 @@ def _spaced_timesteps(t: int, n: int, spacing: str, steps_offset: int) -> np.nda
     return np.linspace(0, t - 1, n)[::-1]
 
 
+def init_noise_sigma(sigma_max) -> float:
+    """(σ_max² + 1)^½ in fp32, the initial noise scale of leading spacing."""
+    s = np.float32(sigma_max)
+    return float((s * s + np.float32(1)) ** np.float32(0.5))
+
+
+def draw(given, shape, generator, device) -> torch.Tensor:
+    """A unit normal draw of ``shape`` in fp32: ``given`` (an injected
+    array) or one from ``generator``."""
+    if given is None:
+        return torch.randn(shape, generator=generator, device=device)
+    if not isinstance(given, torch.Tensor):
+        given = torch.from_numpy(np.array(given, np.float32))
+    return given.to(device=device, dtype=torch.float32).reshape(shape)
+
+
 @dataclasses.dataclass(frozen=True)
 class EulerAncestralDiscreteScheduler:
     num_train_timesteps: int = 1000

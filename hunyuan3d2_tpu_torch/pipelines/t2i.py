@@ -27,6 +27,7 @@ import torch
 
 from hunyuan3d2_tpu_torch.models import hunyuan_dit, sd_vae
 from hunyuan3d2_tpu_torch.ops.nn import build
+from hunyuan3d2_tpu_torch.pipelines.paint_schedulers import draw
 from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 
@@ -79,14 +80,6 @@ def ddpm_step(pred: torch.Tensor, t: int, t_prev: int, sample: torch.Tensor,
     c_xt = torch.sqrt(a_t / a_prev) * (1.0 - a_prev) / (1.0 - a_t)
     var = (beta_t * (1.0 - a_prev) / (1.0 - a_t)).clamp_min(1e-20)
     return c_x0 * x0 + c_xt * sample + torch.sqrt(var) * noise
-
-
-def _draw(given, shape, generator, device) -> torch.Tensor:
-    """A unit normal draw of ``shape`` in fp32: ``given`` (an injected array)
-    or one from ``generator``."""
-    if given is None:
-        return torch.randn(shape, generator=generator, device=device)
-    return torch.from_numpy(np.array(given, np.float32)).to(device).reshape(shape)
 
 
 class HunyuanDiTTorchPipeline:
@@ -182,7 +175,7 @@ class HunyuanDiTTorchPipeline:
         acp = torch.from_numpy(ddpm_alphas_cumprod(self.sched)).to(dev)
         use_pag = self.pag_scale is not None and bool(c.pag_layers)
         shape = (1, gh, gw, 4)
-        lat = _draw(init_latents, shape, generator, dev)
+        lat = draw(init_latents, shape, generator, dev)
         for i, t in enumerate(ts):
             t_prev = ts[i + 1] if i + 1 < len(ts) else -1
             tt = torch.full((2,), float(t), device=dev)
@@ -194,7 +187,7 @@ class HunyuanDiTTorchPipeline:
                 pag_out = self.transformer(lat.to(torch.bfloat16), tt[:1], ctx[2:3], pooled[2:3],
                                            meta[2:3], pag=True)[..., :4].float()
                 pred = pred + self.pag_scale * (cond - pag_out)
-            noise = _draw(None if step_noises is None else step_noises[i], shape, generator, dev)
+            noise = draw(None if step_noises is None else step_noises[i], shape, generator, dev)
             lat = ddpm_step(pred, t, t_prev, lat, acp, noise, self.sched.prediction_type)
         return lat
 

@@ -719,3 +719,52 @@ def test_t2i_pipeline_on_the_card_matches_the_cpu(gen):
             for p in (card, cpu))
     corr = np.corrcoef(a.ravel(), b.ravel())[0, 1]
     assert a.std() > 1.0 and corr >= 0.99 and np.abs(a - b).mean() <= 3.0, (corr,)
+
+
+
+def test_delight_pipeline_on_the_card_matches_the_cpu(gen):
+    """The TINY delight pipeline (3 steps, triple CFG, 32²) with the same
+    weights and draws; head sizes 16 and 32 take the plain attention."""
+    from hunyuan3d2_tpu_torch.tools import card_agreement as ca
+
+    a, b = ca.delight_images()
+    assert ca.agrees(a, b), ca.image_agreement(a, b)
+
+
+def test_upscale_pipeline_on_the_card_matches_the_cpu(gen):
+    """A head-64 TINY upscaler (channels (64, 128), 2 heads) on a 64² image:
+    the self and cross attention of its 32² level and mid block (1024
+    queries) go through kernel 1 on the card."""
+    from hunyuan3d2_tpu_torch.tools import card_agreement as ca
+
+    a, b, launches = ca.upscale_images()
+    assert launches == ca.UPSCALE_FLASH_LAUNCHES
+    assert a.size == (256, 256)
+    assert ca.agrees(a, b), ca.image_agreement(a, b)
+
+
+def test_align_pipeline_on_the_card_matches_the_cpu(gen):
+    """The TINY ControlNet + IP-Adapter pipeline (non-zero adapter and zero
+    convs, seeded image tokens) on the card, text-to-image and img2img."""
+    from hunyuan3d2_tpu_torch.tools import card_agreement as ca
+
+    for strength, a, b in ca.align_images():
+        assert ca.agrees(a, b), (strength, ca.image_agreement(a, b))
+
+
+def test_conv2d_adds_an_fp32_bias_before_its_one_rounding(gen):
+    """bf16 activations under an fp32 weight and bias (the ControlNet's zero
+    convs): a 1×1 conv over one channel is x·w + b, exact in fp32 up to the
+    sum's rounding, so the card gives the CPU's bits only if it adds the
+    bias in fp32 before rounding to bf16."""
+    from hunyuan3d2_tpu_torch.ops.conv import conv2d
+
+    x = torch.randn(2, 8, 8, 1, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(16, 1, 1, 1, generator=gen, device="cuda") * 2 ** -6
+    b = 0.5 + torch.arange(16, device="cuda", dtype=torch.float32) * 2 ** -12
+    out = conv2d(x, w, b)
+    ref = conv2d(x.cpu(), w.cpu(), b.cpu())
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.cpu(), ref)
+    rounded_first = conv2d(x.cpu(), w.cpu(), b.cpu().to(torch.bfloat16))
+    assert not torch.equal(ref, rounded_first)

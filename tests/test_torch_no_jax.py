@@ -34,6 +34,9 @@ from hunyuan3d2_tpu_torch.models import hunyuan_dit
 from hunyuan3d2_tpu_torch.pipelines import t2i
 from hunyuan3d2_tpu_torch.utils import text2image
 from hunyuan3d2_tpu_torch.tools import flash_fp32_error
+from hunyuan3d2_tpu_torch.models import controlnet, ip_adapter
+from hunyuan3d2_tpu_torch.pipelines import align, delight, upscale
+from hunyuan3d2_tpu_torch.utils import align_img4tex, dehighlight, imagesuper
 import importlib
 for name in sorted(os.listdir(os.path.join(os.path.dirname(hunyuan3d2_tpu_torch.__file__),
                                            "examples"))):
@@ -81,6 +84,19 @@ path = worker.generate("no-jax-probe-text", {"text": "a chair", "octree_resoluti
                                              "num_inference_steps": 1})
 assert len(mesh.__class__.load(path).faces)
 os.unlink(path)
+lit = dehighlight.Light_Shadow_Remover(pipeline=delight.DelightPipeline.init_random(
+    resolution=32, num_inference_steps=1, device="cpu"))(Image.fromarray(img))
+assert lit.size == (32, 32)
+up = imagesuper.Image_Super_Net(pipeline=upscale.UpscalePipeline.init_random(
+    num_inference_steps=1, device="cpu"))(Image.fromarray(img[8:24, 8:24, :3]))
+assert up.size == (64, 64)
+aligner = align.ControlNetSDPipeline.init_random(resolution=32, device="cpu")
+out = align_img4tex.Img2img_Control_Ip_adapter(pipeline=aligner)(
+    "a chair", Image.fromarray(img), Image.fromarray(img), "", height=32, width=32,
+    num_inference_steps=1)
+assert out.size == (32, 32)
+assert align.HesModel(pipeline=aligner)(Image.fromarray(img), Image.fromarray(img), strength=0.5,
+                                        num_inference_steps=2).size == (32, 32)
 bad = sorted(m for m in sys.modules if m in ("jax", "hunyuan3d2_tpu")
              or m.startswith(("jax.", "jaxlib", "hunyuan3d2_tpu.")))
 print("FORBIDDEN", bad)
