@@ -34,9 +34,10 @@ Phases, in order; any failure exits non-zero:
      the kernels' launch counts are read from the warm run, and the GLB is
      written under tmp/; then the decode against the plain decode on a small
      grid; then one warm run each of the 'mc' and 'mt' extractors at octree
-     256 and of the vanilla and hierarchical decoders (plain fp32 decode,
-     dense or host marching cubes) at octree 64, the 'mc' GLB written under
-     tmp/; then the stack is freed;
+     256 and of the vanilla and hierarchical decoders (the dense fp32
+     decode, its attention through kernel 1, whose launches in the decode
+     are counted; dense or host marching cubes) at octree 64, the 'mc' GLB
+     written under tmp/; then the stack is freed;
   5. slice 3 at full width: image → mesh on the v2-0 stack (DINOv2-giant,
      the FULL DiT with the guidance embedding, 5 steps at guidance 5.0, the
      3072-latent FULL ShapeVAE through the streamed decode at octree 380 and
@@ -93,7 +94,30 @@ Phases, in order; any failure exits non-zero:
      beside F.scaled_dot_product_attention; then the three TINY pipelines
      on the card against the CPU (the upscaler at head size 64, so that
      kernel 1 runs in it);
- 11. a JSON line with every kernel's numbers, then the result line.
+ 12. the gradients and the training path:
+     12a. kernel 1 under autograd (the kernel's forward, the plain twin's
+          gradient recomputed) against the plain twin's autograd at the DiT
+          training shape [2,16,1882,64] bf16, the VAE's [1,16,512,64] fp32
+          and a differentiable-surface decode chunk [1,16,65536,64] fp32
+          over 512 keys: dq, dk and dv with their errors, forward + backward
+          time beside the plain twin's and F.scaled_dot_product_attention's;
+     12b. training at full width (path train): the mini DiT (8 + 16 blocks,
+          1024 wide, 16 heads of 64) with random bf16 weights, latents
+          [2,512,64], cond [2,1370,1536], AdamW, 10 steps; at step 5 the
+          weights and the optimizer state go through save_pytree, are
+          loaded into a fresh model and optimizer, and its last 5 steps
+          must give the unbroken run's weights (1e-5); finite losses, 24
+          kernel-1 launches a step, ms a step and peak memory; the resumed
+          run's last step under utils.profiling.trace (the top device
+          operations, the device's busy share, device_memory_stats);
+     12c. one training step of a small DiT that passes kernel 1's gate on
+          the card against the CPU (tools/card_agreement.py);
+     12d. the differentiable surface at full width (path diff_surface):
+          the mini ShapeVAE's decode of a 64³ grid in chunks of 65,536
+          queries through kernel 1, differentiable_surface_nets, a
+          mesh-space loss and its gradient into the geo decoder's weights;
+          then a 17³ grid on the card against the CPU;
+ 13. a JSON line with every kernel's numbers, then the result line.
 Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -664,7 +688,10 @@ def extractor_runs(pipe):
     cells), then at octree 64 the vanilla decode with dense marching cubes
     (``enable_flashvdm(enabled=False)``) and the hierarchical decode without
     adaptive K/V (``enable_flashvdm_decoder(adaptive_kv_selection=False)``),
-    both through the plain fp32 decode. The 'mc' mesh is written under
+    both through the dense fp32 decode (``ShapeVAE.decode_queries``), whose
+    attention goes through kernel 1: its launches in the decode (those of
+    the run less those of the same call up to the latents) must exceed the
+    latent transformer's, one a layer. The 'mc' mesh is written under
     tmp/."""
     os.environ["HY3D_CAP_ACTIVES"] = "1"
     image = test_image()
@@ -686,6 +713,22 @@ def extractor_runs(pipe):
             octree_resolution=octree, **call)
         if name == "mc":
             write_glb("mini mc", mesh, "chip_smoke_mc.glb")
+        if not flashvdm:
+            from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+
+            flash_attention.launches = 0
+            pipe(image, seed=1234, output_type="latents", octree_resolution=octree, **call)
+            front = flash_attention.launches
+            decode = launches[name]["flash_attention"] - front
+            layers = pipe.vae.cfg.num_decoder_layers
+            log(f"mini {name} (octree {octree}): kernel 1 launches {decode} in the volume "
+                f"decode ({layers} in the latent transformer, {decode - layers} in the dense "
+                f"decode), {front} in the conditioner and the DiT")
+            check(decode > layers, f"mini {name}: the dense decode never launched kernel 1")
+            if name.startswith("vanilla"):
+                chunks = -(-(octree + 1) ** 3 // call["num_chunks"])
+                check(decode == layers + chunks, f"mini {name}: {decode - layers} kernel-1 "
+                      f"launches in the dense decode, {chunks} chunks expected")
     pipe.enable_flashvdm(mc_algo="dmc")
     return launches
 
@@ -1759,6 +1802,279 @@ def secondary_agreement():
         agree(f"align check (TINY, 32², 4 steps, strength {strength})", a, b)
 
 
+def flash_grad_phase():
+    """12a. Kernel 1 under autograd (ops/flash_attention._FlashAttentionFn)
+    against the plain twin's autograd on the same inputs and output
+    gradient, each row's inputs from a generator seeded by its name. The
+    backward is the plain twin's gradient recomputed from the saved inputs,
+    so dq, dk and dv equal the plain autograd's up to the GEMMs' reduction
+    order: bf16 rows are held by attention_check (min(2e-2, 2^-6·max|ref|)
+    and relative RMS ≤ 1e-2), fp32 rows to 1e-5 of the largest value and a
+    relative RMS of 1e-6 (the same fp32 operations in the same order; a
+    dropped or misrouted gradient is off by its whole size). Forward +
+    backward times beside the plain twin's and
+    F.scaled_dot_product_attention's (the yardstick); the bound counts the
+    12·B·H·Lq·Lk·D operations of a forward and a backward that keeps no
+    scores (QKᵀ, PV; then dV, dP, dQ, dK) and q, k, v, dO read and o, dq,
+    dk, dv written once."""
+    import zlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    rows = []
+    for name, (b, h, lq, lk, d), dt in (
+            ("dit train", (2, 16, 1882, 1882, 64), torch.bfloat16),
+            ("vae", (1, 16, 512, 512, 64), torch.float32),
+            ("diff surface chunk", (1, 16, 65536, 512, 64), torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
+        q = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+        dout = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
+
+        def run(fn):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+        def sdpa(a, c, e):
+            return F.scaled_dot_product_attention(a, c, e, scale=d ** -0.5)
+
+        got, ref = run(flash_attention), run(flash_attention_plain)
+        torch.cuda.synchronize()
+        errs = {}
+        for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+            label = f"flash_attention grad {name} {gname}"
+            if dt == torch.bfloat16:
+                err, _, rms, tol = attention_check(label, g, r, 2e-2)
+            else:
+                check(torch.isfinite(g).all().item(), f"{label}: non-finite gradient")
+                diff = (g.double() - r.double())
+                err = diff.abs().max().item()
+                rms = (diff.norm() / r.double().norm()).item()
+                tol = 1e-5 * r.abs().max().item()
+                check(err <= tol and rms <= 1e-6,
+                      f"{label}: max abs err {err} (tol {tol}), relative RMS err {rms} (tol 1e-6)")
+            errs[gname] = dict(max_abs_err=err, rel_rms_err=rms, tol=tol)
+        del got, ref
+        before = flash_attention.launches
+        ms = time_ms(lambda: run(flash_attention), 5)
+        per_call = (flash_attention.launches - before) / 6
+        plain_ms = time_ms(lambda: run(flash_attention_plain), 3)
+        lib_ms = time_ms(lambda: run(sdpa), 5)
+        flops = 12.0 * b * h * lq * lk * d
+        nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
+        bound_ms, by = bound(flops, nbytes, "bf16" if dt == torch.bfloat16 else "fp32")
+        row = dict(shape=f"{name} q {[b, h, lq, d]} k {[b, h, lk, d]} {str(dt).split('.')[-1]}",
+                   what="forward + backward", max_abs_err=max(e["max_abs_err"]
+                                                              for e in errs.values()),
+                   grads=errs, launches_per_call=per_call, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+        check(per_call == 1, f"flash_attention grad {name}: {per_call} launches a call")
+        log("flash_attention grad " + json.dumps(row))
+        rows.append(row)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _zero_counters():
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def train_path():
+    """12b. The mini DiT at full width trained through the user's entry
+    points (training.make_train_step, io.pytree_io) with random bf16
+    weights (seed 0): 10 AdamW steps; the weights and optimizer state saved
+    at step 5 and loaded into a fresh model and optimizer, whose last 5
+    steps must give the unbroken run's weights within 1e-5; the resumed
+    run's last step traced. Returns the path's launches (both runs)."""
+    import statistics
+
+    import torch
+
+    from hunyuan3d2_tpu_torch.io.pytree_io import load_pytree, save_pytree
+    from hunyuan3d2_tpu_torch.models import dit
+    from hunyuan3d2_tpu_torch.ops.nn import build
+    from hunyuan3d2_tpu_torch.training import make_train_step
+    from hunyuan3d2_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lat = torch.randn(2, 512, 64, generator=gen, device="cuda")
+    cond = torch.randn(2, 1370, 1536, generator=gen, device="cuda").to(torch.bfloat16)
+    draws = [(torch.randn(2, 512, 64, generator=gen, device="cuda"),
+              torch.rand(2, generator=gen, device="cuda")) for _ in range(10)]
+
+    def model(seed):
+        return build(dit.Hunyuan3DDiT, dit.MINI, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    unbroken = model(0)
+    opt, step = make_train_step(unbroken)
+    n_params = sum(p.numel() for p in unbroken.parameters())
+    ckpt = os.path.join(ROOT, "tmp", "train_ckpt.safetensors")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    times, losses = [], []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(lat, cond, *draws[i]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if i == 4:
+            t1 = time.perf_counter()
+            save_pytree(ckpt, {"params": unbroken.state_dict(), "opt": opt.state_dict()})
+            save_s = time.perf_counter() - t1
+    launches_unbroken = counters["flash_attention"].launches
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"train: non-finite loss in {losses}")
+    check(launches_unbroken == 24 * 10, f"train: {launches_unbroken} flash_attention launches "
+          "in 10 steps, 24 a step expected")
+    warm_ms = 1e3 * statistics.median(times[1:])
+    log(f"train: mini DiT ({n_params / 1e6:.1f} M parameters, bf16), latents [2,512,64], "
+        f"cond [2,1370,1536], AdamW: losses {[round(x, 5) for x in losses]}, step 1 "
+        f"{1e3 * times[0]:.1f} ms, warm steps median {warm_ms:.2f} ms (min "
+        f"{1e3 * min(times[1:]):.2f}, max {1e3 * max(times[1:]):.2f}), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, flash_attention launches {launches_unbroken} "
+        f"({launches_unbroken // 10} a step), checkpoint {os.path.getsize(ckpt) / 2 ** 30:.2f} "
+        f"GiB saved in {save_s:.2f} s")
+
+    resumed = model(1)
+    opt2, step2 = make_train_step(resumed)
+    t1 = time.perf_counter()
+    restored = load_pytree(ckpt, target={"params": resumed.state_dict(),
+                                         "opt": opt2.state_dict()})
+    resumed.load_state_dict(restored["params"])
+    opt2.load_state_dict(restored["opt"])
+    del restored
+    load_s = time.perf_counter() - t1
+    os.unlink(ckpt)
+    for i in range(5, 9):
+        check(abs(float(step2(lat, cond, *draws[i])) - losses[i]) <= 1e-5 * abs(losses[i]),
+              f"train: the resumed run's loss at step {i + 1} differs")
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(ROOT, "tmp", "train_trace")
+    t1 = time.perf_counter()
+    with profiling.trace(trace_dir) as tr:
+        step2(lat, cond, *draws[9])
+    traced_ms = 1e3 * (time.perf_counter() - t1)
+    worst = 0.0
+    for (name, a), b in zip(unbroken.state_dict().items(), resumed.state_dict().values()):
+        a, b = a.float(), b.float()
+        worst = max(worst, ((a - b).abs() / (1e-5 + 1e-5 * b.abs())).max().item())
+    check(worst <= 1.0, f"train: the resumed weights differ from the unbroken run's "
+          f"({worst:.3g} of the 1e-5 tolerance)")
+    top = profiling.top_device_ops(tr.path, 12)
+    busy = profiling.device_busy(tr.path)
+    spans = {}
+    for e in tr.profile.key_averages():
+        if e.key in ("loss", "backward", "optimizer"):
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            spans[e.key] = dict(host_ms=e.cpu_time_total / 1e3, device_ms=us / 1e3)
+    log(f"train: resumed after step 5 (load {load_s:.2f} s): the weights after step 10 equal "
+        f"the unbroken run's within 1e-5 ({worst:.3g} of the tolerance)")
+    log("train trace " + json.dumps(dict(
+        step_ms_traced=traced_ms, device_busy_ms=busy["busy_ms"], span_ms=busy["span_ms"],
+        device_busy_share=busy["busy_ms"] / busy["span_ms"] if busy["span_ms"] else None,
+        spans=spans, top_device_ops=top,
+        device_memory_stats=profiling.device_memory_stats())))
+    check(top, "train: the trace holds no device operation")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    check(launches["flash_attention"] == 24 * 15, f"train: {launches['flash_attention']} "
+          "flash_attention launches in 15 steps")
+    for n, c in launches.items():
+        check(n == "flash_attention" or c == 0, f"train: kernel {n} was launched off its path")
+    del unbroken, resumed, opt, opt2
+    return launches
+
+
+def train_agreement_phase():
+    """12c. One training step of a small DiT that passes kernel 1's gate
+    (hidden 128 = 2 heads of 64, 1 + 1 blocks, latents [2,512,64], cond
+    [2,77,1536]) on the card against the CPU, the same weights, data and
+    draws (tools/card_agreement.py, which the card tests share)."""
+    from hunyuan3d2_tpu_torch.tools import card_agreement as ca
+
+    stats = ca.train_agreement(ca.train_step_pair())
+    log("train check (card vs CPU, one step) " + json.dumps(stats))
+    check(ca.train_agrees(stats), "train check: the card's step disagrees with the CPU's")
+
+
+def diff_surface_path():
+    """12d. The differentiable surface at full width through the user's
+    entry points: the mini ShapeVAE (512 latents, 16 heads of 64; random
+    weights, seed 3), decode_latents → compute_kv → decode_queries over a
+    64³ grid in chunks of 65,536 queries (kernel 1, fp32), then
+    differentiable_surface_nets and the mesh-space loss of
+    tests/test_diff_surface.py (the surface toward z = 0.2), backpropagated
+    into the geo decoder's weights; then a 17³ grid on the card against the
+    CPU (tools/card_agreement.py). Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch.models import shapevae
+    from hunyuan3d2_tpu_torch.tools import card_agreement as ca
+    from hunyuan3d2_tpu_torch.volume.decoders import grid_coords_from_flat
+    from hunyuan3d2_tpu_torch.volume.diff_surface import differentiable_surface_nets
+
+    res, chunk = 64, 65536
+    vae = shapevae.ShapeVAE.init_random(
+        shapevae.MINI, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    vae.geo_decoder.requires_grad_(True)
+    lat = torch.from_numpy((np.random.RandomState(3).randn(1, 512, 64) * 0.5)
+                           .astype(np.float32)).cuda()
+    pts = grid_coords_from_flat(torch.arange(res ** 3, device="cuda"), res, 1.01)[None]
+    cap = shapevae.active_capacity(res - 1)
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hidden = vae.decode_latents(lat)
+    k, v = vae.compute_kv(hidden)
+    grid = torch.cat([vae.decode_queries(pts[:, i:i + chunk], k, v)
+                      for i in range(0, res ** 3, chunk)], 1).reshape(res, res, res)
+    verts, _, nq, count = differentiable_surface_nets(grid, capacity=cap,
+                                                      face_capacity=shapevae.face_capacity(res - 1))
+    mask = torch.arange(verts.shape[0], device="cuda") < count
+    loss = (((verts[:, 2] - 0.2) ** 2) * mask).sum()
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    loss.backward()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    grads = [p.grad for p in vae.geo_decoder.parameters()]
+    gsum = sum(float(g.float().abs().sum()) for g in grads if g is not None)
+    n, q = int(count), int(nq)
+    log(f"diff_surface: mini VAE, {res}³ grid in {-(-res ** 3 // chunk)} chunks: {n} vertices, "
+        f"{q} quads, loss {float(loss.detach()):.6g}, forward {1e3 * fwd_s:.1f} ms, forward + "
+        f"backward {1e3 * total_s:.1f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, geo-decoder |grad| sum "
+        f"{gsum:.6g}, launches {json.dumps(launches)}")
+    check(math.isfinite(float(loss.detach())), "diff_surface: non-finite loss")
+    check(0 < n <= cap and q > 0, f"diff_surface: {n} vertices, {q} quads (capacity {cap})")
+    check(all(g is not None and torch.isfinite(g).all().item() for g in grads),
+          "diff_surface: a geo-decoder weight has no finite gradient")
+    check(gsum > 0, "diff_surface: no gradient reached the geo-decoder weights")
+    expected = shapevae.MINI.num_decoder_layers + -(-res ** 3 // chunk)
+    check(launches["flash_attention"] == expected, f"diff_surface: "
+          f"{launches['flash_attention']} flash_attention launches, {expected} expected")
+    del vae, grid, verts, loss, k, v, hidden
+    torch.cuda.empty_cache()
+    stats = ca.diff_surface_agreement(ca.diff_surface_pair())
+    log("diff_surface check (17³, card vs CPU) " + json.dumps(stats))
+    check(ca.diff_surface_agrees(stats), "diff_surface check: the card disagrees with the CPU")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1836,12 +2152,21 @@ def main() -> int:
         # the delight UNet's first level: CFG batch 3, 8 heads of 40 at 64²
         sdpa_yardstick("delight self-attention", (3, 8, 4096, 40), torch.bfloat16)
     secondary_agreement()
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_rows = flash_grad_phase()
+    launches_train = train_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_agreement_phase()
+    launches_diff = diff_surface_path()
     by_path = {"image_to_mesh": launches_mesh, "image_to_mesh_v2_0_fast": launches_v20,
                "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex,
                "textured_glb_standard": launches_std, "flash_sweep": launches_sweep,
                "served": launches_served, "text_to_mesh": launches_text,
                "delight": launches_delight, "upscale": launches_upscale,
-               "align": launches_align}
+               "align": launches_align, "train": launches_train,
+               "diff_surface": launches_diff}
 
     def entry(name, source, replaces, rows, main_row, path):
         """``launches`` is the count from ``path``'s warm run; every path's
@@ -1858,8 +2183,9 @@ def main() -> int:
                     shapes=rows)
 
     kernels = [
-        entry("flash_attention", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
-              "hunyuan3d2_tpu/ops/flash_attention.py:221", flash_rows, 4, "textured_glb"),
+        dict(entry("flash_attention", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
+                   "hunyuan3d2_tpu/ops/flash_attention.py:221", flash_rows, 4, "textured_glb"),
+             grad_shapes=grad_rows),
         entry("flash_attention_masked", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
               "hunyuan3d2_tpu/ops/flash_attention.py:159", masked_rows, 0, "textured_glb"),
         entry("fused_geo_decode", "hunyuan3d2_tpu_torch/csrc/geo_decode.cu",

@@ -55,7 +55,8 @@ def _dilate(mask01: np.ndarray, ksize: int) -> np.ndarray:
 
 class MeshRender:
     def __init__(self, camera_distance: float = 1.45, camera_type: str = "orth",
-                 default_resolution: int = 1024, texture_size: int = 1024):
+                 default_resolution: int = 1024, texture_size: int = 1024,
+                 bake_mode: str = "linear", raster_mode: str = "cpu", **kwargs):
         self.camera_distance = camera_distance
         self.default_resolution = (default_resolution, default_resolution) \
             if isinstance(default_resolution, int) else tuple(default_resolution)
@@ -63,6 +64,10 @@ class MeshRender:
             if isinstance(texture_size, int) else tuple(texture_size)
         self.bake_angle_thres = 75
         self.bake_unreliable_kernel_size = int((2 / 512) * max(self.default_resolution))
+        # the reference's options, kept as the JAX package keeps them: the
+        # bake is the linear splat and the raster the host's
+        self.bake_mode = bake_mode
+        self.raster_mode = raster_mode
         self.camera_type = camera_type
         if camera_type == "orth":
             self.ortho_scale = 1.2

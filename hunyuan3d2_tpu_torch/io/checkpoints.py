@@ -159,7 +159,8 @@ def load_weights(module: nn.Module, sd: Dict[str, torch.Tensor], device,
     """Give a ``meta`` module storage on ``device`` and fill every parameter
     from ``sd``, cast to the parameter's dtype. Keys starting with one of
     ``ignored`` are skipped; any other missing or unexpected key raises
-    ``KeyError`` naming it."""
+    ``KeyError`` naming it. The parameters do not require a gradient until a
+    trainer asks (``requires_grad_(True)``)."""
     module = module.to_empty(device=device).requires_grad_(False)
     own = module.state_dict()
     keys = {k for k in sd if not k.startswith(ignored)}
@@ -200,9 +201,34 @@ def _target_cls(config: dict, section: str, default):
     return default if target is None else get_obj_from_str(str(target))
 
 
-def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None, **kwargs):
+def resolve_dtype(dtype) -> torch.dtype:
+    """The Linear weights' dtype a loader takes: bf16 (the port's policy,
+    ops/nn.py) or fp32, named as the JAX loader names them (a torch or numpy
+    dtype, or "bf16" / "bfloat16" / "fp32" / "f32" / "float32"). Any other
+    raises ``ValueError``."""
+    names = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "fp32": torch.float32,
+             "f32": torch.float32, "float32": torch.float32}
+    if isinstance(dtype, str):
+        out = names.get(dtype)
+    elif isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        try:
+            out = names.get(np.dtype(dtype).name)
+        except TypeError:
+            out = None
+    if out not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dtype {dtype!r} is not supported: the port loads bf16 (its default) "
+                         "or fp32 weights")
+    return out
+
+
+def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None,
+                              dtype="bf16", **kwargs):
     """A shape pipeline from one multi-model checkpoint and its config.yaml,
-    on ``device`` (``cuda`` unless the caller passes another)."""
+    on ``device`` (``cuda`` unless the caller passes another). ``dtype``
+    (:func:`resolve_dtype`) is the Linear weights' dtype: bf16, or fp32, in
+    which every parameter is fp32 (as the JAX loader's ``dtype``)."""
     from hunyuan3d2_tpu_torch.models import clip_vit, dinov2
     from hunyuan3d2_tpu_torch.models import conditioner as cond_lib
     from hunyuan3d2_tpu_torch.models import dit as dit_lib
@@ -210,6 +236,12 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
     from hunyuan3d2_tpu_torch.pipelines import schedulers as sched_lib
 
     device = torch.device(device if device is not None else "cuda")
+    dtype = resolve_dtype(dtype)
+
+    def meta(build, *args):
+        module = on_meta(build, *args)
+        return module.float() if dtype == torch.float32 else module
+
     with open(config_path) as fh:
         config = yaml.safe_load(fh)
     towers = split_by_top_key(load_state_dict(ckpt_path))
@@ -224,7 +256,7 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
         num_heads=mp.get("num_heads", 16), depth=mp.get("depth", 16),
         depth_single_blocks=mp.get("depth_single_blocks", 32),
         qkv_bias=mp.get("qkv_bias", True), guidance_embed=mp.get("guidance_embed", False))
-    model = load_weights(on_meta(_target_cls(config, "model", dit_lib.Hunyuan3DDiT), dit_cfg),
+    model = load_weights(meta(_target_cls(config, "model", dit_lib.Hunyuan3DDiT), dit_cfg),
                          towers.get("model", {}), device, IGNORED["model"], "model")
 
     vp = _params(config, "vae")
@@ -235,7 +267,7 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
         include_pi=vp.get("include_pi", False),
         scale_factor=vp.get("scale_factor", 1.0188137142395404),
         qkv_bias=vp.get("qkv_bias", False))
-    vae = load_weights(on_meta(_target_cls(config, "vae", vae_lib.ShapeVAE), vae_cfg),
+    vae = load_weights(meta(_target_cls(config, "vae", vae_lib.ShapeVAE), vae_cfg),
                        towers.get("vae", {}), device, IGNORED["vae"], "vae")
 
     cp = _params(config, "conditioner")
@@ -267,10 +299,10 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
             num_heads=ac.get("num_attention_heads", 16), patch_size=ac.get("patch_size", 14),
             image_size=ak.get("image_size", 224),
             intermediate_size=ac.get("intermediate_size", 4096))
-        conditioner = on_meta(lambda: cond_lib.DualImageEncoder(
+        conditioner = meta(lambda: cond_lib.DualImageEncoder(
             main_cls(enc_cfg), cond_lib.CLIPImageEncoder(ccfg)))
     else:
-        conditioner = on_meta(lambda: cond_lib.SingleImageEncoder(main_cls(enc_cfg)))
+        conditioner = meta(lambda: cond_lib.SingleImageEncoder(main_cls(enc_cfg)))
     conditioner = load_weights(conditioner, cond_sd, device, IGNORED["conditioner"],
                                "conditioner")
 

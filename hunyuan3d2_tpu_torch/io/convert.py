@@ -17,6 +17,13 @@ UNet2DConditionModel keys, a ControlNet to the ControlNetModel keys that
 Input leaves are numpy arrays (any float dtype, bf16 included); outputs are
 float32 numpy arrays, which
 ``load_state_dict`` casts to each parameter's dtype.
+
+The other way, :func:`dit_tree`, :func:`shapevae_tree` and
+:func:`dinov2_tree` take a module's state dict to the JAX package's tree
+(the inverse of ``dit_state_dict``, ``shapevae_state_dict`` and
+``dinov2_state_dict``; the same trees as its ``map_dit``, ``map_shapevae``
+and ``map_dinov2`` build): per-layer leaves stacked on a leading axis,
+Linear weights as [in, out], float32 numpy leaves.
 """
 
 from __future__ import annotations
@@ -137,6 +144,127 @@ def dinov2_state_dict(params: dict, cfg, prefix: str = "model.") -> Dict[str, np
     sd["layernorm.weight"] = _f32(params["final_norm_scale"])
     sd["layernorm.bias"] = _f32(params["final_norm_bias"])
     return {prefix + k: v for k, v in sd.items()}
+
+
+def _t(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return _f32(x)
+
+
+def _tree_lin(sd: dict, key: str) -> dict:
+    p = {"w": np.ascontiguousarray(_t(sd[key + ".weight"]).T)}
+    if key + ".bias" in sd:
+        p["b"] = _t(sd[key + ".bias"])
+    return p
+
+
+def _stack(layers: list) -> dict:
+    """[{name: leaf or {w, b}}] per layer → {name: stacked leaf}."""
+    return {k: _stack([ly[k] for ly in layers]) if isinstance(v, dict)
+            else np.stack([ly[k] for ly in layers]) for k, v in layers[0].items()}
+
+
+def dit_tree(sd: dict, cfg) -> dict:
+    """Hunyuan3DDiT state dict → models/dit.py param tree."""
+    params = {
+        "latent_in": _tree_lin(sd, "latent_in"),
+        "cond_in": _tree_lin(sd, "cond_in"),
+        "time_in": {"in_layer": _tree_lin(sd, "time_in.in_layer"),
+                    "out_layer": _tree_lin(sd, "time_in.out_layer")},
+        "final_layer": {"adaLN": _tree_lin(sd, "final_layer.adaLN_modulation.1"),
+                        "linear": _tree_lin(sd, "final_layer.linear")},
+    }
+    if cfg.guidance_embed:
+        params["guidance_in"] = {"in_layer": _tree_lin(sd, "guidance_in.in_layer"),
+                                 "out_layer": _tree_lin(sd, "guidance_in.out_layer")}
+    double = []
+    for i in range(cfg.depth):
+        b = f"double_blocks.{i}"
+        ly = {}
+        for s in ("img", "txt"):
+            ly[f"{s}_mod"] = _tree_lin(sd, f"{b}.{s}_mod.lin")
+            ly[f"{s}_qkv"] = _tree_lin(sd, f"{b}.{s}_attn.qkv")
+            ly[f"{s}_q_scale"] = _t(sd[f"{b}.{s}_attn.norm.query_norm.scale"])
+            ly[f"{s}_k_scale"] = _t(sd[f"{b}.{s}_attn.norm.key_norm.scale"])
+            ly[f"{s}_proj"] = _tree_lin(sd, f"{b}.{s}_attn.proj")
+            ly[f"{s}_mlp_in"] = _tree_lin(sd, f"{b}.{s}_mlp.0")
+            ly[f"{s}_mlp_out"] = _tree_lin(sd, f"{b}.{s}_mlp.2")
+        double.append(ly)
+    params["double_blocks"] = _stack(double)
+    params["single_blocks"] = _stack([{
+        "mod": _tree_lin(sd, f"single_blocks.{i}.modulation.lin"),
+        "linear1": _tree_lin(sd, f"single_blocks.{i}.linear1"),
+        "linear2": _tree_lin(sd, f"single_blocks.{i}.linear2"),
+        "q_scale": _t(sd[f"single_blocks.{i}.norm.query_norm.scale"]),
+        "k_scale": _t(sd[f"single_blocks.{i}.norm.key_norm.scale"]),
+    } for i in range(cfg.depth_single_blocks)])
+    return params
+
+
+def shapevae_tree(sd: dict, cfg) -> dict:
+    """ShapeVAE state dict → models/shapevae.py param tree."""
+    def ln(out, name, key):
+        out[name + "_scale"] = _t(sd[key + ".weight"])
+        out[name + "_bias"] = _t(sd[key + ".bias"])
+
+    blocks = []
+    for i in range(cfg.num_decoder_layers):
+        b = f"transformer.resblocks.{i}"
+        ly = {"c_qkv": _tree_lin(sd, f"{b}.attn.c_qkv"),
+              "c_proj": _tree_lin(sd, f"{b}.attn.c_proj"),
+              "mlp_fc": _tree_lin(sd, f"{b}.mlp.c_fc"),
+              "mlp_proj": _tree_lin(sd, f"{b}.mlp.c_proj")}
+        for name, key in (("ln_1", "ln_1"), ("ln_2", "ln_2"), ("q_norm", "attn.attention.q_norm"),
+                          ("k_norm", "attn.attention.k_norm")):
+            ln(ly, name, f"{b}.{key}")
+        blocks.append(ly)
+    c = "geo_decoder.cross_attn_decoder"
+    g = {"query_proj": _tree_lin(sd, "geo_decoder.query_proj"),
+         "c_q": _tree_lin(sd, f"{c}.attn.c_q"), "c_kv": _tree_lin(sd, f"{c}.attn.c_kv"),
+         "c_proj": _tree_lin(sd, f"{c}.attn.c_proj"), "mlp_fc": _tree_lin(sd, f"{c}.mlp.c_fc"),
+         "mlp_proj": _tree_lin(sd, f"{c}.mlp.c_proj"),
+         "output_proj": _tree_lin(sd, "geo_decoder.output_proj")}
+    for name in ("ln_1", "ln_2", "ln_3"):
+        ln(g, name, f"{c}.{name}")
+    ln(g, "q_norm", f"{c}.attn.attention.q_norm")
+    ln(g, "k_norm", f"{c}.attn.attention.k_norm")
+    ln(g, "ln_post", "geo_decoder.ln_post")
+    return {"post_kl": _tree_lin(sd, "post_kl"), "transformer": _stack(blocks), "geo_decoder": g}
+
+
+def dinov2_tree(sd: dict, cfg, prefix: str = "") -> dict:
+    """Dinov2Model state dict (keys under ``prefix``) → models/dinov2.py
+    param tree (SwiGLU FFN)."""
+    def g(k):
+        return _t(sd[prefix + k])
+
+    def lin(k):
+        return {"w": np.ascontiguousarray(g(k + ".weight").T), "b": g(k + ".bias")}
+
+    conv = g("embeddings.patch_embeddings.projection.weight")     # [H, C, p, p]
+    layers = []
+    for i in range(cfg.num_layers):
+        b = f"encoder.layer.{i}"
+        layers.append({
+            "norm1_scale": g(f"{b}.norm1.weight"), "norm1_bias": g(f"{b}.norm1.bias"),
+            "q": lin(f"{b}.attention.attention.query"), "k": lin(f"{b}.attention.attention.key"),
+            "v": lin(f"{b}.attention.attention.value"),
+            "out": lin(f"{b}.attention.output.dense"),
+            "ls1": g(f"{b}.layer_scale1.lambda1"),
+            "norm2_scale": g(f"{b}.norm2.weight"), "norm2_bias": g(f"{b}.norm2.bias"),
+            "ls2": g(f"{b}.layer_scale2.lambda1"),
+            "ffn_in": lin(f"{b}.mlp.weights_in"), "ffn_out": lin(f"{b}.mlp.weights_out"),
+        })
+    return {
+        "cls_token": g("embeddings.cls_token"),
+        "pos_embed": g("embeddings.position_embeddings"),
+        "patch_proj": {"w": np.ascontiguousarray(conv.reshape(conv.shape[0], -1).T),
+                       "b": g("embeddings.patch_embeddings.projection.bias")},
+        "layers": _stack(layers),
+        "final_norm_scale": g("layernorm.weight"),
+        "final_norm_bias": g("layernorm.bias"),
+    }
 
 
 def clip_vit_state_dict(params: dict, cfg, prefix: str = "model.") -> Dict[str, np.ndarray]:

@@ -15,8 +15,12 @@ where its gate passes; the K/V-pruned decode (:func:`decode_queries_pruned`)
 for a config of >= 2048 latents that the stream's gate refuses; the fused
 decoder kernel where its gate passes (<= 1024 latents); the dense plain
 decode for a config that no kernel takes. The vanilla and hierarchical
-decoders decode with the plain fp32 decode (:meth:`ShapeVAE.decode_queries`
-on fp32 K/V), as the JAX package's grid decode does for them.
+decoders decode with the dense fp32 decode (:meth:`ShapeVAE.decode_queries`
+on fp32 K/V), as the JAX package's grid decode does for them; its attention
+goes through ``ops.attention.attention``, so on the card kernel 1 takes it
+where the gate admits it, as the JAX decode reaches the flash kernel.
+Every module is differentiable (the kernels without a gradient refuse
+inputs that need one), so the decode trains (volume/diff_surface.py).
 """
 
 from __future__ import annotations
@@ -270,8 +274,10 @@ class ShapeVAE(nn.Module):
         return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
     def decode_queries(self, queries: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-        """Occupancy logits [B, P] for xyz queries [B, P, 3] (plain decode)."""
-        return decode_queries_plain(self, queries, k, v)
+        """Occupancy logits [B, P] for xyz queries [B, P, 3]: the dense
+        decode, its attention through kernel 1 where the gate admits it (JAX
+        models/shapevae.py:179). ``decode_queries_plain`` is its plain twin."""
+        return decode_queries_plain(self, queries, k, v, attend=attention)
 
     def query_decoder(self, k: torch.Tensor, v: torch.Tensor):
         """The FlashVDM decode function for fp32 K/V [1, H, L, D], chosen as
@@ -317,8 +323,9 @@ class ShapeVAE(nn.Module):
             self.surface_extractor = surface.SurfaceExtractors["mc"]()
 
     def _decode_fn(self, k: torch.Tensor, v: torch.Tensor):
-        """The FlashVDM decoder's decode (:meth:`query_decoder`); the plain
-        fp32 decode for the vanilla and hierarchical decoders."""
+        """The FlashVDM decoder's decode (:meth:`query_decoder`); the dense
+        fp32 decode (:meth:`decode_queries`) for the vanilla and hierarchical
+        decoders."""
         from hunyuan3d2_tpu_torch.volume import decoders
 
         if isinstance(self.volume_decoder, decoders.FlashVDMVolumeDecoding):

@@ -21,6 +21,15 @@ keys per tile, stages of the K/V ring) is a function of the call's shape
 ``hunyuan3d2_tpu_torch.tools.profile_flash_variants``. The masked kernel
 walks only the key tiles that hold an allowed pair; the wrapper finds them
 on the device (:func:`tile_map`), without a host synchronisation.
+
+The unmasked kernel has a gradient (:class:`_FlashAttentionFn`): its
+backward is the gradient of :func:`flash_attention_plain`, recomputed from
+the saved q, k, v (the JAX package has no backward kernel either: its
+training runs through the plain attention). The masked kernel has none;
+its wrapper refuses inputs that require a gradient while grad mode is on
+(:func:`refuse_grad`), as do those of the geo decoder's chain, the
+rasterizer and the tile-sweep variants, so no gradient is dropped without
+a word.
 """
 
 from __future__ import annotations
@@ -63,6 +72,15 @@ def flash_attention_masked_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     l = p.sum(-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
     return (out / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and one of ``tensors`` (None skipped)
+    requires a gradient: the kernel ``name`` has no backward, and its output
+    would carry none."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no gradient: call it under torch.no_grad(), or on "
+                           "inputs that do not require grad")
 
 
 def _check(q, k, v):
@@ -129,17 +147,43 @@ def _lib():
     return fn
 
 
+class _FlashAttentionFn(torch.autograd.Function):
+    """Kernel 1 under autograd. The forward launches the kernel (and counts
+    the launch); the backward recomputes :func:`flash_attention_plain` from
+    the saved q, k, v under grad mode and returns its gradients in the
+    inputs' dtypes. The recompute holds the [B, H, Lq, Lk] fp32 scores: a
+    caller with long sequences chunks its queries."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        out = _launch(q, k, v, None, scale)
+        flash_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+            out = flash_attention_plain(*inputs, ctx.scale)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return tuple(next(grads) if n else None for n in needs) + (None,)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, H, Lq, D], k/v [B, H, Lk, D] → [B, H, Lq, D] in q.dtype."""
+    """q [B, H, Lq, D], k/v [B, H, Lk, D] → [B, H, Lq, D] in q.dtype,
+    differentiable in q, k and v."""
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
-    out = _launch(q, k, v, None, scale)
-    flash_attention.launches += 1
-    return out
+    return _FlashAttentionFn.apply(q, k, v, scale)
 
 
 def _launch(q, k, v, mask, scale):
@@ -169,6 +213,7 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{(b, lq, k.shape[2])}, got {mask.dtype} {tuple(mask.shape)}")
     if mask.device != q.device:
         raise ValueError("flash_attention_masked: mask lies on another device than q")
+    refuse_grad("flash_attention_masked", q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:

@@ -24,7 +24,11 @@ has bf16 inputs and an fp32 sum; every rounding point is the Pallas
 kernels'.
 
 Each kernel wrapper takes its plain twin (``*_plain``) for CPU tensors; for
-CUDA tensors it launches its kernel or raises. :func:`geo_decode_plain` and
+CUDA tensors it launches its kernel or raises. The chain has no gradient:
+:func:`fused_geo_decode`, :func:`geo_mlp_tail` and
+:func:`fused_geo_decode_stream` refuse, on either device, inputs or a geo
+decoder whose parameters require one while grad mode is on (the
+differentiable decode is the VAE's ``decode_queries``). :func:`geo_decode_plain` and
 :func:`geo_mlp_tail_plain` compose the plain twins as the card composes the
 kernels, with the Pallas kernel's exact softmax (:func:`sdpa`) in place of
 kernel 1's online one. :func:`decode_queries_plain` is the dense decode of
@@ -45,7 +49,7 @@ import torch.nn.functional as F
 
 from hunyuan3d2_tpu_torch.ops.attention import merge_heads, sdpa
 from hunyuan3d2_tpu_torch.ops.embeddings import fourier_embed
-from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, refuse_grad
 from hunyuan3d2_tpu_torch.ops.nn import gelu_exact, layer_norm
 
 EMB_PAD = 64
@@ -68,9 +72,12 @@ def fused_geo_stream_supported(cfg) -> bool:
 
 
 def decode_queries_plain(vae, queries: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
+                         v: torch.Tensor, attend=sdpa) -> torch.Tensor:
     """queries [B, P, 3] fp32, k/v [B, H, L, D] (k LayerNorm applied) →
-    [B, P] logits, in k's dtype. Activations run in k's dtype."""
+    [B, P] logits, in k's dtype. Activations run in k's dtype. ``attend``
+    is the attention: the plain :func:`sdpa` by default; the VAE's
+    ``decode_queries`` passes ``ops.attention.attention``, which sends CUDA
+    tensors through kernel 1 (JAX models/shapevae.py:179)."""
     cfg = vae.cfg
     g = vae.geo_decoder
     blk = g.cross_attn_decoder
@@ -79,7 +86,7 @@ def decode_queries_plain(vae, queries: torch.Tensor, k: torch.Tensor,
     q = blk.attn.c_q(blk.ln_1(x))
     b, p, _ = q.shape
     q = blk.attn.attention.q_norm(q.reshape(b, p, cfg.heads, cfg.head_dim)).transpose(1, 2)
-    x = x + blk.attn.c_proj(merge_heads(sdpa(q, k, v)))
+    x = x + blk.attn.c_proj(merge_heads(attend(q, k, v)))
     x = x + blk.mlp.c_proj(gelu_exact(blk.mlp.c_fc(blk.ln_3(x))))
     x = layer_norm(x, g.ln_post.weight, g.ln_post.bias)
     return g.output_proj(x)[..., 0]
@@ -452,6 +459,7 @@ def fused_geo_decode(vae, queries: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     → [1, P] fp32 logits: the kernel chain on CUDA tensors,
     :func:`geo_decode_plain` on CPU tensors."""
     _check("fused_geo_decode", vae, queries, k, v, fused_geo_supported)
+    refuse_grad("fused_geo_decode", queries, k, v, *vae.geo_decoder.parameters())
     if not queries.is_cuda:
         return geo_decode_plain(vae, queries, k, v)
     out = _tail(vae, _front(vae, queries, k, v, torch.float32, plain=False), plain=False)
@@ -501,6 +509,7 @@ def geo_mlp_tail(vae, x2: torch.Tensor) -> torch.Tensor:
     """x2 [1, P, W] bf16 → [1, P] fp32 logits: the tail's kernels on a CUDA
     tensor, :func:`geo_mlp_tail_plain` on a CPU tensor."""
     _check_tail(vae, x2)
+    refuse_grad("geo_mlp_tail", x2, *vae.geo_decoder.parameters())
     if not x2.is_cuda:
         return geo_mlp_tail_plain(vae, x2)
     out = _tail(vae, x2[0], plain=False)
@@ -516,4 +525,5 @@ def fused_geo_decode_stream(vae, queries: torch.Tensor, k: torch.Tensor,
     """queries [1, P, 3] fp32 + bf16 k/v [1, H, L, D] → [1, P] fp32 logits:
     :func:`geo_stream_x2`, then :func:`geo_mlp_tail`."""
     _check("fused_geo_decode_stream", vae, queries, k, v, fused_geo_stream_supported)
+    refuse_grad("fused_geo_decode_stream", queries, k, v, *vae.geo_decoder.parameters())
     return geo_mlp_tail(vae, geo_stream_x2(vae, queries, k, v))

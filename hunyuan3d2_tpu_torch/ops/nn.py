@@ -128,7 +128,8 @@ def build(cls, *args, device=None, generator: Optional[torch.Generator] = None, 
     """Construct ``cls(*args, **kwargs)`` without running torch's default
     init, directly on ``device`` (``cuda`` unless the caller passes another),
     then draw its weights from ``generator`` (seed 0 when None) on that
-    device."""
+    device. The parameters do not require a gradient (inference); a trainer
+    turns them on with ``requires_grad_(True)`` (training/flow_match.py)."""
     device = torch.device(device if device is not None else "cuda")
     with torch.device("meta"):
         module = cls(*args, **kwargs)

@@ -32,6 +32,8 @@ from typing import NamedTuple
 
 import torch
 
+from hunyuan3d2_tpu_torch.ops.flash_attention import refuse_grad
+
 # (face, pixel) pairs evaluated at once by the plain twin
 _PLAIN_CHUNK = 1 << 22
 _EMPTY = torch.iinfo(torch.int64).max
@@ -165,11 +167,13 @@ def _check(verts: torch.Tensor, faces: torch.Tensor, h: int, w: int):
         raise ValueError("rasterize: verts and faces lie on different devices")
     if h <= 0 or w <= 0 or faces.shape[0] >= 2 ** 31:
         raise ValueError(f"rasterize: bad size {h}x{w} or face count {faces.shape[0]}")
+    refuse_grad("rasterize", verts)
 
 
 def rasterize(verts: torch.Tensor, faces: torch.Tensor, h: int, w: int) -> RasterOut:
     """Rasterize ``faces`` [F, 3] of clip-space ``verts`` [V, 4] (float32)
-    into an h×w image → :class:`RasterOut`."""
+    into an h×w image → :class:`RasterOut`. The raster has no gradient:
+    verts that require one raise while grad mode is on."""
     _check(verts, faces, h, w)
     if not verts.is_cuda:
         return rasterize_plain(*face_setup(verts, faces, h, w), h, w)

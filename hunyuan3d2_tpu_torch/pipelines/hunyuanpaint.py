@@ -200,14 +200,15 @@ class HunyuanPaintPipeline:
                  num_inference_steps: int = 30, guidance_scale: float = 2.0,
                  num_in_batch: Optional[int] = None, seed: int = 0,
                  width: Optional[int] = None, height: Optional[int] = None,
-                 output_type: str = "pil", init_latents=None, step_noises=None):
+                 output_type: str = "pil", init_latents=None, step_noises=None, **kwargs):
         """Reference image(s) + normal / position control maps → the N views.
 
         The control maps are uint8 [N, size, size, 3] tensors (the device
         cond maps) or lists of images. ``camera_info_ref`` (default [[0]])
         matters only to a single-stream UNet; ``num_in_batch`` and
         ``height`` are accepted for the reference's signature (the views are
-        width² and N is the maps' count). The views come back as PIL images
+        width² and N is the maps' count), and so are extra keywords. The
+        views come back as PIL images
         (``"pil"``), a uint8 [N, size, size, 3] tensor on the device
         (``"device"``), or otherwise a float32 numpy array in [0, 1]."""
         size = width or self.view_size

@@ -51,13 +51,14 @@ class Hunyuan3DDiTPipeline:
 
     def __init__(self, vae: vae_lib.ShapeVAE, model: dit_lib.Hunyuan3DDiT, scheduler,
                  conditioner: conditioner_lib.SingleImageEncoder, image_processor=None,
-                 device=None):
+                 device=None, **kwargs):
         self.vae = vae
         self.model = model
         self.scheduler = scheduler
         self.conditioner = conditioner
         self.image_processor = image_processor or ImageProcessorV2()
         self.device = torch.device(device if device is not None else "cuda")
+        self.kwargs = kwargs
 
     @property
     def model_cfg(self) -> dit_lib.DiTConfig:
@@ -69,7 +70,9 @@ class Hunyuan3DDiTPipeline:
         """The pipeline of the checkpoint ``{model_path}/{subfolder}`` (a local
         directory, or one under ``$HY3DGEN_MODELS``): config.yaml and
         ``model.{variant}.safetensors`` (or ``.ckpt``), loaded onto
-        ``device`` (``cuda`` unless the caller passes another)."""
+        ``device`` (``cuda`` unless the caller passes another). ``dtype``
+        (bf16 by default, or fp32) is the dtype of the Linear weights, as
+        the JAX loader's; other keywords go to the pipeline."""
         from hunyuan3d2_tpu_torch.io import checkpoints
 
         return checkpoints.load_pipeline(cls, model_path, subfolder, variant, device=device,
@@ -143,7 +146,15 @@ class Hunyuan3DDiTPipeline:
         self._auto_offload = True
         return self
 
-    def prepare_image(self, image) -> dict:
+    def compile(self):
+        """The reference's torch.compile opt-in; the port runs eagerly with
+        its own kernels, so this returns the pipeline unchanged, as the JAX
+        package's does."""
+        return self
+
+    def prepare_image(self, image, mask=None) -> dict:
+        """The conditioner's input; ``mask`` is accepted for the
+        reference's signature (the processor takes the image's alpha)."""
         return self.image_processor(image)
 
     def encode_cond(self, image_nhwc: np.ndarray, do_cfg: bool, view_idxs=None) -> torch.Tensor:

@@ -39,6 +39,7 @@ from hunyuan3d2_tpu_torch.ops.flash_attention import (
     default_config,
     flash_attention,
     flash_attention_plain,
+    refuse_grad,
 )
 
 # (q rows, keys, stages) per CTA, as compiled in csrc/flash_variants.cu
@@ -67,6 +68,7 @@ def flash_attention_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, s
         raise ValueError(f"flash variant (bq={bq}, bk={bk}, stages={stages}) is not compiled; "
                          f"compiled: {VARIANTS}")
     _check(q, k, v)
+    refuse_grad("flash_attention_variant", q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
     if q.dtype != torch.bfloat16:

@@ -1,9 +1,10 @@
-"""Scoped wall-clock timer for the pipelines' stages.
+"""Scoped wall-clock timers for the pipelines' stages.
 
-Port of hunyuan3d2_tpu/utils/timer.py. Device work is asynchronous under
-PyTorch too, so a scope drains the CUDA queue with
-``torch.cuda.synchronize()`` before reading the clock whenever this process
-has initialised CUDA (the JAX package used ``jax.effects_barrier``).
+Port of hunyuan3d2_tpu/utils/timer.py (reference hy3dgen/shapegen/utils.py
+``synchronize_timer``). Device work is asynchronous under PyTorch too, so a
+scope drains the CUDA queue with ``torch.cuda.synchronize()`` before reading
+the clock whenever this process has initialised CUDA (the JAX package used
+``jax.effects_barrier``).
 """
 
 import functools
@@ -25,12 +26,13 @@ def _device_sync():
         torch.cuda.synchronize()
 
 
-class timed_scope:
-    """``with timed_scope('stage'):`` or ``@timed_scope('stage')`` records the
-    elapsed wall clock (device queue drained at both ends) into
-    ``LAST_TIMINGS[tag]``, and logs it when HY3DGEN_DEBUG=1."""
+class synchronize_timer:
+    """``with synchronize_timer('stage'):`` or ``@synchronize_timer('stage')``
+    records the elapsed wall clock (device queue drained at both ends) into
+    ``LAST_TIMINGS[tag]``, and logs it when HY3DGEN_DEBUG=1. A decorator
+    without a tag records under the function's qualified name."""
 
-    def __init__(self, tag: str):
+    def __init__(self, tag: str = ""):
         self.tag = tag
         self.elapsed = None
 
@@ -50,7 +52,12 @@ class timed_scope:
     def __call__(self, fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with timed_scope(self.tag):
+            with type(self)(self.tag or fn.__qualname__):
                 return fn(*args, **kwargs)
 
         return wrapper
+
+
+class timed_scope(synchronize_timer):
+    """The pipelines' stage timer, which fills their per-stage stats
+    (``LAST_TIMINGS``)."""

@@ -217,6 +217,51 @@ _CUBE_EDGES = ((0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7), (7, 4),
                (0, 4), (1, 5), (2, 6), (3, 7))
 
 
+def _sn_vertices(cells: torch.Tensor, v: torch.Tensor, level: float, R: int,
+                 box_v: float) -> torch.Tensor:
+    """Surface nets' vertices: cells [cap, 3] with corner values v [cap, 8]
+    (fp32, _CORNERS order) → one vertex per cell, the mean of its cube-edge
+    crossings, in bbox coords [cap, 3]; smooth in ``v``."""
+    dev = cells.device
+    corners = torch.tensor(_CORNERS, dtype=torch.int64, device=dev)
+    edges = torch.tensor(_CUBE_EDGES, dtype=torch.int64, device=dev)
+    va, vb = v[:, edges[:, 0]], v[:, edges[:, 1]]
+    cross = (va > level) != (vb > level)
+    denom = torch.where((vb - va).abs() < 1e-12, torch.full_like(va, 1e-12), vb - va)
+    t = ((level - va) / denom).clamp(0.0, 1.0)
+    pa = corners[edges[:, 0]].float()
+    pb = corners[edges[:, 1]].float()
+    pts = pa[None] + t[..., None] * (pb - pa)[None]
+    w = cross.float()
+    local = (pts * w[..., None]).sum(1) / w.sum(1, keepdim=True).clamp(min=1.0)
+    return (cells.float() + local) / (R - 1.0) * (2.0 * box_v) - box_v
+
+
+def _sn_quads(cells: torch.Tensor, cf: torch.Tensor, v: torch.Tensor, pad: torch.Tensor,
+              lookup, nc: int, level: float):
+    """Surface nets' quads: each active cell owns its three min-corner
+    lattice edges (+x: corner 0→1, +y: 0→3, +z: 0→4) and emits a quad across
+    each edge whose ends differ in sign, over itself and its three
+    neighbours (``lookup`` maps flat cell ids to compacted positions; only
+    interior cells use it), wound outward (inside > level). Returns (quads
+    [3·cap, 4] int32, valid [3·cap] bool)."""
+    strides = (nc * nc, nc, 1)
+    occ0 = v[:, 0] > level
+    end_corner = (1, 3, 4)
+    me = torch.arange(cf.shape[0], dtype=torch.int32, device=cf.device)
+    quads, valids = [], []
+    for d in range(3):
+        u, vv = (d + 1) % 3, (d + 2) % 3
+        change = occ0 != (v[:, end_corner[d]] > level)
+        interior = (cells[:, u] > 0) & (cells[:, vv] > 0)
+        su, sv = strides[u], strides[vv]
+        n1, n2, n3 = lookup(cf - su), lookup(cf - su - sv), lookup(cf - sv)
+        q = torch.stack([me, n1, n2, n3], dim=1)
+        quads.append(torch.where(occ0[:, None], q, q.flip(1)))
+        valids.append(change & interior & ~pad & (n1 >= 0) & (n2 >= 0) & (n3 >= 0))
+    return torch.cat(quads), torch.cat(valids)
+
+
 def extract_active_cells(grid: torch.Tensor, level: float, capacity: int):
     """Active-cell compaction on the grid's device: the cells whose corners
     straddle ``level``, in ascending flat-id order, into a fixed capacity.
@@ -234,6 +279,41 @@ def extract_active_cells(grid: torch.Tensor, level: float, capacity: int):
     cc = cells[:, None, :] + torch.tensor(_CORNERS, dtype=torch.int64, device=g.device)[None]
     pflat = (cc[..., 0] * R + cc[..., 1]) * R + cc[..., 2]
     return cell_flat, g.reshape(-1)[pflat].half(), count
+
+
+def surface_nets_device(cell_flat: torch.Tensor, vals: torch.Tensor, R: int, level: float,
+                        box_v: float, face_capacity: int):
+    """Surface nets on the device from compacted active cells (port of JAX
+    volume/decoders.py:298), differentiable in ``vals``.
+
+    cell_flat [cap] int32 ascending flat cell ids (-1 padding), vals
+    [cap, 8] corner values (f16 from :func:`extract_active_cells`) in
+    _CORNERS order → (verts [cap, 3] f32 in bbox coords, tris
+    [2·face_capacity, 3] int32 vertex indices (positions in the compacted
+    actives), n_quads). One vertex per active cell, the mean of its
+    cube-edge crossings, smooth in ``vals``; a quad per sign-changing
+    min-corner lattice edge, wound outward (inside > level), its neighbours
+    found by a binary search over the ascending ids. Connectivity is
+    integer compaction and carries no gradient. The first 2·n_quads rows of
+    ``tris`` are the valid ones."""
+    nc = R - 1
+    cap = cell_flat.shape[0]
+    v = vals.float()
+    pad = cell_flat < 0
+    cf = cell_flat.clamp(min=0).long()
+    cells = torch.stack([cf // (nc * nc), (cf // nc) % nc, cf % nc], dim=1)
+    verts = _sn_vertices(cells, v, level, R, box_v)
+    # padding takes the largest key so that the ids stay ascending
+    sorted_ids = torch.where(pad, torch.iinfo(torch.int64).max, cf)
+
+    def lookup(ids):
+        pos = torch.searchsorted(sorted_ids, ids).clamp(max=cap - 1)
+        return torch.where(sorted_ids[pos] == ids, pos, -1).to(torch.int32)
+
+    quads, valid = _sn_quads(cells, cf, v, pad, lookup, nc, level)
+    qbuf, nq = compact_rows(valid, quads, face_capacity, -1)
+    tris = torch.stack([qbuf[:, (0, 1, 2)], qbuf[:, (0, 2, 3)]], dim=1)
+    return verts, tris.reshape(2 * face_capacity, 3), nq
 
 
 def assemble_sparse_grid(coarse16, blk_idx, fine16, octree_resolution: int, block: int,
@@ -310,40 +390,13 @@ def surface_nets_from_grid(grid: torch.Tensor, level: float, box_v: float, capac
     cc = cells[:, None, :] + corners[None]                     # [cap, 8, 3]
     pflat = (cc[..., 0] * R + cc[..., 1]) * R + cc[..., 2]
     v = g.reshape(-1)[pflat].float()                           # [cap, 8]
-    edges = torch.tensor(_CUBE_EDGES, dtype=torch.int64, device=dev)
-    va, vb = v[:, edges[:, 0]], v[:, edges[:, 1]]
-    cross = (va > level) != (vb > level)
-    denom = torch.where((vb - va).abs() < 1e-12, torch.full_like(va, 1e-12), vb - va)
-    t = ((level - va) / denom).clamp(0.0, 1.0)
-    pa = corners[edges[:, 0]].float()
-    pb = corners[edges[:, 1]].float()
-    pts = pa[None] + t[..., None] * (pb - pa)[None]
-    w = cross.float()
-    local = (pts * w[..., None]).sum(1) / w.sum(1, keepdim=True).clamp(min=1.0)
-    verts = cells.float() + local
-    verts = verts / (R - 1.0) * (2.0 * box_v) - box_v
+    verts = _sn_vertices(cells, v, level, R, box_v)
 
     # inverse map (cell id → compacted position) + faces
     inv = torch.full((nc ** 3 + 1,), -1, dtype=torch.int32, device=dev)
     inv[torch.where(pad, nc ** 3, cf)] = torch.arange(capacity, dtype=torch.int32, device=dev)
-    strides = (nc * nc, nc, 1)
-    occ0 = v[:, 0] > level
-    end_corner = (1, 3, 4)
-    me = torch.arange(capacity, dtype=torch.int32, device=dev)
-    quads, valids = [], []
-    for d in range(3):
-        u, vv = (d + 1) % 3, (d + 2) % 3
-        change = occ0 != (v[:, end_corner[d]] > level)
-        interior = (cells[:, u] > 0) & (cells[:, vv] > 0)
-        su, sv = strides[u], strides[vv]
-        n1 = inv[(cf - su).clamp(min=0)]
-        n2 = inv[(cf - su - sv).clamp(min=0)]
-        n3 = inv[(cf - sv).clamp(min=0)]
-        q = torch.stack([me, n1, n2, n3], dim=1)
-        q = torch.where(occ0[:, None], q, q.flip(1))
-        quads.append(q)
-        valids.append(change & interior & ~pad & (n1 >= 0) & (n2 >= 0) & (n3 >= 0))
-    qbuf, nq = compact_rows(torch.cat(valids), torch.cat(quads), face_capacity, -1)
+    quads, valid = _sn_quads(cells, cf, v, pad, lambda ids: inv[ids.clamp(min=0)], nc, level)
+    qbuf, nq = compact_rows(valid, quads, face_capacity, -1)
     ok = ok & (nq <= face_capacity)
     return verts, qbuf, nq, count, ok
 

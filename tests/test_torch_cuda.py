@@ -768,3 +768,90 @@ def test_conv2d_adds_an_fp32_bias_before_its_one_rounding(gen):
     assert torch.equal(out.cpu(), ref)
     rounded_first = conv2d(x.cpu(), w.cpu(), b.cpu().to(torch.bfloat16))
     assert not torch.equal(ref, rounded_first)
+
+
+# ---------------------------------------------------------------------------
+# gradients: kernel 1's, the refusals of the kernels without one, training
+# and the differentiable surface
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lq,lk", [(130, 200), (512, 512), (700, 333)])
+def test_flash_attention_gradient_matches_plain(gen, lq, lk, dt):
+    """The backward is the plain twin's gradient recomputed from the saved
+    inputs: it equals the plain autograd's up to the GEMMs' reduction order;
+    the forward is the kernel's (one launch)."""
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = (torch.randn(2, 3, n, 64, generator=gen, device="cuda").to(dt)
+               for n in (lq, lk, lk))
+    dout = torch.randn(2, 3, lq, 64, generator=gen, device="cuda").to(dt)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref_in = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    refs = torch.autograd.grad(flash_attention_plain(*ref_in), ref_in, dout)
+    for g, r in zip(grads, refs):
+        assert g.dtype == dt
+        tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(g.float(), r.float(), atol=tol * float(r.abs().max()),
+                                   rtol=0)
+
+
+def test_kernels_without_a_gradient_refuse_on_the_card(gen):
+    from hunyuan3d2_tpu_torch.models import shapevae
+    from hunyuan3d2_tpu_torch.ops import geo_decoder, rasterize
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention_masked
+
+    q, k, v = (torch.randn(1, 2, 256, 64, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    mask = torch.ones(1, 256, 256, dtype=torch.bool, device="cuda")
+    with pytest.raises(RuntimeError, match="flash_attention_masked has no gradient"):
+        flash_attention_masked(q.requires_grad_(True), k, v, mask)
+    for latents, fn in ((512, geo_decoder.fused_geo_decode),
+                        (1280, geo_decoder.fused_geo_decode_stream)):
+        vae = shapevae.ShapeVAE.init_random(shapevae.ShapeVAEConfig(
+            num_latents=latents, width=128, heads=2, num_decoder_layers=1), device="cuda")
+        vae.geo_decoder.requires_grad_(True)
+        kk, vv = (torch.randn(1, 2, latents, 64, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        pts = torch.rand(1, 512, 3, generator=gen, device="cuda") * 2 - 1
+        with pytest.raises(RuntimeError, match="has no gradient"):
+            fn(vae, pts, kk, vv)
+        with pytest.raises(RuntimeError, match="geo_mlp_tail has no gradient"):
+            geo_decoder.geo_mlp_tail(vae, torch.zeros(1, 512, 128, dtype=torch.bfloat16,
+                                                      device="cuda"))
+    verts = torch.tensor([[-0.5, -0.5, 0.1, 1.0], [0.5, -0.5, 0.1, 1.0], [0.0, 0.5, 0.1, 1.0]],
+                         device="cuda", requires_grad=True)
+    faces = torch.tensor([[0, 1, 2]], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="rasterize has no gradient"):
+        rasterize.rasterize(verts, faces, 8, 8)
+    with torch.no_grad():
+        assert (rasterize.rasterize(verts, faces, 8, 8).face_id == 0).any()
+
+
+def test_device_memory_stats_on_the_card(gen):
+    from hunyuan3d2_tpu_torch.utils.profiling import device_memory_stats
+
+    x = torch.empty(1 << 20, device="cuda")
+    s = device_memory_stats()
+    assert set(s) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    assert s["peak_bytes_in_use"] >= s["bytes_in_use"] >= x.numel() * 4
+    assert s["bytes_limit"] > 10 * 2 ** 30
+    assert set(device_memory_stats("cuda:0")) == set(s)
+
+
+def test_train_step_on_the_card_agrees_with_the_cpu(gen):
+    from hunyuan3d2_tpu_torch.tools import card_agreement as ca
+
+    stats = ca.train_agreement(ca.train_step_pair())
+    assert ca.train_agrees(stats), stats
+
+
+def test_diff_surface_on_the_card_agrees_with_the_cpu(gen):
+    from hunyuan3d2_tpu_torch.tools import card_agreement as ca
+
+    stats = ca.diff_surface_agreement(ca.diff_surface_pair())
+    assert ca.diff_surface_agrees(stats), stats

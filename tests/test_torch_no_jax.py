@@ -97,6 +97,23 @@ out = align_img4tex.Img2img_Control_Ip_adapter(pipeline=aligner)(
 assert out.size == (32, 32)
 assert align.HesModel(pipeline=aligner)(Image.fromarray(img), Image.fromarray(img), strength=0.5,
                                         num_inference_steps=2).size == (32, 32)
+from hunyuan3d2_tpu_torch.training import flow_match_loss, make_train_step
+from hunyuan3d2_tpu_torch.io import pytree_io
+from hunyuan3d2_tpu_torch.volume import diff_surface
+from hunyuan3d2_tpu_torch.utils import counters, debug, profiling
+from hunyuan3d2_tpu_torch.geometry import voxel_hierarchy
+from hunyuan3d2_tpu_torch.tools import export_native
+assert hunyuan3d2_tpu_torch.ShapeVAE is not None and hunyuan3d2_tpu_torch.Mesh is not None
+opt, step = make_train_step(pipe.model)
+gen = torch.Generator().manual_seed(0)
+loss = step(torch.randn(1, 64, 64, generator=gen), torch.randn(1, 5, 1536, generator=gen),
+            generator=gen)
+assert torch.isfinite(loss)
+lin = torch.linspace(-1.01, 1.01, 12)
+x, y, z = torch.meshgrid(lin, lin, lin, indexing="ij")
+verts, tris, nq, count = diff_surface.differentiable_surface_nets(
+    0.6 - (x * x + y * y + z * z).sqrt(), capacity=1024, face_capacity=1536)
+assert int(count) > 0 and int(nq) > 0
 bad = sorted(m for m in sys.modules if m in ("jax", "hunyuan3d2_tpu")
              or m.startswith(("jax.", "jaxlib", "hunyuan3d2_tpu.")))
 print("FORBIDDEN", bad)
