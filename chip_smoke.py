@@ -117,7 +117,25 @@ Phases, in order; any failure exits non-zero:
           queries through kernel 1, differentiable_surface_nets, a
           mesh-space loss and its gradient into the geo decoder's weights;
           then a 17³ grid on the card against the CPU;
- 13. a JSON line with every kernel's numbers, then the result line.
+ 14. parallelism (hunyuan3d2_tpu_torch/parallel):
+     14a. on a one-rank NCCL process group, the mini stack of phase 4 and
+          the paint-turbo stack of phase 6 through their entry points, each
+          unsharded, then after shard(make_mesh(1)): the latents and the
+          texture equal the unsharded runs' bit for bit, and kernels 1 and
+          3 (mini) and 1, 2 and 5 (turbo) launch as often as in phases 4
+          and 6 (paths parallel_image_to_mesh, parallel_textured_glb);
+     14b. two gloo ranks sharing the card (parallel.mesh.spawn; NCCL
+          refuses two ranks on one device), through
+          hunyuan3d2_tpu_torch/tools/parallel_check.py: the mini DiT at full
+          width on x [2,512,64], cond [2,1370,1536] bf16 at tp = 2, dp = 2
+          and pp = 2 (n_micro 2), each against the single-process forward
+          (the DiT parity rule: 5 % of the largest output, corr 0.999) with
+          24 kernel-1 launches a rank ([2,8,1882,64] at tp = 2), one tp = 2
+          train step against the single-process step (loss 2e-3), and the
+          mini shape stack's latents after shard(make_mesh(2)) (5e-2); each
+          run's collective stats, held to assert_no_full_param_gather; the
+          times are two ranks on one card, not a scaling figure;
+ 15. a JSON line with every kernel's numbers, then the result line.
 Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -2075,6 +2093,90 @@ def diff_surface_path():
     return launches
 
 
+def parallel_world_one(launches_mesh, launches_tex, sphere):
+    """14a. The main path through its normal entry point on a one-rank NCCL
+    process group: the mini stack at full width and the paint-turbo stack,
+    each run unsharded, then after ``shard(make_mesh(1))``; the latents and
+    the texture must equal the unsharded runs' bit for bit, and the kernels
+    launch as often as on the unsharded paths (the warm runs of phases 4 and
+    6). Returns the sharded runs' launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hunyuan3d2_tpu_torch import Hunyuan3DPaintPipeline
+    from hunyuan3d2_tpu_torch.parallel import make_mesh
+    from hunyuan3d2_tpu_torch.parallel.mesh import init_process_group
+    from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
+
+    image = test_image()
+    call = dict(num_inference_steps=5, guidance_scale=5.0)   # the main path's, seed 1234
+    init_process_group("nccl", "cuda")
+    try:
+        pipe = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="mini", dino="giant",
+                                                            device="cuda", seed=0)
+        pipe.enable_flashvdm(mc_algo="dmc")
+        whole = pipe(image, output_type="latents", seed=1234, **call)
+        check(pipe.shard(make_mesh(1)) is pipe, "parallel: shard() did not return the pipeline")
+        lat = pipe(image, output_type="latents", seed=1234, **call)
+        check(torch.equal(lat, whole), "parallel 14a: the sharded latents differ from the "
+              f"unsharded run's (max |diff| {(lat - whole).abs().max().item()})")
+        _, shape_launches = shape_run("parallel 14a image to mesh, make_mesh(1)", pipe, image,
+                                      ("warm",), ("flash_attention", "fused_geo_decode"),
+                                      octree_resolution=256, num_chunks=65536, **call)
+        for n in ("flash_attention", "fused_geo_decode"):
+            check(shape_launches[n] == launches_mesh[n], f"parallel 14a: {shape_launches[n]} {n} "
+                  f"launches, the unsharded path {launches_mesh[n]}")
+        log(f"parallel 14a: mini stack on a one-rank nccl group, latents equal the unsharded "
+            f"run's bit for bit; launches {shape_launches['flash_attention']} flash_attention, "
+            f"{shape_launches['fused_geo_decode']} fused_geo_decode (unsharded path "
+            f"{launches_mesh['flash_attention']}, {launches_mesh['fused_geo_decode']})")
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        paint = Hunyuan3DPaintPipeline.init_random(size="default", view_size=512,
+                                                   render_size=2048, texture_size=2048,
+                                                   device="cuda", seed=0).set_turbo()
+        textures = [paint(sphere, image).texture for _ in range(2)]
+        check(paint.shard(make_mesh(1)) is paint, "parallel: shard() did not return the pipeline")
+        counters = _zero_counters()
+        out = paint(sphere, image)
+        torch.cuda.synchronize()
+        tex_launches = {n: fn.launches for n, fn in counters.items()}
+        check(np.array_equal(out.texture, textures[1]), "parallel 14a: the sharded texture "
+              "differs from the unsharded run's (the two unsharded runs "
+              f"{'agree' if np.array_equal(*textures) else 'differ too'})")
+        for n in ("flash_attention", "flash_attention_masked", "rasterize"):
+            check(tex_launches[n] == launches_tex[n], f"parallel 14a textured: {tex_launches[n]} "
+                  f"{n} launches, the unsharded path {launches_tex[n]}")
+        log(f"parallel 14a: paint-turbo stack, make_mesh(1): texture equals the unsharded run's "
+            f"bit for bit; launches {json.dumps(tex_launches)}")
+        del paint
+    finally:
+        dist.destroy_process_group()
+    return shape_launches, tex_launches
+
+
+def parallel_two_ranks(card):
+    """14b. Two gloo ranks sharing the card (parallel.mesh.spawn, CUDA
+    tensors; NCCL refuses two ranks on one device) through
+    tools/parallel_check.py ``rank_checks``: the mini DiT at tp = 2, dp = 2
+    and pp = 2, a tp = 2 train step and the sharded shape pipeline, each
+    against one process; each rank's checks raise in the rank. Logs each
+    run."""
+    from hunyuan3d2_tpu_torch.parallel.mesh import spawn
+    from hunyuan3d2_tpu_torch.tools.parallel_check import rank_checks
+
+    t0 = time.perf_counter()
+    ranks = spawn(rank_checks, 2, backend="gloo", device="cuda", args=(2,))
+    log(f"parallel 14b: two gloo ranks sharing one card ({card}) in "
+        f"{time.perf_counter() - t0:.1f} s; times are two ranks on one card, not a scaling "
+        "figure")
+    for r, res in enumerate(ranks):
+        log(f"parallel 14b rank {r} " + json.dumps(res))
+
+
 def main() -> int:
     import torch
 
@@ -2160,13 +2262,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_agreement_phase()
     launches_diff = diff_surface_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_par_mesh, launches_par_tex = parallel_world_one(launches_mesh, launches_tex, sphere)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_two_ranks(card)
     by_path = {"image_to_mesh": launches_mesh, "image_to_mesh_v2_0_fast": launches_v20,
                "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex,
                "textured_glb_standard": launches_std, "flash_sweep": launches_sweep,
                "served": launches_served, "text_to_mesh": launches_text,
                "delight": launches_delight, "upscale": launches_upscale,
                "align": launches_align, "train": launches_train,
-               "diff_surface": launches_diff}
+               "diff_surface": launches_diff, "parallel_image_to_mesh": launches_par_mesh,
+               "parallel_textured_glb": launches_par_tex}
 
     def entry(name, source, replaces, rows, main_row, path):
         """``launches`` is the count from ``path``'s warm run; every path's

@@ -176,21 +176,27 @@ class Hunyuan3DDiT(nn.Module):
             [SingleStreamBlock(cfg) for _ in range(cfg.depth_single_blocks)])
         self.final_layer = LastLayer(cfg)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
-                guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [B, L, in_channels], t [B] in [0, 1], cond [B, Lc, context_in_dim]
-        → velocity [B, L, in_channels] in x.dtype."""
+    def embed_vec(self, t: torch.Tensor, guidance: Optional[torch.Tensor],
+                  dtype: torch.dtype) -> torch.Tensor:
+        """The modulation vector [B, hidden] from t [B] (and the guidance
+        strength [B] of a guidance-distilled model) in ``dtype``."""
         cfg = self.cfg
-        cond = cond.to(x.dtype)
-        latent = self.latent_in(x)
         vec = self.time_in(timestep_embedding(
-            t, 256, max_period=cfg.time_factor, time_factor=cfg.time_factor).to(latent.dtype))
+            t, 256, max_period=cfg.time_factor, time_factor=cfg.time_factor).to(dtype))
         if cfg.guidance_embed:
             if guidance is None:
                 raise ValueError("guidance strength required for a guidance-distilled model")
             vec = vec + self.guidance_in(timestep_embedding(
-                guidance, 256, max_period=cfg.time_factor,
-                time_factor=cfg.time_factor).to(latent.dtype))
+                guidance, 256, max_period=cfg.time_factor, time_factor=cfg.time_factor).to(dtype))
+        return vec
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, L, in_channels], t [B] in [0, 1], cond [B, Lc, context_in_dim]
+        → velocity [B, L, in_channels] in x.dtype."""
+        cond = cond.to(x.dtype)
+        latent = self.latent_in(x)
+        vec = self.embed_vec(t, guidance, latent.dtype)
         cond = self.cond_in(cond)
         for blk in self.double_blocks:
             latent, cond = blk(latent, cond, vec)

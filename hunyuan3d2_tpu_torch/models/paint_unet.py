@@ -274,6 +274,7 @@ class Transformer2D(nn.Module):
     def __init__(self, cfg: PaintUNetConfig, ch: int, extras: bool):
         super().__init__()
         self.cfg = cfg
+        self.heads = cfg.heads(ch)  # this rank's share once tp shards it (parallel/sharding.py)
         self.norm = GroupNorm(ch)
         self.proj_in = Linear(ch, ch)
         blk = Basic2p5DTransformerBlock(cfg, ch) if extras else BasicTransformerBlock(cfg, ch)
@@ -288,7 +289,7 @@ class Transformer2D(nn.Module):
         y = self.proj_in(self.norm(x, cfg.norm_num_groups, 1e-6).reshape(b, hh * ww, c))
         wrapped = self.transformer_blocks[0]
         blk = getattr(wrapped, "transformer", wrapped)
-        heads = cfg.heads(c)
+        heads = self.heads
 
         h = blk.norm1(y)
         y = y + blk.attn1(h, h, heads)

@@ -98,6 +98,7 @@ class ResidualAttentionBlock(nn.Module):
         super().__init__()
         w = cfg.width
         self.cfg = cfg
+        self.heads = cfg.heads  # this rank's share once tp shards it (parallel/sharding.py)
         self.ln_1 = LayerNorm(w, cfg.ln_eps)
         self.attn = _Module()
         self.attn.c_qkv = Linear(w, 3 * w, bias=cfg.qkv_bias)
@@ -110,7 +111,7 @@ class ResidualAttentionBlock(nn.Module):
         cfg = self.cfg
         qkv = self.attn.c_qkv(self.ln_1(x))
         b, l, _ = qkv.shape
-        q, k, v = qkv.reshape(b, l, cfg.heads, 3 * cfg.head_dim).chunk(3, dim=-1)
+        q, k, v = qkv.reshape(b, l, self.heads, 3 * cfg.head_dim).chunk(3, dim=-1)
         q = self.attn.attention.q_norm(q)
         k = self.attn.attention.k_norm(k)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))

@@ -94,6 +94,7 @@ class HunyuanPaintPipeline:
         self.vae = vae
         self.view_size = view_size
         self.device = torch.device(device if device is not None else "cuda")
+        self.mesh = None
         self.set_turbo(False)
 
     @classmethod
@@ -111,6 +112,20 @@ class HunyuanPaintPipeline:
         return cls(build(paint_unet.UNet2p5D, ucfg, device=device, generator=gen(0)),
                    build(sd_vae.AutoencoderKL, vcfg, device=device, generator=gen(1)),
                    view_size=view_size, device=device)
+
+    def shard(self, mesh=None):
+        """Distribute the paint stack over a (dp, tp) ``DeviceMesh`` (with no
+        argument, one over every rank of the initialised process group): the
+        UNet's and the VAE's weights over "tp" (parallel/sharding.py), the
+        standard sampler's CFG batch over "dp"; turbo's batch of 1 runs whole
+        on every dp group. Every rank calls the pipeline with the same inputs
+        and gets the same views."""
+        from hunyuan3d2_tpu_torch.parallel import make_mesh, shard_params
+
+        self.mesh = mesh if mesh is not None else make_mesh()
+        shard_params(self.unet, self.mesh)
+        shard_params(self.vae, self.mesh)
+        return self
 
     def set_turbo(self, turbo: bool = True):
         """Sample with the paint-turbo LCM loop, or (``turbo=False``) the
@@ -144,6 +159,8 @@ class HunyuanPaintPipeline:
         [1, N, h, w, 4] (bf16 into the UNet; the scaling, the guidance
         combine and the step in fp32), camera indices [1, N] → views
         [N, H, W, 3] uint8 on the device."""
+        from hunyuan3d2_tpu_torch.parallel.sharding import gather_batch, shard_batch
+
         dev = self.device
         do_cfg = guidance_scale > 1.0
         if do_cfg:  # [uncond | cond]: the uncond branch sees zero reference latents
@@ -153,13 +170,18 @@ class HunyuanPaintPipeline:
         shape = (1,) + tuple(normal_latents.shape[1:4]) + (4,)
         latents = draw(init_latents, shape, generator, dev) * float(sigmas[0])
         ref_scale = torch.tensor([0.0, 1.0], device=dev) if do_cfg else 1.0
+        batch = ref_latents.shape[0]
+        # on a mesh each dp rank runs its branch of the CFG batch
+        ref_latents, normal_latents, position_latents, cam_gen, cam_ref, ref_scale = shard_batch(
+            (ref_latents, normal_latents, position_latents, cam_gen, cam_ref, ref_scale), self.mesh)
         cache = self.unet.write_cache(ref_latents, cam_ref)
         sched = self.scheduler
         for i, t in enumerate(timesteps):
             lat_in = torch.cat([latents, latents]) if do_cfg else latents
-            lat_in = sched.scale_model_input(lat_in, sigmas[i])
+            lat_in = shard_batch(sched.scale_model_input(lat_in, sigmas[i]), self.mesh)
             pred = self.unet(lat_in.to(normal_latents.dtype), float(t), normal_latents,
                              position_latents, cam_gen, cache, ref_scale=ref_scale).float()
+            pred = gather_batch(pred, self.mesh, batch)
             if do_cfg:
                 uncond, cond = pred.chunk(2)
                 pred = uncond + guidance_scale * (cond - uncond)

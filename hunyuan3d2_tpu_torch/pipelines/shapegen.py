@@ -59,6 +59,7 @@ class Hunyuan3DDiTPipeline:
         self.image_processor = image_processor or ImageProcessorV2()
         self.device = torch.device(device if device is not None else "cuda")
         self.kwargs = kwargs
+        self.mesh = None
 
     @property
     def model_cfg(self) -> dit_lib.DiTConfig:
@@ -111,6 +112,24 @@ class Hunyuan3DDiTPipeline:
                 generator=gen(2))),
             device=device,
         )
+
+    def shard(self, mesh=None):
+        """Distribute the pipeline over a (dp, tp) ``DeviceMesh``
+        (parallel/mesh.py; with no argument, one over every rank of the
+        process group, which must be initialised: parallel.mesh.
+        init_process_group or torchrun). The DiT, the ShapeVAE's transformer
+        and the conditioner's towers are sharded over "tp"
+        (parallel/sharding.py); the geo decoder keeps whole weights. The CFG
+        pair of the denoise loop is split over "dp", and the velocities are
+        gathered before the guidance mix; a batch that dp does not divide
+        runs whole on every dp group. Every rank calls the pipeline with the
+        same inputs and seed, and gets the same result."""
+        from hunyuan3d2_tpu_torch.parallel import make_mesh, shard_params
+
+        self.mesh = mesh if mesh is not None else make_mesh()
+        for m in self._modules():
+            shard_params(m, self.mesh)
+        return self
 
     def enable_flashvdm(self, enabled: bool = True, adaptive_kv_selection=True,
                         topk_mode="mean", mc_algo="dmc", replace_vae: bool = False):
@@ -176,17 +195,24 @@ class Hunyuan3DDiTPipeline:
 
     def sample(self, latents: torch.Tensor, cond: torch.Tensor, sigmas: np.ndarray,
                guidance_scale: float, do_cfg: bool) -> torch.Tensor:
-        """The denoise loop: fp32 latents, bf16 model, Euler steps."""
+        """The denoise loop: fp32 latents, bf16 model, Euler steps. On a
+        mesh each dp rank runs its part of the model's batch."""
+        from hunyuan3d2_tpu_torch.parallel.sharding import gather_batch, shard_batch
+
         latents = latents.float()
         guidance = None
         if self.model_cfg.guidance_embed:
             guidance = torch.full((cond.shape[0],), guidance_scale, device=self.device)
+        cond, guidance = shard_batch((cond, guidance), self.mesh)
         for i in range(len(sigmas) - 1):
             # np.float32 scalars: the step size is taken in fp32, as in the JAX loop
             sigma, sigma_next = np.float32(sigmas[i]), np.float32(sigmas[i + 1])
             inp = torch.cat([latents, latents]) if do_cfg else latents
+            batch = inp.shape[0]
+            inp = shard_batch(inp, self.mesh)
             t = torch.full((inp.shape[0],), float(sigma), dtype=torch.float32, device=self.device)
             v = self.model(inp.to(torch.bfloat16), t, cond, guidance).float()
+            v = gather_batch(v, self.mesh, batch)
             if do_cfg:
                 v_cond, v_uncond = v.chunk(2)
                 v = v_uncond + guidance_scale * (v_cond - v_uncond)

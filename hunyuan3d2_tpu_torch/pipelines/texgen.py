@@ -70,6 +70,13 @@ class Hunyuan3DPaintPipeline:
         self.render = MeshRender(default_resolution=self.config.render_size,
                                  texture_size=self.config.texture_size)
 
+    def shard(self, mesh=None):
+        """Distribute the multiview diffusion stack over a (dp, tp)
+        ``DeviceMesh`` (see HunyuanPaintPipeline.shard); the renders and
+        the bake run whole on every rank."""
+        self.models["multiview_model"].pipeline.shard(mesh)
+        return self
+
     @classmethod
     def from_pretrained(cls, model_path: str, subfolder: str = "hunyuan3d-paint-v2-0-turbo",
                         device=None, **kwargs):

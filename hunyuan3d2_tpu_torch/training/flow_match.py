@@ -26,6 +26,18 @@ import torch
 from hunyuan3d2_tpu_torch.utils.profiling import annotate
 
 
+def _draws(latents, x0, sigma, generator):
+    """x0 and sigma (fp32, on the latents' device), each drawn from
+    ``generator`` where not given: x0 first."""
+    dev = latents.device
+    if x0 is None:
+        x0 = torch.randn(latents.shape, generator=generator, device=dev, dtype=torch.float32)
+    if sigma is None:
+        sigma = torch.rand((latents.shape[0],), generator=generator, device=dev,
+                           dtype=torch.float32)
+    return x0.to(dev, torch.float32), sigma.to(dev, torch.float32)
+
+
 def flow_match_loss(model, latents: torch.Tensor, cond: torch.Tensor,
                     guidance: Optional[torch.Tensor] = None, *, x0: Optional[torch.Tensor] = None,
                     sigma: Optional[torch.Tensor] = None,
@@ -33,13 +45,7 @@ def flow_match_loss(model, latents: torch.Tensor, cond: torch.Tensor,
     """latents [B, L, C] clean data (x₁), cond [B, Lc, D] → the scalar fp32
     loss. ``x0`` [B, L, C] and ``sigma`` [B] are drawn from ``generator`` on
     the latents' device (x0 first) where the caller passes none."""
-    dev = latents.device
-    if x0 is None:
-        x0 = torch.randn(latents.shape, generator=generator, device=dev, dtype=torch.float32)
-    if sigma is None:
-        sigma = torch.rand((latents.shape[0],), generator=generator, device=dev,
-                           dtype=torch.float32)
-    x0, sigma = x0.to(dev, torch.float32), sigma.to(dev, torch.float32)
+    x0, sigma = _draws(latents, x0, sigma, generator)
     x1 = latents.float()
     s = sigma[:, None, None]
     xt = (1.0 - s) * x0 + s * x1
@@ -55,18 +61,37 @@ def make_train_step(model, optimizer: Optional[torch.optim.Optimizer] = None):
     weight_decay=0.01)``). ``train_step(latents, cond, x0=None, sigma=None,
     generator=None)`` runs one zero_grad / backward / step and returns the
     loss (detached); its three phases are named spans in a trace
-    (``loss``, ``backward``, ``optimizer``; utils/profiling.py)."""
+    (``loss``, ``backward``, ``optimizer``; utils/profiling.py).
+
+    On a model sharded by parallel/sharding.py ``shard_params``, every rank
+    passes the same global batch (and draws, or the same generator): each dp
+    rank takes its part of it (drawn as a whole first), the gradients are
+    averaged over dp (the tp shards keep their own, the partial ones of
+    replicated weights are summed over tp), and the returned loss is the
+    global batch's mean, as the JAX package's GSPMD step computes it."""
+    from hunyuan3d2_tpu_torch.parallel import collectives, sharding
+    from hunyuan3d2_tpu_torch.parallel.mesh import axis
+
     model.requires_grad_(True)
     if optimizer is None:
         optimizer = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
                                       weight_decay=0.01)
+    mesh = getattr(model, "parallel_mesh", None)
+    dp = axis(mesh, "dp")
 
     def train_step(latents, cond, x0=None, sigma=None, generator=None):
         optimizer.zero_grad(set_to_none=True)
+        if mesh is not None:
+            x0, sigma = _draws(latents, x0, sigma, generator)
+            latents, cond, x0, sigma = sharding.shard_batch((latents, cond, x0, sigma), mesh)
         with annotate("loss"):
             loss = flow_match_loss(model, latents, cond, x0=x0, sigma=sigma, generator=generator)
         with annotate("backward"):
             loss.backward()
+        if mesh is not None:
+            sharding.reduce_gradients(model)
+            if dp is not None:
+                loss = collectives.all_reduce(loss.detach(), dp[0]) / dp[1]
         with annotate("optimizer"):
             optimizer.step()
         return loss.detach()

@@ -855,3 +855,45 @@ def test_diff_surface_on_the_card_agrees_with_the_cpu(gen):
 
     stats = ca.diff_surface_agreement(ca.diff_surface_pair())
     assert ca.diff_surface_agrees(stats), stats
+
+
+def test_shard_on_one_nccl_rank_is_the_unsharded_pipeline(gen):
+    """chip_smoke's parallel phase 14a, small: the shape pipeline (the mini
+    DiT, the tiny DINOv2) on a one-rank NCCL group gives the same latents,
+    bit for bit, and the same kernel-1 launches after shard(make_mesh(1))."""
+    # by its own name (pytest puts tests/ on sys.path): on a machine whose
+    # site-packages hold a regular ``tests`` package, ``from tests import``
+    # finds that one
+    import torch_parallel_cases as cases
+
+    from hunyuan3d2_tpu_torch.parallel import mesh
+
+    (whole, n_whole), (sharded, n_sharded) = mesh.spawn(
+        cases.world_one_shape_case, 1, backend="nccl", device="cuda", args=("mini", "cuda"))[0]
+    np.testing.assert_array_equal(sharded, whole)
+    assert n_sharded == n_whole > 0
+
+
+def test_row_parallel_partial_product_on_the_card(gen):
+    """A sharded bf16 row-parallel layer's partial product on the card
+    (parallel/sharding.py ``_PartialProduct``): a bf16 GEMM with an fp32
+    result, within fp32 accumulation of the fp64 product of the same
+    operands (a bf16-rounded result would be up to 0.125 off at these
+    sizes); its gradients are those of F.linear on the same operands, to
+    bf16 rounding."""
+    from hunyuan3d2_tpu_torch.parallel.sharding import _PartialProduct
+
+    x = torch.randn(2, 300, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(512, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y = _PartialProduct.apply(x, w)
+    assert y.dtype == torch.float32 and y.shape == (2, 300, 512)
+    ref = torch.nn.functional.linear(x.detach().double(), w.detach().double())
+    torch.testing.assert_close(y.double(), ref, atol=1e-3, rtol=1e-5)
+    g = torch.randn(y.shape, generator=gen, device="cuda").to(torch.bfloat16).float()
+    gx, gw = torch.autograd.grad(y, (x, w), g)
+    rx, rw = torch.autograd.grad(torch.nn.functional.linear(x, w), (x, w), g.to(torch.bfloat16))
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    torch.testing.assert_close(gx.float(), rx.float(), atol=2e-2 * rx.abs().max().item(), rtol=0)
+    torch.testing.assert_close(gw.float(), rw.float(), atol=2e-2 * rw.abs().max().item(), rtol=0)

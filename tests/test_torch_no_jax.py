@@ -103,6 +103,12 @@ from hunyuan3d2_tpu_torch.volume import diff_surface
 from hunyuan3d2_tpu_torch.utils import counters, debug, profiling
 from hunyuan3d2_tpu_torch.geometry import voxel_hierarchy
 from hunyuan3d2_tpu_torch.tools import export_native
+from hunyuan3d2_tpu_torch.parallel import collectives, diagnostics, mesh, pipeline, sharding
+from hunyuan3d2_tpu_torch.tools import parallel_check
+from hunyuan3d2_tpu_torch.pipelines import shapegen
+assert all(hasattr(c, "shard") for c in (shapegen.Hunyuan3DDiTFlowMatchingPipeline,
+                                         texgen.Hunyuan3DPaintPipeline,
+                                         hunyuanpaint.HunyuanPaintPipeline))
 assert hunyuan3d2_tpu_torch.ShapeVAE is not None and hunyuan3d2_tpu_torch.Mesh is not None
 opt, step = make_train_step(pipe.model)
 gen = torch.Generator().manual_seed(0)
