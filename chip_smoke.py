@@ -5,7 +5,8 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of every kernel from csrc/ (one nvcc per source, in parallel);
+  2. the build of every kernel from csrc/ (one nvcc per source, in parallel;
+     csrc/flash_attention_bwd.cu is kernel 1's backward);
   3. each kernel against its plain PyTorch twin at the shapes of the three
      paths, with its time, the plain time, the time of one library call
      where one computes the same function, and its bound on the card: flash
@@ -95,27 +96,35 @@ Phases, in order; any failure exits non-zero:
      on the card against the CPU (the upscaler at head size 64, so that
      kernel 1 runs in it);
  12. the gradients and the training path:
-     12a. kernel 1 under autograd (the kernel's forward, the plain twin's
-          gradient recomputed) against the plain twin's autograd at the DiT
-          training shape [2,16,1882,64] bf16, the VAE's [1,16,512,64] fp32
-          and a differentiable-surface decode chunk [1,16,65536,64] fp32
-          over 512 keys: dq, dk and dv with their errors, forward + backward
-          time beside the plain twin's and F.scaled_dot_product_attention's;
+     12a. kernel 1's gradient (the kernel's lse-keeping forward and the
+          backward kernel, csrc/flash_attention_bwd.cu) at the DiT training
+          shape [2,16,1882,64] bf16, the VAE's [1,16,512,64] fp32, a
+          differentiable-surface decode chunk [1,16,65536,64] fp32 over 512
+          keys and [1,8,4096,128] bf16 (off path): one forward and one
+          backward launch a call and no plain twin in that window; dq, dk
+          and dv against the plain twin's autograd (bf16) and an fp64
+          evaluation (within 8x max abs and 4x RMS of the plain autograd's
+          own error); the kernel against flash_attention_backward_plain on
+          the same o and lse, two calls bit for bit; forward + backward time
+          and the backward's alone beside the plain twin's and
+          F.scaled_dot_product_attention's;
      12b. training at full width (path train): the mini DiT (8 + 16 blocks,
           1024 wide, 16 heads of 64) with random bf16 weights, latents
           [2,512,64], cond [2,1370,1536], AdamW, 10 steps; at step 5 the
           weights and the optimizer state go through save_pytree, are
           loaded into a fresh model and optimizer, and its last 5 steps
           must give the unbroken run's weights (1e-5); finite losses, 24
-          kernel-1 launches a step, ms a step and peak memory; the resumed
-          run's last step under utils.profiling.trace (the top device
-          operations, the device's busy share, device_memory_stats);
+          kernel-1 forward and 24 backward launches a step, ms a step and
+          peak memory; the resumed run's last step under
+          utils.profiling.trace (the top device operations, the device's
+          busy share, device_memory_stats);
      12c. one training step of a small DiT that passes kernel 1's gate on
           the card against the CPU (tools/card_agreement.py);
      12d. the differentiable surface at full width (path diff_surface):
           the mini ShapeVAE's decode of a 64³ grid in chunks of 65,536
           queries through kernel 1, differentiable_surface_nets, a
-          mesh-space loss and its gradient into the geo decoder's weights;
+          mesh-space loss and its gradient into the geo decoder's weights
+          (one backward launch a chunk);
           then a 17³ grid on the card against the CPU;
  14. parallelism (hunyuan3d2_tpu_torch/parallel):
      14a. on a one-rank NCCL process group, the mini stack of phase 4 and
@@ -1065,11 +1074,15 @@ def raster_phase(sphere):
 
 def _kernel_counters():
     from hunyuan3d2_tpu_torch.ops import geo_decoder as g
-    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_masked
+    from hunyuan3d2_tpu_torch.ops.flash_attention import (flash_attention,
+                                                          flash_attention_backward,
+                                                          flash_attention_masked)
     from hunyuan3d2_tpu_torch.ops.rasterize import rasterize
     from hunyuan3d2_tpu_torch.tools.profile_flash_variants import flash_attention_variant
 
-    return {"flash_attention": flash_attention, "flash_attention_masked": flash_attention_masked,
+    return {"flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward,
+            "flash_attention_masked": flash_attention_masked,
             "fused_geo_decode": g.fused_geo_decode, "geo_mlp_tail": g.geo_mlp_tail,
             "rasterize": rasterize, "flash_variants": flash_attention_variant,
             **{n: getattr(g, n) for n in CHAIN_KERNELS}}
@@ -1820,81 +1833,169 @@ def secondary_agreement():
         agree(f"align check (TINY, 32², 4 steps, strength {strength})", a, b)
 
 
+def _err(g, r):
+    """(max abs err, relative RMS err) of ``g`` against ``r``."""
+    diff = g.double() - r.double()
+    return diff.abs().max().item(), (diff.norm() / r.double().norm()).item()
+
+
 def flash_grad_phase():
-    """12a. Kernel 1 under autograd (ops/flash_attention._FlashAttentionFn)
-    against the plain twin's autograd on the same inputs and output
-    gradient, each row's inputs from a generator seeded by its name. The
-    backward is the plain twin's gradient recomputed from the saved inputs,
-    so dq, dk and dv equal the plain autograd's up to the GEMMs' reduction
-    order: bf16 rows are held by attention_check (min(2e-2, 2^-6·max|ref|)
-    and relative RMS ≤ 1e-2), fp32 rows to 1e-5 of the largest value and a
-    relative RMS of 1e-6 (the same fp32 operations in the same order; a
-    dropped or misrouted gradient is off by its whole size). Forward +
-    backward times beside the plain twin's and
-    F.scaled_dot_product_attention's (the yardstick); the bound counts the
-    12·B·H·Lq·Lk·D operations of a forward and a backward that keeps no
-    scores (QKᵀ, PV; then dV, dP, dQ, dK) and q, k, v, dO read and o, dq,
-    dk, dv written once."""
+    """12a. Kernel 1's gradient: under autograd, the kernel's lse-keeping
+    forward and the backward kernel (csrc/flash_attention_bwd.cu), each row's
+    inputs from a generator seeded by its name. Rows: the DiT training shape
+    [2,16,1882,64] bf16, the VAE's [1,16,512,64] fp32, a differentiable-
+    surface decode chunk [1,16,65536,64] fp32 over 512 keys, and
+    [1,8,4096,128] bf16 (off path, the second head size). Per row:
+      * one forward and one backward launch per call, and no call of
+        flash_attention_plain while they run;
+      * dq, dk and dv against the plain twin's autograd (bf16:
+        attention_check) and, on every row, against an fp64 evaluation of
+        the gradient (tools/flash_fp32_error.attention_grad_fp64): the
+        kernel's max abs error within 8x and its relative RMS error within
+        4x the plain autograd's own (the forward's fp32 rule);
+      * the kernel alone on the forward's o and lse against
+        flash_attention_backward_plain on the same inputs (bf16:
+        attention_check; fp32: 1e-4 of the largest value and a relative RMS
+        of 1e-5), its lse against flash_attention_lse_plain's (1e-4: fp32
+        logits summed in another order), and two calls bit for bit (no
+        atomics);
+      * forward + backward time beside the plain twin's and
+        F.scaled_dot_product_attention's (bound: the 12·B·H·Lq·Lk·D
+        operations of a forward and a backward that keep no scores, q, k, v,
+        dO read and o, dq, dk, dv written once); the backward alone beside
+        flash_attention_backward_plain and SDPA's backward (autograd.grad on
+        its retained graph; bound: 10·B·H·Lq·Lk·D, a backward that keeps no
+        scores recomputes S once).
+    Returns (the forward + backward rows, the backward rows)."""
     import zlib
 
     import torch
     import torch.nn.functional as F
 
-    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from hunyuan3d2_tpu_torch.ops import flash_attention as fa
+    from hunyuan3d2_tpu_torch.tools.flash_fp32_error import attention_grad_fp64
 
-    rows = []
+    rows, bwd_rows = [], []
     for name, (b, h, lq, lk, d), dt in (
             ("dit train", (2, 16, 1882, 1882, 64), torch.bfloat16),
             ("vae", (1, 16, 512, 512, 64), torch.float32),
-            ("diff surface chunk", (1, 16, 65536, 512, 64), torch.float32)):
+            ("diff surface chunk", (1, 16, 65536, 512, 64), torch.float32),
+            ("d128", (1, 8, 4096, 4096, 128), torch.bfloat16)):
         gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
         q = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt) for _ in range(2))
         dout = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
+        scale = d ** -0.5
+        label = f"flash_attention grad {name}"
+        kind = "bf16" if dt == torch.bfloat16 else "fp32"
 
         def run(fn):
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             return torch.autograd.grad(fn(*leaves), leaves, dout)
 
         def sdpa(a, c, e):
-            return F.scaled_dot_product_attention(a, c, e, scale=d ** -0.5)
+            return F.scaled_dot_product_attention(a, c, e, scale=scale)
 
-        got, ref = run(flash_attention), run(flash_attention_plain)
+        plain_calls = []
+        real_plain = fa.flash_attention_plain
+
+        def counted(*args, **kwargs):
+            plain_calls.append(1)
+            return real_plain(*args, **kwargs)
+
+        fa.flash_attention_plain = counted
+        before, before_bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
+        try:
+            got = run(fa.flash_attention)
+            torch.cuda.synchronize()
+        finally:
+            fa.flash_attention_plain = real_plain
+        fwd_n = fa.flash_attention.launches - before
+        bwd_n = fa.flash_attention_backward.launches - before_bwd
+        check(fwd_n == 1 and bwd_n == 1 and not plain_calls,
+              f"{label}: {fwd_n} forward and {bwd_n} backward launches, flash_attention_plain "
+              f"called {len(plain_calls)} times")
+        ref = run(real_plain)
+        ref64 = attention_grad_fp64(q, k, v, dout, scale)
         torch.cuda.synchronize()
         errs = {}
-        for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
-            label = f"flash_attention grad {name} {gname}"
+        for gname, g, r, x64 in zip(("dq", "dk", "dv"), got, ref, ref64):
+            check(torch.isfinite(g).all().item(), f"{label} {gname}: non-finite gradient")
             if dt == torch.bfloat16:
-                err, _, rms, tol = attention_check(label, g, r, 2e-2)
+                err, _, rms, tol = attention_check(f"{label} {gname}", g, r, 2e-2)
             else:
-                check(torch.isfinite(g).all().item(), f"{label}: non-finite gradient")
-                diff = (g.double() - r.double())
-                err = diff.abs().max().item()
-                rms = (diff.norm() / r.double().norm()).item()
-                tol = 1e-5 * r.abs().max().item()
-                check(err <= tol and rms <= 1e-6,
-                      f"{label}: max abs err {err} (tol {tol}), relative RMS err {rms} (tol 1e-6)")
-            errs[gname] = dict(max_abs_err=err, rel_rms_err=rms, tol=tol)
-        del got, ref
-        before = flash_attention.launches
-        ms = time_ms(lambda: run(flash_attention), 5)
-        per_call = (flash_attention.launches - before) / 6
-        plain_ms = time_ms(lambda: run(flash_attention_plain), 3)
-        lib_ms = time_ms(lambda: run(sdpa), 5)
-        flops = 12.0 * b * h * lq * lk * d
+                (err, rms), tol = _err(g, r), None
+            (e64, r64), (t64, tr64) = _err(g, x64), _err(r, x64)
+            check(e64 <= 8 * t64 and r64 <= 4 * tr64,
+                  f"{label} {gname}: against fp64 max abs err {e64} (the plain autograd's "
+                  f"{t64}, limit 8x), relative RMS err {r64} (the plain autograd's {tr64}, "
+                  "limit 4x)")
+            errs[gname] = dict(max_abs_err=err, rel_rms_err=rms, tol=tol,
+                               fp64_max_abs_err=e64, fp64_rel_rms_err=r64,
+                               plain_fp64_max_abs_err=t64, plain_fp64_rel_rms_err=tr64)
+        del got, ref, ref64
+
+        # the kernels alone: the lse-keeping forward and the backward on its o, lse
+        o, lse = fa._launch_lse(q, k, v, scale)
+        lse_ref = fa.flash_attention_lse_plain(q, k, v, scale)[1]
+        lse_err = (lse - lse_ref).abs().max().item()
+        check(lse_err <= 1e-4, f"{label}: lse max abs err {lse_err} (tol 1e-4)")
+        del lse_ref
+        first = fa.flash_attention_backward(q, k, v, o, lse, dout, scale)
+        second = fa.flash_attention_backward(q, k, v, o, lse, dout, scale)
+        twin = fa.flash_attention_backward_plain(q, k, v, o, lse, dout, scale)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(first, second)),
+              f"{label}: two backward calls on the same inputs differ")
+        twin_errs = {}
+        for gname, g, r in zip(("dq", "dk", "dv"), first, twin):
+            if dt == torch.bfloat16:
+                err, _, rms, tol = attention_check(f"{label} {gname} (kernel vs twin)", g, r, 2e-2)
+            else:
+                (err, rms), tol = _err(g, r), 1e-4 * r.abs().max().item()
+                check(err <= tol and rms <= 1e-5, f"{label} {gname} (kernel vs twin): max abs "
+                      f"err {err} (tol {tol}), relative RMS err {rms} (tol 1e-5)")
+            twin_errs[gname] = dict(max_abs_err=err, rel_rms_err=rms, tol=tol)
+        del first, second, twin
+
+        # 20 calls a timing: forward + backward runs eager autograd, whose host
+        # time can exceed the device's at these sizes; a longer loop averages
+        # the host's jitter
+        before = fa.flash_attention.launches
+        ms = time_ms(lambda: run(fa.flash_attention), 20)
+        per_call = (fa.flash_attention.launches - before) / 21
+        plain_ms = time_ms(lambda: run(real_plain), 3)
+        lib_ms = time_ms(lambda: run(sdpa), 20)
+        bwd_ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, o, lse, dout, scale), 20)
+        bwd_plain_ms = time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, dout,
+                                                                         scale), 3)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = sdpa(*leaves)
+        bwd_lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                         retain_graph=True), 20)
+        del lib_out, leaves
+        work = 1.0 * b * h * lq * lk * d
         nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
-        bound_ms, by = bound(flops, nbytes, "bf16" if dt == torch.bfloat16 else "fp32")
-        row = dict(shape=f"{name} q {[b, h, lq, d]} k {[b, h, lk, d]} {str(dt).split('.')[-1]}",
-                   what="forward + backward", max_abs_err=max(e["max_abs_err"]
-                                                              for e in errs.values()),
-                   grads=errs, launches_per_call=per_call, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
-        check(per_call == 1, f"flash_attention grad {name}: {per_call} launches a call")
+        bound_ms, by = bound(12 * work, nbytes, kind)
+        bwd_bound_ms, bwd_by = bound(10 * work, nbytes + 4 * lse.numel(), kind)
+        shape = f"{name} q {[b, h, lq, d]} k {[b, h, lk, d]} {str(dt).split('.')[-1]}"
+        row = dict(shape=shape, what="forward + backward",
+                   max_abs_err=max(e["max_abs_err"] for e in errs.values()), grads=errs,
+                   launches_per_call=per_call, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=by)
+        check(per_call == 1, f"{label}: {per_call} forward launches a call")
+        bwd_row = dict(shape=shape, what="backward (q, k, v, o, lse, dO → dq, dk, dv)",
+                       max_abs_err=max(e["max_abs_err"] for e in twin_errs.values()),
+                       grads=twin_errs, lse_max_abs_err=lse_err, deterministic=True, ms=bwd_ms,
+                       plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms, bound_ms=bwd_bound_ms,
+                       bound_by=bwd_by)
         log("flash_attention grad " + json.dumps(row))
+        log("flash_attention_backward " + json.dumps(bwd_row))
         rows.append(row)
-        del q, k, v, dout
+        bwd_rows.append(bwd_row)
+        del q, k, v, dout, o, lse
         torch.cuda.empty_cache()
-    return rows
+    return rows, bwd_rows
 
 
 def _zero_counters():
@@ -1951,17 +2052,20 @@ def train_path():
             save_pytree(ckpt, {"params": unbroken.state_dict(), "opt": opt.state_dict()})
             save_s = time.perf_counter() - t1
     launches_unbroken = counters["flash_attention"].launches
+    backward_unbroken = counters["flash_attention_backward"].launches
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses), f"train: non-finite loss in {losses}")
-    check(launches_unbroken == 24 * 10, f"train: {launches_unbroken} flash_attention launches "
-          "in 10 steps, 24 a step expected")
+    check(launches_unbroken == 24 * 10 and backward_unbroken == 24 * 10,
+          f"train: {launches_unbroken} flash_attention and {backward_unbroken} "
+          "flash_attention_backward launches in 10 steps, 24 each a step expected")
     warm_ms = 1e3 * statistics.median(times[1:])
     log(f"train: mini DiT ({n_params / 1e6:.1f} M parameters, bf16), latents [2,512,64], "
         f"cond [2,1370,1536], AdamW: losses {[round(x, 5) for x in losses]}, step 1 "
         f"{1e3 * times[0]:.1f} ms, warm steps median {warm_ms:.2f} ms (min "
         f"{1e3 * min(times[1:]):.2f}, max {1e3 * max(times[1:]):.2f}), peak memory "
         f"{peak / 2 ** 30:.2f} GiB, flash_attention launches {launches_unbroken} "
-        f"({launches_unbroken // 10} a step), checkpoint {os.path.getsize(ckpt) / 2 ** 30:.2f} "
+        f"({launches_unbroken // 10} a step), flash_attention_backward launches "
+        f"{backward_unbroken} ({backward_unbroken // 10} a step), checkpoint {os.path.getsize(ckpt) / 2 ** 30:.2f} "
         f"GiB saved in {save_s:.2f} s")
 
     resumed = model(1)
@@ -2005,10 +2109,11 @@ def train_path():
         device_memory_stats=profiling.device_memory_stats())))
     check(top, "train: the trace holds no device operation")
     launches = {n: fn.launches for n, fn in counters.items()}
-    check(launches["flash_attention"] == 24 * 15, f"train: {launches['flash_attention']} "
-          "flash_attention launches in 15 steps")
+    for n in ("flash_attention", "flash_attention_backward"):
+        check(launches[n] == 24 * 15, f"train: {launches[n]} {n} launches in 15 steps")
     for n, c in launches.items():
-        check(n == "flash_attention" or c == 0, f"train: kernel {n} was launched off its path")
+        check(n in ("flash_attention", "flash_attention_backward") or c == 0,
+              f"train: kernel {n} was launched off its path")
     del unbroken, resumed, opt, opt2
     return launches
 
@@ -2085,6 +2190,10 @@ def diff_surface_path():
     expected = shapevae.MINI.num_decoder_layers + -(-res ** 3 // chunk)
     check(launches["flash_attention"] == expected, f"diff_surface: "
           f"{launches['flash_attention']} flash_attention launches, {expected} expected")
+    # the decode's chunks take a gradient; the latent transformer (no_grad) does not
+    check(launches["flash_attention_backward"] == -(-res ** 3 // chunk), f"diff_surface: "
+          f"{launches['flash_attention_backward']} flash_attention_backward launches, "
+          f"{-(-res ** 3 // chunk)} expected")
     del vae, grid, verts, loss, k, v, hidden
     torch.cuda.empty_cache()
     stats = ca.diff_surface_agreement(ca.diff_surface_pair())
@@ -2195,7 +2304,8 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["flash_attention", "flash_variants", "geo_decode", "rasterize"])
+    logs = cuda_build.build(["flash_attention", "flash_attention_bwd", "flash_variants",
+                             "geo_decode", "rasterize"])
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)} "
         f"into {os.path.relpath(cuda_build.BUILD_DIR, ROOT)}")
     for name, text in logs.items():
@@ -2256,7 +2366,7 @@ def main() -> int:
     secondary_agreement()
     gc.collect()
     torch.cuda.empty_cache()
-    grad_rows = flash_grad_phase()
+    grad_rows, bwd_rows = flash_grad_phase()
     launches_train = train_path()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2295,6 +2405,11 @@ def main() -> int:
         dict(entry("flash_attention", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
                    "hunyuan3d2_tpu/ops/flash_attention.py:221", flash_rows, 4, "textured_glb"),
              grad_shapes=grad_rows),
+        dict(entry("flash_attention_backward", "hunyuan3d2_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "hunyuan3d2_tpu/ops/flash_attention.py:221", bwd_rows, 0, "train"),
+             note="the gradient of kernel 1's function; the TPU kernel had no backward (the "
+                  "JAX package differentiates the plain attention, "
+                  "hunyuan3d2_tpu/ops/attention.py:21)"),
         entry("flash_attention_masked", "hunyuan3d2_tpu_torch/csrc/flash_attention.cu",
               "hunyuan3d2_tpu/ops/flash_attention.py:159", masked_rows, 0, "textured_glb"),
         entry("fused_geo_decode", "hunyuan3d2_tpu_torch/csrc/geo_decode.cu",

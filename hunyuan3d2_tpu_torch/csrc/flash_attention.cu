@@ -59,6 +59,12 @@
 // by an FMA: a tensor-core accumulator may truncate, and one carried across
 // every tile would err in proportion to Lk. The error bound of this
 // arithmetic: hunyuan3d2_tpu_torch/tools/flash_fp32_error.py.
+//
+// Under a gradient the wrapper launches the unmasked kernel's kLse instance
+// (hy3d_flash_attention_lse): the same kernel, which also writes each row's
+// log-sum-exp m + log(l) in fp32; the backward (flash_attention_bwd.cu)
+// recomputes the probabilities from it. Inference launches the instances
+// without it.
 #include "flash_attention.cuh"
 
 namespace {
@@ -73,6 +79,8 @@ using flash::Args;
 
 #define FLASH_TRY(D_, BQ_, BK_, ST_) \
   if (d == D_ && bq == BQ_ && bk == BK_ && stages == ST_) return flash::launch_bf16<D_, BQ_, BK_, ST_, false>(a);
+#define FLASH_TRY_LSE(D_, BQ_, BK_, ST_) \
+  if (d == D_ && bq == BQ_ && bk == BK_ && stages == ST_) return flash::launch_bf16<D_, BQ_, BK_, ST_, false, true>(a);
 
 cudaError_t dispatch(const Args& a, int d, int dtype, int bq, int bk, int stages) {
   if (dtype == 1) {
@@ -89,6 +97,18 @@ cudaError_t dispatch(const Args& a, int d, int dtype, int bq, int bk, int stages
   }
   FLASH_DEFAULTS(FLASH_TRY, 64)
   FLASH_DEFAULTS(FLASH_TRY, 128)
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch_lse(const Args& a, int d, int dtype, int bq, int bk, int stages) {
+  if (dtype == 1) {
+    if (bq != flash::kF32BQ || bk != flash::kF32BK || stages != 2) return cudaErrorInvalidValue;
+    if (d == 64) return flash::launch_f32<64, false, true>(a);
+    if (d == 128) return flash::launch_f32<128, false, true>(a);
+    return cudaErrorInvalidValue;
+  }
+  FLASH_DEFAULTS(FLASH_TRY_LSE, 64)
+  FLASH_DEFAULTS(FLASH_TRY_LSE, 128)
   return cudaErrorInvalidValue;
 }
 
@@ -110,4 +130,17 @@ extern "C" int hy3d_flash_attention(const void* q, const void* k, const void* v,
                o, n, heads, lq, lk, scale, static_cast<cudaStream_t>(stream)};
   if (!flash::valid_args(a) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   return (int)dispatch(a, d, dtype, bq, bk, stages);
+}
+
+// The unmasked kernel that also writes lse [n, lq] fp32 (each row's
+// log-sum-exp of its scaled logits, natural units); the other arguments as
+// hy3d_flash_attention's.
+extern "C" int hy3d_flash_attention_lse(const void* q, const void* k, const void* v, void* o,
+                                        float* lse, int n, int lq, int lk, int d, int dtype,
+                                        float scale, int bq, int bk, int stages, void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, o, n, 1, lq, lk, scale,
+               static_cast<cudaStream_t>(stream), lse};
+  if (!flash::valid_args(a) || lse == nullptr || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_lse(a, d, dtype, bq, bk, stages);
 }

@@ -22,14 +22,18 @@ keys per tile, stages of the K/V ring) is a function of the call's shape
 walks only the key tiles that hold an allowed pair; the wrapper finds them
 on the device (:func:`tile_map`), without a host synchronisation.
 
-The unmasked kernel has a gradient (:class:`_FlashAttentionFn`): its
-backward is the gradient of :func:`flash_attention_plain`, recomputed from
-the saved q, k, v (the JAX package has no backward kernel either: its
-training runs through the plain attention). The masked kernel has none;
-its wrapper refuses inputs that require a gradient while grad mode is on
-(:func:`refuse_grad`), as do those of the geo decoder's chain, the
-rasterizer and the tile-sweep variants, so no gradient is dropped without
-a word.
+The unmasked kernel has a gradient (:class:`_FlashAttentionFn`), written by
+hand too: under a gradient the forward launches the kernel's instance that
+also keeps each row's log-sum-exp, and the backward launches
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_backward`), which
+recomputes the probabilities from it tile by tile and keeps no
+[B, H, Lq, Lk] scores. Its plain twins are :func:`flash_attention_lse_plain`
+and :func:`flash_attention_backward_plain` (the JAX package has no backward
+kernel: its training differentiates the plain attention). The masked kernel
+has none; its wrapper refuses inputs that require a gradient while grad
+mode is on (:func:`refuse_grad`), as do those of the geo decoder's chain,
+the rasterizer and the tile-sweep variants, so no gradient is dropped
+without a word.
 """
 
 from __future__ import annotations
@@ -43,6 +47,13 @@ import torch
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
+def _scaled_logits(q: torch.Tensor, k: torch.Tensor, scale: float):
+    """(qs, logits): q·scale in fp32 rounded to the input dtype (the q that
+    the kernels' products use), and the fp32 logits qs·kᵀ."""
+    qs = (q.float() * scale).to(q.dtype)
+    return qs, torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: scale folded into q in the
@@ -50,10 +61,47 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype before the P·V product."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    qs = (q.float() * scale).to(q.dtype)
-    logits = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
+    _, logits = _scaled_logits(q, k, scale)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", w.float(), v.float()).to(q.dtype)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: Optional[float] = None):
+    """The forward that the gradient keeps, in plain PyTorch: (o, lse), o as
+    :func:`flash_attention_plain` computes it and lse [B, H, Lq] fp32 the
+    log-sum-exp of each row's logits (natural units)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    _, logits = _scaled_logits(q, k, scale)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", w.float(), v.float()).to(q.dtype)
+    return o, torch.logsumexp(logits, dim=-1)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                                   scale: Optional[float] = None):
+    """The backward kernel's algorithm in plain PyTorch, step by step: the
+    gradient (dq, dk, dv), in q's dtype, of :func:`flash_attention_plain` at
+    q, k, v for the output gradient ``dout``, from the forward's o and lse.
+    P = exp(qs·kᵀ - lse) in fp32; dV = rnd(P)ᵀ·dO; dP = dO·vᵀ; δ = Σ_d dO∘o;
+    dS = P∘(dP - δ), rounded to the input dtype as the tensor cores take it;
+    dK = dSᵀ·qs; dq = scale·(dS·k), straight through the rounding of qs as
+    the plain autograd goes. fp32 products; rnd rounds to the input dtype
+    (nothing in fp32)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dt = q.dtype
+    qs, logits = _scaled_logits(q, k, scale)
+    p = torch.exp(logits - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), dout.float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    delta = (dout.float() * o.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - delta)).to(dt).float()
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def flash_attention_masked_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,8 +112,7 @@ def flash_attention_masked_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     sum divided by max(l, 1e-30) after it (so a fully masked row is 0)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    qs = (q.float() * scale).to(q.dtype)
-    logits = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
+    _, logits = _scaled_logits(q, k, scale)
     allowed = mask[:, None]
     logits = torch.where(allowed, logits, -1e30)
     p = torch.where(allowed, torch.exp(logits - logits.amax(-1, keepdim=True)), 0.0)
@@ -103,6 +150,22 @@ def _check(q, k, v):
         raise ValueError("flash_attention takes 16-byte aligned q, k, v (TMA tiles)")
 
 
+def _check_backward(q, o, lse, dout):
+    if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention_backward takes o and dout of q's shape and dtype "
+                         f"{tuple(q.shape)} {q.dtype}, got o {tuple(o.shape)} {o.dtype}, "
+                         f"dout {tuple(dout.shape)} {dout.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_backward takes an fp32 lse {tuple(q.shape[:3])}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    if not all(x.device == q.device for x in (o, lse, dout)):
+        raise ValueError("flash_attention_backward inputs lie on different devices")
+    if not (o.is_contiguous() and lse.is_contiguous() and dout.is_contiguous()):
+        raise ValueError("flash_attention_backward takes contiguous o, lse, dout")
+    if q.is_cuda and any(x.data_ptr() % 16 for x in (o, lse, dout)):
+        raise ValueError("flash_attention_backward takes 16-byte aligned o, lse, dout")
+
+
 SM_COUNT = 132  # H100 SXM
 
 
@@ -122,6 +185,19 @@ def default_config(b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype,
     return (128, 128, 3)
 
 
+def backward_config(b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype) -> tuple:
+    """The backward's (q rows a step of its dK/dV pass, splits of that
+    pass's q range) for a call's shape: 64 rows for bf16 at D = 64, else 32
+    (what the registers hold beside the dK and dV accumulators); the q range
+    split so that the pass's B·H·ceil(Lk/64) CTAs become about four per SM
+    where they are fewer, every split at least one q tile."""
+    bq = 64 if dtype == torch.bfloat16 and d == 64 else 32
+    n_qt = -(-lq // bq)
+    want = max(1, min(n_qt, -(-4 * SM_COUNT // (b * h * -(-lk // 64)))))
+    per = -(-n_qt // want)
+    return bq, -(-n_qt // per)
+
+
 def tile_map(mask: torch.Tensor, bq: int, bk: int) -> torch.Tensor:
     """[B, Lq, Lk] bool → [B, ceil(Lq/bq), ceil(Lk/bk)] uint8, 1 where the
     (q tile, key tile) holds an allowed pair. Plain reductions on the mask's
@@ -134,44 +210,66 @@ def tile_map(mask: torch.Tensor, bq: int, bk: int) -> torch.Tensor:
     return m.view(b, nq, bq, nk, bk).amax(dim=(2, 4)).contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The kernel's C entry point, built and loaded at first use."""
+def _entry(library: str, name: str, argtypes):
     from hunyuan3d2_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load("flash_attention")
-    fn = lib.hy3d_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn = getattr(cuda_build.load(library), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The kernel's C entry point, built and loaded at first use."""
+    return _entry("flash_attention", "hy3d_flash_attention",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _lse_lib():
+    """The entry point of the kernel's instance that keeps the row lse."""
+    return _entry("flash_attention", "hy3d_flash_attention_lse",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    """The backward's C entry point (csrc/flash_attention_bwd.cu)."""
+    return _entry("flash_attention_bwd", "hy3d_flash_attention_bwd",
+                  [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 class _FlashAttentionFn(torch.autograd.Function):
     """Kernel 1 under autograd. The forward launches the kernel (and counts
-    the launch); the backward recomputes :func:`flash_attention_plain` from
-    the saved q, k, v under grad mode and returns its gradients in the
-    inputs' dtypes. The recompute holds the [B, H, Lq, Lk] fp32 scores: a
-    caller with long sequences chunks its queries."""
+    the launch): with ``keep`` (a gradient will be taken) its instance that
+    also writes the row log-sum-exp, and saves q, k, v, o and lse. The
+    backward launches the backward kernel on them (and counts it) and
+    returns dq, dk, dv in the inputs' dtypes, None where no gradient is
+    needed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, scale, keep):
         ctx.scale = scale
-        out = _launch(q, k, v, None, scale)
+        if keep:
+            out, lse = _launch_lse(q, k, v, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = _launch(q, k, v, None, scale)
         flash_attention.launches += 1
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
-            out = flash_attention_plain(*inputs, ctx.scale)
-            wanted = [t for t, n in zip(inputs, needs) if n]
-            grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return tuple(next(grads) if n else None for n in needs) + (None,)
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = _launch_backward(q, k, v, out, lse, grad_out.contiguous(), ctx.scale)
+        flash_attention_backward.launches += 1
+        return tuple(g if n else None for g, n in zip(grads, ctx.needs_input_grad[:3])) + \
+            (None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,7 +281,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
-    return _FlashAttentionFn.apply(q, k, v, scale)
+    return _on_card(q, k, v, scale)
+
+
+def _on_card(q, k, v, scale):
+    """flash_attention's branch for CUDA tensors: the forward keeps the row
+    statistics only when a gradient will be taken (grad mode on and an
+    input that requires one)."""
+    keep = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    return _FlashAttentionFn.apply(q, k, v, scale, keep)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                             scale: Optional[float] = None):
+    """Kernel 1's gradient: q, k, v [B, H, L, D], the forward's o and lse
+    [B, H, Lq] fp32 and the output gradient dout → (dq, dk, dv) in q.dtype.
+    A CPU tensor goes through :func:`flash_attention_backward_plain`; a CUDA
+    tensor launches the backward kernel or raises."""
+    _check(q, k, v)
+    _check_backward(q, o, lse, dout)
+    refuse_grad("flash_attention_backward", q, k, v, o, dout)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return flash_attention_backward_plain(q, k, v, o, lse, dout, scale)
+    grads = _launch_backward(q, k, v, o, lse, dout, scale)
+    flash_attention_backward.launches += 1
+    return grads
 
 
 def _launch(q, k, v, mask, scale):
@@ -200,6 +325,44 @@ def _launch(q, k, v, mask, scale):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     return out
+
+
+def _launch_lse(q, k, v, scale):
+    """The kernel's instance that keeps the row statistics → (o, lse)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    bq, bk, stages = default_config(b, h, lq, lk, d, q.dtype)
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
+    err = _lse_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                     b * h, lq, lk, d, _DTYPES[q.dtype], float(scale), bq, bk, stages,
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention (lse) kernel launch failed: cudaError {err}")
+    return out, lse
+
+
+def _launch_backward(q, k, v, o, lse, dout, scale):
+    """The backward kernel's pre-pass and two passes → (dq, dk, dv); the
+    scratch (qs, δ, lse·log2 e, the split partial sums) is allocated here."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    n = b * h
+    bq, splits = backward_config(b, h, lq, lk, d, q.dtype)
+    lq_pad = -(-lq // 64) * 64
+    qs = torch.empty_like(q)
+    stats = torch.empty(2, n, lq_pad, dtype=torch.float32, device=q.device)
+    part = (torch.empty(2, splits, n, lk, d, dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+                     lse.data_ptr(), qs.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                     None if part is None else part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), n, lq, lk, lq_pad, d, _DTYPES[q.dtype], float(scale), bq,
+                     splits, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {err}")
+    return dq, dk, dv
 
 
 def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -229,4 +392,5 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention_backward.launches = 0
 flash_attention_masked.launches = 0

@@ -85,6 +85,32 @@ def attention_fp64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(torch.cat(outs[n], dim=2) for n in ("o", "t", "a", "r"))
 
 
+def attention_grad_fp64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, scale: float = None, rows: int = 1024):
+    """The gradient (dq, dk, dv) of the kernel's function at q, k, v for the
+    output gradient ``dout``, in fp64 on q's device: q̂ rounded to q's dtype
+    first, as the function does, then exact arithmetic (softmax, o, δ = Σ dO∘o,
+    dS = P∘(dP - δ)); dq = scale·(dS·k), straight through that rounding, as
+    the plain autograd and the backward kernel take it. Row chunks keep the
+    fp64 scores of ``rows`` queries in memory."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qs = (q.float() * scale).to(q.dtype).double()
+    k64, v64, do = k.double(), v.double(), dout.double()
+    dq = torch.empty_like(qs)
+    dk, dv = torch.zeros_like(k64), torch.zeros_like(v64)
+    for i0, i1 in _chunks(q.shape[2], rows):
+        p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", qs[:, :, i0:i1], k64), dim=-1)
+        dc = do[:, :, i0:i1]
+        delta = (dc * torch.einsum("bhqk,bhkd->bhqd", p, v64)).sum(-1, keepdim=True)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, dc)
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", dc, v64) - delta)
+        del p
+        dq[:, :, i0:i1] = scale * torch.einsum("bhqk,bhkd->bhqd", ds, k64)
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qs[:, :, i0:i1])
+    return dq, dk, dv
+
+
 def error_bound(t, a, r, o, lk: int, d: int) -> torch.Tensor:
     """Per-element bound on |fp32 result - fp64 result| (module docstring)."""
     tiles = math.ceil(lk / 64)

@@ -11,8 +11,9 @@ objective of the same model family, rectified-flow velocity regression:
 The model sees x_t in bf16; the target and the mean square are fp32, as in
 the JAX loss. The step is the usual eager one (zero_grad, backward, step)
 with AdamW at optax ``adamw``'s defaults (decoupled weight decay). On the
-card the DiT's attention goes through kernel 1, whose gradient is its plain
-twin's (ops/flash_attention.py). Draws come from an explicit
+card the DiT's attention goes through kernel 1, whose gradient is its
+hand-written backward kernel (ops/flash_attention.py,
+csrc/flash_attention_bwd.cu). Draws come from an explicit
 ``torch.Generator``; a caller may pass ``x0`` and ``sigma`` instead (the
 tests replay the JAX package's draws so).
 """

@@ -12,7 +12,9 @@ piecewise constant. The device surface nets
   * corner gather → edge-crossing lerp t = (level − va)/(vb − va) → vertex
     = mean of the crossings: smooth in the grid values, so autograd carries
     a vertex-space loss back to the grid, and through the geo decoder
-    (``ShapeVAE.decode_queries``, kernel 1 on the card) into the model's
+    (``ShapeVAE.decode_queries``, kernel 1 on the card, whose backward
+    kernel recomputes each chunk's probabilities from the forward's row
+    log-sum-exp and keeps no [B, H, Lq, Lk] scores) into the model's
     parameters.
 
 The corner values are gathered as f16 (``extract_active_cells``), as in the

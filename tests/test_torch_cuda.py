@@ -777,20 +777,26 @@ def test_conv2d_adds_an_fp32_bias_before_its_one_rounding(gen):
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("lq,lk", [(130, 200), (512, 512), (700, 333)])
 def test_flash_attention_gradient_matches_plain(gen, lq, lk, dt):
-    """The backward is the plain twin's gradient recomputed from the saved
-    inputs: it equals the plain autograd's up to the GEMMs' reduction order;
-    the forward is the kernel's (one launch)."""
-    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    """The forward (the kernel's lse-keeping instance, one launch) and the
+    backward kernel (one launch) against the plain twin's autograd: bf16
+    within 2e-2 of the largest gradient (bf16 outputs, P and dS rounded
+    before their products in the kernel, dP before dS in the plain
+    autograd); fp32 within 1e-5 of it (3xTF32 products against fp32 GEMMs,
+    each summed in another order)."""
+    from hunyuan3d2_tpu_torch.ops.flash_attention import (flash_attention,
+                                                          flash_attention_backward,
+                                                          flash_attention_plain)
 
     q, k, v = (torch.randn(2, 3, n, 64, generator=gen, device="cuda").to(dt)
                for n in (lq, lk, lk))
     dout = torch.randn(2, 3, lq, 64, generator=gen, device="cuda").to(dt)
     q, k, v = (t.requires_grad_(True) for t in (q, k, v))
-    before = flash_attention.launches
+    before, before_bwd = flash_attention.launches, flash_attention_backward.launches
     out = flash_attention(q, k, v)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention_backward.launches == before_bwd + 1
     ref_in = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     refs = torch.autograd.grad(flash_attention_plain(*ref_in), ref_in, dout)
     for g, r in zip(grads, refs):
@@ -798,6 +804,91 @@ def test_flash_attention_gradient_matches_plain(gen, lq, lk, dt):
         tol = 2e-2 if dt == torch.bfloat16 else 1e-5
         torch.testing.assert_close(g.float(), r.float(), atol=tol * float(r.abs().max()),
                                    rtol=0)
+
+
+# ragged Lq and Lk (padded keys get P = 0, padded q rows add nothing), both
+# head sizes; (1, 3000, 100) has B·H·ceil(Lk/64) = 4 key tiles, so the dK/dV
+# pass splits its q range (backward_config) and adds the parts in order
+BWD_SHAPES = [(2, 3, 130, 200), (1, 4, 700, 333), (2, 2, 64, 1000), (1, 2, 3000, 100)]
+
+
+def _grad_inputs(gen, b, h, lq, lk, d, dt):
+    q, dout = (torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+    k, v = (torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+    return q, k, v, dout
+
+
+def _grad_close(got, ref, dt):
+    """bf16: attention_check's rule (2^-6 of the largest value, relative RMS
+    1e-2: bf16 outputs, dS rounded before its products in both); fp32: 1e-4
+    of the largest value and a relative RMS of 1e-5 (3xTF32 products and
+    fp32 GEMMs in other orders: ~1e-6 relative apart)."""
+    atol, rms_tol = (2.0 ** -6, 1e-2) if dt == torch.bfloat16 else (1e-4, 1e-5)
+    for g, r in zip(got, ref):
+        assert g.dtype == dt and g.shape == r.shape and torch.isfinite(g.float()).all()
+        diff = g.float() - r.float()
+        assert diff.abs().max() <= atol * r.float().abs().max()
+        assert diff.norm() <= rms_tol * r.float().norm()
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_backward_kernel_matches_plain(gen, shape, d, dt):
+    """The lse-keeping forward against flash_attention_lse_plain (o as the
+    forward's rule; lse within 1e-5 relative: the same fp32 logits summed in
+    another order), then the backward kernel against
+    flash_attention_backward_plain on the same q, k, v, o, lse and dout."""
+    from hunyuan3d2_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = _grad_inputs(gen, *shape, d, dt)
+    o, lse = fa._launch_lse(q, k, v, d ** -0.5)
+    o_ref, lse_ref = fa.flash_attention_lse_plain(q, k, v)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5 * float(lse_ref.abs().max()), rtol=0)
+    before = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, o, lse, dout)
+    ref = fa.flash_attention_backward_plain(q, k, v, o, lse, dout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == before + 1
+    _grad_close(got, ref, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 3, 700, 333), (1, 2, 3000, 100)], ids=["one", "split"])
+def test_flash_attention_backward_is_deterministic(gen, shape, dt):
+    """No atomics: two backward calls on the same inputs give the same bits,
+    with and without the split dK/dV pass."""
+    from hunyuan3d2_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = _grad_inputs(gen, *shape, 64, dt)
+    o, lse = fa._launch_lse(q, k, v, 0.125)
+    first = fa.flash_attention_backward(q, k, v, o, lse, dout)
+    second = fa.flash_attention_backward(q, k, v, o, lse, dout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_gradient_never_takes_the_plain_route(gen, monkeypatch):
+    """Every plain twin of kernel 1 raises: a CUDA forward + backward still
+    gives finite gradients, so no silent plain route is left on the card."""
+    from hunyuan3d2_tpu_torch.ops import attention as att
+    from hunyuan3d2_tpu_torch.ops import flash_attention as fa
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain twin ran on the card")
+
+    for name in ("flash_attention_plain", "flash_attention_lse_plain",
+                 "flash_attention_backward_plain"):
+        monkeypatch.setattr(fa, name, refuse)
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, dout = _grad_inputs(gen, 1, 2, 600, 300, 64, dt)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        grads = torch.autograd.grad(att.attention(q, k, v), (q, k, v), dout)
+        torch.cuda.synchronize()
+        assert all(g.dtype == dt and torch.isfinite(g.float()).all() for g in grads)
 
 
 def test_kernels_without_a_gradient_refuse_on_the_card(gen):

@@ -1,9 +1,10 @@
 """Gradients around the port's kernels, on the CPU.
 
 * Kernel 1's autograd wrapper (ops/flash_attention._FlashAttentionFn): its
-  CUDA branch, with the launch replaced by the plain twin, gives
-  ``ops.attention.attention`` the plain autograd's gradients (fp32, 1e-5:
-  the backward is the plain twin's own gradient, recomputed).
+  CUDA branch, with the forward's and the backward's launches replaced by
+  their plain twins, gives ``ops.attention.attention`` the plain autograd's
+  gradients (fp32, 1e-5: the backward twin is the same fp32 arithmetic in
+  another order; tests/test_torch_flash_bwd.py holds it closer).
 * The kernels without a gradient (the masked flash attention, the geo
   decoder's chain, the streamed decode's tail, the rasterizer and the
   tile-sweep variants) refuse inputs that require one while grad mode is
@@ -43,7 +44,8 @@ def _one_torch_thread():
 @pytest.fixture
 def kernel_branch(monkeypatch):
     """``attention`` takes kernel 1's CUDA branch on CPU tensors: the gate
-    passes, and the launch computes the plain twin. Returns the launches."""
+    passes, and each launch (the forward, its lse-keeping instance, the
+    backward) computes its plain twin. Returns the forward launches."""
     launches = []
 
     def launch(q, k, v, mask, scale):
@@ -51,12 +53,17 @@ def kernel_branch(monkeypatch):
         launches.append(tuple(q.shape))
         return fa.flash_attention_plain(q, k, v, scale)
 
+    def launch_lse(q, k, v, scale):
+        launches.append(tuple(q.shape))
+        return fa.flash_attention_lse_plain(q, k, v, scale)
+
     def cuda_branch(q, k, v, scale=None):   # flash_attention's branch for CUDA tensors
         fa._check(q, k, v)
-        return fa._FlashAttentionFn.apply(q, k, v, q.shape[-1] ** -0.5 if scale is None
-                                          else scale)
+        return fa._on_card(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale)
 
     monkeypatch.setattr(fa, "_launch", launch)
+    monkeypatch.setattr(fa, "_launch_lse", launch_lse)
+    monkeypatch.setattr(fa, "_launch_backward", fa.flash_attention_backward_plain)
     monkeypatch.setattr(att, "use_flash", lambda q: True)
     monkeypatch.setattr(att, "flash_attention", cuda_branch)
     return launches
@@ -84,7 +91,7 @@ def test_attention_gradients_through_the_autograd_function(kernel_branch, needs)
     torch.testing.assert_close(out, ref_out, atol=0, rtol=0)
     for g, r in zip(grads, refs):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
-    # the backward recomputes on the plain twin: no second launch
+    # the backward launches the backward kernel, not the forward again
     assert len(kernel_branch) == 1
 
 
