@@ -6,7 +6,9 @@
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel from csrc/ (one nvcc per source, in parallel;
-     csrc/flash_attention_bwd.cu is kernel 1's backward);
+     csrc/flash_attention_bwd.cu is kernel 1's backward), with ptxas's
+     registers for each instance of the backward; a bf16 instance of the
+     backward that spills or whose wgmma ptxas serialises (C7514) fails it;
   3. each kernel against its plain PyTorch twin at the shapes of the three
      paths, with its time, the plain time, the time of one library call
      where one computes the same function, and its bound on the card: flash
@@ -107,7 +109,9 @@ Phases, in order; any failure exits non-zero:
           own error); the kernel against flash_attention_backward_plain on
           the same o and lse, two calls bit for bit; forward + backward time
           and the backward's alone beside the plain twin's and
-          F.scaled_dot_product_attention's;
+          F.scaled_dot_product_attention's; for the bf16 rows each pass's
+          device time (pre-pass, dK/dV, dQ; torch.profiler) and its TFLOP/s
+          (the tile sweep is tools/profile_flash_bwd_variants.py);
      12b. training at full width (path train): the mini DiT (8 + 16 blocks,
           1024 wide, 16 heads of 64) with random bf16 weights, latents
           [2,512,64], cond [2,1370,1536], AdamW, 10 steps; at step 5 the
@@ -152,6 +156,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1874,6 +1879,7 @@ def flash_grad_phase():
 
     from hunyuan3d2_tpu_torch.ops import flash_attention as fa
     from hunyuan3d2_tpu_torch.tools.flash_fp32_error import attention_grad_fp64
+    from hunyuan3d2_tpu_torch.tools.profile_flash_bwd_variants import pass_times
 
     rows, bwd_rows = [], []
     for name, (b, h, lq, lk, d), dt in (
@@ -1957,6 +1963,11 @@ def flash_grad_phase():
                       f"err {err} (tol {tol}), relative RMS err {rms} (tol 1e-5)")
             twin_errs[gname] = dict(max_abs_err=err, rel_rms_err=rms, tol=tol)
         del first, second, twin
+        # the bf16 rows' device time a call of each pass, with its TFLOP/s
+        passes = (pass_times(lambda: fa.flash_attention_backward(q, k, v, o, lse, dout, scale),
+                             1.0 * b * h * lq * lk * d) if dt == torch.bfloat16 else None)
+        if passes:
+            log(f"{label} backward passes " + json.dumps(passes))
 
         # 20 calls a timing: forward + backward runs eager autograd, whose host
         # time can exceed the device's at these sizes; a longer loop averages
@@ -1988,7 +1999,7 @@ def flash_grad_phase():
                        max_abs_err=max(e["max_abs_err"] for e in twin_errs.values()),
                        grads=twin_errs, lse_max_abs_err=lse_err, deterministic=True, ms=bwd_ms,
                        plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms, bound_ms=bwd_bound_ms,
-                       bound_by=bwd_by)
+                       bound_by=bwd_by, passes=passes)
         log("flash_attention grad " + json.dumps(row))
         log("flash_attention_backward " + json.dumps(bwd_row))
         rows.append(row)
@@ -1996,6 +2007,60 @@ def flash_grad_phase():
         del q, k, v, dout, o, lse
         torch.cuda.empty_cache()
     return rows, bwd_rows
+
+
+BWD_KERNEL = re.compile(r"(dkdv|dq)_(bf16|f32)_kernel(?:ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E|ILi(\d+)E)")
+
+
+def ptxas_instances(text):
+    """Each kernel of an ``nvcc -Xptxas -v`` log: {mangled name:
+    {"registers", "spill_stores", "spill_loads", "serialized"}};
+    ``serialized`` is set by a C7514 warning (ptxas serialised the
+    function's wgmma) that names the function or, where it names none,
+    follows the function's "Compiling entry function" line."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, dict(registers=None, spill_stores=0, spill_loads=0,
+                                     serialized=False))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur]["spill_stores"], out[cur]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+        if "C7514" in line:
+            m = re.search(r"function '([\w$.]+)'", line)
+            name = m.group(1) if m else cur
+            out.setdefault(name, dict(registers=None, spill_stores=0, spill_loads=0,
+                                      serialized=False))["serialized"] = True
+    return out
+
+
+def backward_build_gate():
+    """Phase 2's gate on kernel 1's backward: ptxas's registers of each
+    instance of its passes (from the build log beside the library), and a
+    failure where a bf16 instance spills or has its wgmma serialised."""
+    from hunyuan3d2_tpu_torch.utils import cuda_build
+
+    with open(cuda_build.library_path("flash_attention_bwd") + ".log") as fh:
+        found = ptxas_instances(fh.read())
+    seen = 0
+    for mangled, info in sorted(found.items()):
+        m = BWD_KERNEL.search(mangled)
+        if not m:
+            continue
+        seen += 1
+        args = ", ".join(a for a in m.groups()[2:] if a)
+        label = f"{m.group(1)}_{m.group(2)}_kernel<{args}>"
+        log(f"  flash_attention_bwd ptxas: {label} {json.dumps(info)}")
+        if m.group(2) == "bf16":
+            check(info["spill_stores"] == 0 and info["spill_loads"] == 0,
+                  f"{label}: ptxas spills ({info})")
+            check(not info["serialized"], f"{label}: ptxas serialised its wgmma (C7514)")
+    check(seen > 0, "flash_attention_bwd's build log names no instance of its passes")
 
 
 def _zero_counters():
@@ -2312,6 +2377,7 @@ def main() -> int:
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling", "arning", "C75")):
                 log(f"  {name}: {line.strip()}")
+    backward_build_gate()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     sphere = sphere_mesh()

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile loads (multicast too), cluster barriers, wgmma descriptors and
-// products, named barriers, register rebalancing, cp.async and the 3xTF32
-// split. Plain PTX wrappers, no CUTLASS.
+// TMA tile loads (multicast too) and bulk copies, cluster barriers, wgmma
+// descriptors and products, named barriers, register rebalancing, cp.async
+// and the 3xTF32 split. Plain PTX wrappers, no CUTLASS.
 //
 // Layout conventions (both operands of every wgmma here sit in shared memory
 // in the layout that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes):
@@ -75,6 +75,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory at `src` to shared memory at
+// `dst`, both 16-byte aligned; the bytes complete on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -196,10 +206,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // wgmma_ss: A and B both K-major in shared memory; scale_d = 0 overwrites D.
 // wgmma_rs: A from registers (the mma.sync m16n8k16 A fragment of each
 // warp's 16 rows), B MN-major in shared memory; accumulates.
+// wgmma_rs_kmajor: A from registers, B K-major in shared memory.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+template <int N>
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d);
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -246,6 +260,15 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 
 // ---------------------------------------------------------------------------
 // cp.async (Ampere-style asynchronous copies) and mma.sync helpers

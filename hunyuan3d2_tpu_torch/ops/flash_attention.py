@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -185,17 +185,43 @@ def default_config(b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype,
     return (128, 128, 3)
 
 
-def backward_config(b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype) -> tuple:
-    """The backward's (q rows a step of its dK/dV pass, splits of that
-    pass's q range) for a call's shape: 64 rows for bf16 at D = 64, else 32
-    (what the registers hold beside the dK and dV accumulators); the q range
-    split so that the pass's B·H·ceil(Lk/64) CTAs become about four per SM
-    where they are fewer, every split at least one q tile."""
-    bq = 64 if dtype == torch.bfloat16 and d == 64 else 32
-    n_qt = -(-lq // bq)
-    want = max(1, min(n_qt, -(-4 * SM_COUNT // (b * h * -(-lk // 64)))))
+class BackwardConfig(NamedTuple):
+    """The backward's launch sizes for a call: ``rows``, the q rows a step
+    of its dK/dV pass; ``splits``, the splits of that pass's q range; and
+    ``lq_pad``, the rows of the pre-pass's per-row statistics (lse·log2 e,
+    δ), which every row of the dK/dV pass's last q tile and of the dQ pass's
+    last CTA reads."""
+    rows: int
+    splits: int
+    lq_pad: int
+
+
+# What csrc/flash_attention_bwd.cu launches sets these, per dtype: the dK/dV
+# pass's keys a CTA and q rows a step, the multiple its statistics are
+# padded to (bf16: the dQ pass's 128 q rows a CTA), and the dK/dV pass's
+# resident CTAs an SM (bf16: one 64-key consumer warpgroup, two CTAs; fp32:
+# 4-warp CTAs, four). The entry point refuses sizes that do not suit its
+# tiles.
+_BWD_TILES = {torch.bfloat16: (64, 64, 128, 2), torch.float32: (64, 32, 64, 4)}
+
+
+def backward_config(b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype) -> BackwardConfig:
+    """The backward's launch sizes for a call's shape (D = 64 and 128 share
+    them): the dK/dV pass's q range split by :func:`bwd_splits`, the
+    statistics padded to the kernel's multiple."""
+    keys, rows, pad, per_sm = _BWD_TILES[dtype]
+    return BackwardConfig(rows, bwd_splits(b * h, lq, lk, keys, rows, per_sm),
+                          -(-lq // pad) * pad)
+
+
+def bwd_splits(n: int, lq: int, lk: int, keys: int, rows: int, per_sm: int) -> int:
+    """The splits of the dK/dV pass's q range (``rows`` a step) for ``n``
+    heads whose ``keys``-key CTAs, ``per_sm`` resident an SM, fall short of
+    the SMs: about ``per_sm`` CTAs an SM, every split at least one q tile."""
+    n_qt = -(-lq // rows)
+    want = max(1, min(n_qt, -(-per_sm * SM_COUNT // (n * -(-lk // keys)))))
     per = -(-n_qt // want)
-    return bq, -(-n_qt // per)
+    return -(-n_qt // per)
 
 
 def tile_map(mask: torch.Tensor, bq: int, bk: int) -> torch.Tensor:
@@ -240,7 +266,7 @@ def _bwd_lib():
     """The backward's C entry point (csrc/flash_attention_bwd.cu)."""
     return _entry("flash_attention_bwd", "hy3d_flash_attention_bwd",
                   [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                  + [ctypes.c_int, ctypes.c_void_p])
 
 
 class _FlashAttentionFn(torch.autograd.Function):
@@ -267,7 +293,6 @@ class _FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v, out, lse = ctx.saved_tensors
         grads = _launch_backward(q, k, v, out, lse, grad_out.contiguous(), ctx.scale)
-        flash_attention_backward.launches += 1
         return tuple(g if n else None for g, n in zip(grads, ctx.needs_input_grad[:3])) + \
             (None, None)
 
@@ -306,9 +331,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
         return flash_attention_backward_plain(q, k, v, o, lse, dout, scale)
-    grads = _launch_backward(q, k, v, o, lse, dout, scale)
-    flash_attention_backward.launches += 1
-    return grads
+    return _launch_backward(q, k, v, o, lse, dout, scale)
 
 
 def _launch(q, k, v, mask, scale):
@@ -343,13 +366,13 @@ def _launch_lse(q, k, v, scale):
 
 
 def _launch_backward(q, k, v, o, lse, dout, scale):
-    """The backward kernel's pre-pass and two passes → (dq, dk, dv); the
-    scratch (qs, δ, lse·log2 e, the split partial sums) is allocated here."""
+    """The backward kernel's pre-pass and two passes → (dq, dk, dv), counted
+    in ``flash_attention_backward.launches``; the scratch (qs, δ, lse·log2 e,
+    the split partial sums) is allocated here."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     n = b * h
-    bq, splits = backward_config(b, h, lq, lk, d, q.dtype)
-    lq_pad = -(-lq // 64) * 64
+    _, splits, lq_pad = backward_config(b, h, lq, lk, d, q.dtype)
     qs = torch.empty_like(q)
     stats = torch.empty(2, n, lq_pad, dtype=torch.float32, device=q.device)
     part = (torch.empty(2, splits, n, lk, d, dtype=torch.float32, device=q.device)
@@ -358,10 +381,11 @@ def _launch_backward(q, k, v, o, lse, dout, scale):
     err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
                      lse.data_ptr(), qs.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
                      None if part is None else part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), n, lq, lk, lq_pad, d, _DTYPES[q.dtype], float(scale), bq,
-                     splits, torch.cuda.current_stream(q.device).cuda_stream)
+                     dv.data_ptr(), n, lq, lk, lq_pad, d, _DTYPES[q.dtype], float(scale), splits,
+                     torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {err}")
+    flash_attention_backward.launches += 1
     return dq, dk, dv
 
 

@@ -808,8 +808,11 @@ def test_flash_attention_gradient_matches_plain(gen, lq, lk, dt):
 
 # ragged Lq and Lk (padded keys get P = 0, padded q rows add nothing), both
 # head sizes; (1, 3000, 100) has B·H·ceil(Lk/64) = 4 key tiles, so the dK/dV
-# pass splits its q range (backward_config) and adds the parts in order
-BWD_SHAPES = [(2, 3, 130, 200), (1, 4, 700, 333), (2, 2, 64, 1000), (1, 2, 3000, 100)]
+# pass splits its q range (backward_config) and adds the parts in order. The
+# bf16 tiles' edges: Lq and Lk one short of and one past 128 (a CTA's keys or
+# q rows, a step's keys), Lk below 64, and a bf16 split of few key ranges.
+BWD_SHAPES = [(2, 3, 130, 200), (1, 4, 700, 333), (2, 2, 64, 1000), (1, 2, 3000, 100),
+              (1, 3, 127, 129), (1, 3, 129, 127), (2, 2, 300, 40), (1, 1, 1000, 130)]
 
 
 def _grad_inputs(gen, b, h, lq, lk, d, dt):
@@ -854,6 +857,36 @@ def test_flash_attention_backward_kernel_matches_plain(gen, shape, d, dt):
     torch.cuda.synchronize()
     assert fa.flash_attention_backward.launches == before + 1
     _grad_close(got, ref, dt)
+
+
+def _bwd_variants():
+    from hunyuan3d2_tpu_torch.tools.profile_flash_bwd_variants import KV_VARIANTS, Q_VARIANTS
+
+    out = []
+    for d in (64, 128):
+        kvs, qs = KV_VARIANTS[d], Q_VARIANTS[d]
+        out += [(d, kvs[i % len(kvs)], qs[i % len(qs)]) for i in range(max(len(kvs), len(qs)))]
+    return out
+
+
+@pytest.mark.parametrize("d, kv, q", _bwd_variants(),
+                         ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else str(x))
+@pytest.mark.parametrize("shape", [(1, 3, 300, 333), (1, 2, 3000, 100)], ids=["one", "split"])
+def test_flash_attention_backward_bf16_tiles_match_plain(gen, shape, d, kv, q):
+    """Every bf16 tile of both passes that the tile sweep compiles
+    (csrc/flash_bwd_variants.cu; the port launches the fastest of each)
+    against flash_attention_backward_plain, ragged in Lq and Lk, with and
+    without the split dK/dV pass."""
+    from hunyuan3d2_tpu_torch.ops import flash_attention as fa
+    from hunyuan3d2_tpu_torch.tools.profile_flash_bwd_variants import (
+        flash_attention_backward_variant)
+
+    q_, k, v, dout = _grad_inputs(gen, *shape, d, torch.bfloat16)
+    o, lse = fa._launch_lse(q_, k, v, d ** -0.5)
+    got = flash_attention_backward_variant(q_, k, v, o, lse, dout, d ** -0.5, kv, q)
+    ref = fa.flash_attention_backward_plain(q_, k, v, o, lse, dout)
+    torch.cuda.synchronize()
+    _grad_close(got, ref, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])

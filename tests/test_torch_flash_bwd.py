@@ -13,6 +13,10 @@ and of the backward kernel, and the autograd wrapper's routing.
   saved o and lse to the backward launcher and never calls
   ``flash_attention_plain``; gradients come back in the inputs' dtype,
   None where none is needed.
+* ``backward_config``: its splits and padding of the statistics follow the
+  kernel's rules, at the shapes the port's paths give it (a table written
+  from the tiles ``csrc/flash_attention_bwd.cu`` launches); the tile
+  sweep's launcher takes the twin on CPU tensors.
 
 The kernels themselves run on the card: tests/test_torch_cuda.py.
 """
@@ -135,8 +139,9 @@ def launchers(monkeypatch):
         calls["lse"].append(tuple(q.shape))
         return fa.flash_attention_lse_plain(q, k, v, scale)
 
-    def launch_backward(q, k, v, o, lse, dout, scale):
+    def launch_backward(q, k, v, o, lse, dout, scale):   # counts, as the launcher does
         calls["backward"].append((o.detach().clone(), lse.clone()))
+        fa.flash_attention_backward.launches += 1
         return fa.flash_attention_backward_plain(q, k, v, o, lse, dout, scale)
 
     def refuse(*args, **kwargs):
@@ -220,3 +225,110 @@ def test_backward_wrapper_takes_the_twin_on_the_cpu_and_checks_its_inputs():
         fa.flash_attention_backward(q, k, v, o, lse, dout.bfloat16())
     with pytest.raises(RuntimeError, match="flash_attention_backward has no gradient"):
         fa.flash_attention_backward(q.requires_grad_(True), k, v, o, lse, dout)
+
+
+# (B, H, Lq, Lk, D, dtype) → BackwardConfig (q rows a step of the dK/dV pass,
+# splits, lq_pad), written from csrc/flash_attention_bwd.cu's tiles (bf16:
+# 64-key CTAs, two an SM, 64 q rows a step, the dQ pass's 128 q rows a CTA;
+# fp32: 64-key CTAs, four an SM, 32 q rows a step, 64-row dQ CTAs): the DiT
+# training row, D = 128, the VAE and decode-chunk rows (fp32), ragged and
+# split shapes
+BF16, F32 = torch.bfloat16, torch.float32
+CONFIG_TABLE = {
+    "dit train": ((2, 16, 1882, 1882, 64, BF16), (64, 1, 1920)),
+    "d128": ((1, 8, 4096, 4096, 128, BF16), (64, 1, 4096)),
+    "vae fp32": ((1, 16, 512, 512, 64, F32), (32, 4, 512)),
+    "chunk fp32": ((1, 16, 65536, 512, 64, F32), (32, 5, 65536)),
+    "ragged d128": ((2, 3, 130, 200, 128, BF16), (64, 3, 256)),
+    "ragged d64": ((1, 4, 700, 333, 64, BF16), (64, 11, 768)),
+    "lk below 64": ((2, 2, 300, 40, 64, BF16), (64, 5, 384)),
+    "split bf16": ((1, 2, 3000, 100, 64, BF16), (64, 47, 3072)),
+    "ragged fp32": ((2, 3, 130, 200, 64, F32), (32, 5, 192)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIG_TABLE))
+def test_backward_config_table(name):
+    shape, want = CONFIG_TABLE[name]
+    assert fa.backward_config(*shape) == fa.BackwardConfig(*want)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dt", [F32, BF16], ids=["fp32", "bf16"])
+def test_backward_config_splits_and_padding(d, dt):
+    """Over many shapes: the splits cover the q tiles with none empty (the
+    kernel refuses more splits than q tiles), the statistics cover every
+    row either pass reads (the last q tile of the dK/dV pass, the last CTA
+    of the dQ pass), and the q range is split only where the key ranges
+    leave SMs idle."""
+    pad, per_sm = (128, 2) if dt == BF16 else (64, 4)
+    rs = np.random.RandomState(d)
+    for _ in range(60):
+        b, h = rs.randint(1, 4), rs.randint(1, 17)
+        lq, lk = rs.randint(1, 5000), rs.randint(1, 5000)
+        cfg = fa.backward_config(b, h, lq, lk, d, dt)
+        n_qt = -(-lq // cfg.rows)
+        per = -(-n_qt // cfg.splits)
+        assert (cfg.splits - 1) * per < n_qt <= cfg.splits * per
+        assert cfg.lq_pad >= lq and cfg.lq_pad - lq < pad and cfg.lq_pad % pad == 0
+        assert cfg.lq_pad >= n_qt * cfg.rows
+        if b * h * -(-lk // 64) >= per_sm * fa.SM_COUNT:
+            assert cfg.splits == 1
+
+
+def test_backward_variant_takes_the_twin_on_the_cpu_and_refuses_other_tiles():
+    """The tile sweep's launcher: a compiled tile of each pass on CPU
+    tensors gives flash_attention_backward_plain's gradients; a tile that
+    csrc/flash_bwd_variants.cu does not compile, or an input that requires
+    a gradient, is refused."""
+    from hunyuan3d2_tpu_torch.tools import profile_flash_bwd_variants as pv
+
+    q, k, v, dout = _inputs((1, 2, 70, 90, 64), BF16, seed=5)
+    o, lse = fa.flash_attention_lse_plain(q, k, v, 0.125)
+    got = pv.flash_attention_backward_variant(q, k, v, o, lse, dout, 0.125, (64, 64, 3),
+                                              (128, 128, 3))
+    ref = fa.flash_attention_backward_plain(q, k, v, o, lse, dout, 0.125)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    for d, kv, qt in ((128, (128, 128, 2), (128, 64, 3)), (64, (64, 64, 3), (128, 64, 3))):
+        assert kv not in pv.KV_VARIANTS[d] or qt not in pv.Q_VARIANTS[d]
+        x = torch.zeros(1, 1, 8, d, dtype=BF16)
+        with pytest.raises(ValueError, match="not compiled"):
+            pv.flash_attention_backward_variant(x, x, x, x, torch.zeros(1, 1, 8), x, 1.0, kv, qt)
+    with pytest.raises(RuntimeError, match="has no gradient"):
+        pv.flash_attention_backward_variant(q.requires_grad_(True), k, v, o, lse, dout, 0.125,
+                                            (64, 64, 3), (128, 128, 3))
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_14fbwd16dkdv_bf16_kernelILi64ELi128ELi64ELi2EEEv14CUtensorMap_stPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_14fbwd16dkdv_bf16_kernelILi64ELi128ELi64ELi2EEEv14CUtensorMap_stPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_14fbwd13dq_f32_kernelILi128EEEvPKfPfiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_14fbwd13dq_f32_kernelILi128EEEvPKfPfiiiif
+    36 bytes stack frame, 36 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 255 registers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_14fbwd14dq_bf16_kernelILi64ELi128ELi128ELi2EEEv14CUtensorMap_stPKfiiiif' for 'sm_90a'
+ptxas warning : (C7514) Potential Performance Loss: wgmma.mma_async instructions are serialized due to the presence of Extern calls in the function '_ZN12_GLOBAL__N_14fbwd14dq_bf16_kernelILi64ELi128ELi128ELi2EEEv14CUtensorMap_stPKfiiiif'.
+ptxas info    : Used 90 registers
+"""
+
+
+def test_chip_smoke_reads_ptxas_spills_and_serialised_wgmma():
+    """chip_smoke's build gate on the backward: registers, spills and C7514
+    per instance, each instance named by its pass, dtype and tiles."""
+    import chip_smoke
+
+    found = chip_smoke.ptxas_instances(PTXAS_LOG)
+    assert len(found) == 3
+    by_label = {}
+    for mangled, info in found.items():
+        m = chip_smoke.BWD_KERNEL.search(mangled)
+        by_label[(m.group(1), m.group(2), tuple(a for a in m.groups()[2:] if a))] = info
+    assert by_label[("dkdv", "bf16", ("64", "128", "64", "2"))] == dict(
+        registers=168, spill_stores=0, spill_loads=0, serialized=False)
+    assert by_label[("dq", "f32", ("128",))] == dict(
+        registers=255, spill_stores=36, spill_loads=40, serialized=False)
+    assert by_label[("dq", "bf16", ("64", "128", "128", "2"))] == dict(
+        registers=90, spill_stores=0, spill_loads=0, serialized=True)

@@ -61,9 +61,13 @@ def kernel_branch(monkeypatch):
         fa._check(q, k, v)
         return fa._on_card(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale)
 
+    def launch_backward(q, k, v, o, lse, dout, scale):   # counts, as the launcher does
+        fa.flash_attention_backward.launches += 1
+        return fa.flash_attention_backward_plain(q, k, v, o, lse, dout, scale)
+
     monkeypatch.setattr(fa, "_launch", launch)
     monkeypatch.setattr(fa, "_launch_lse", launch_lse)
-    monkeypatch.setattr(fa, "_launch_backward", fa.flash_attention_backward_plain)
+    monkeypatch.setattr(fa, "_launch_backward", launch_backward)
     monkeypatch.setattr(att, "use_flash", lambda q: True)
     monkeypatch.setattr(att, "flash_attention", cuda_branch)
     return launches
@@ -79,7 +83,7 @@ def _qkv(dtype, lq=40, lk=56, d=64, seed=0):
 def test_attention_gradients_through_the_autograd_function(kernel_branch, needs):
     q, k, v = (t.requires_grad_(n) for t, n in zip(_qkv(torch.float32), needs))
     w = torch.randn(2, 3, 40, 64, generator=torch.Generator().manual_seed(1))
-    before = fa.flash_attention.launches
+    before, before_bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
     out = att.attention(q, k, v)
     assert kernel_branch == [(2, 3, 40, 64)] and fa.flash_attention.launches == before + 1
     assert out.grad_fn is not None and type(out.grad_fn).__name__.startswith("_FlashAttention")
@@ -93,6 +97,7 @@ def test_attention_gradients_through_the_autograd_function(kernel_branch, needs)
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
     # the backward launches the backward kernel, not the forward again
     assert len(kernel_branch) == 1
+    assert fa.flash_attention_backward.launches == before_bwd + 1
 
 
 def test_bf16_gradients_keep_the_inputs_dtype(kernel_branch):

@@ -105,6 +105,7 @@ from hunyuan3d2_tpu_torch.geometry import voxel_hierarchy
 from hunyuan3d2_tpu_torch.tools import export_native
 from hunyuan3d2_tpu_torch.parallel import collectives, diagnostics, mesh, pipeline, sharding
 from hunyuan3d2_tpu_torch.tools import parallel_check
+from hunyuan3d2_tpu_torch.tools import profile_flash_bwd_variants
 from hunyuan3d2_tpu_torch.pipelines import shapegen
 assert all(hasattr(c, "shard") for c in (shapegen.Hunyuan3DDiTFlowMatchingPipeline,
                                          texgen.Hunyuan3DPaintPipeline,
