@@ -7,8 +7,10 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel from csrc/ (one nvcc per source, in parallel;
      csrc/flash_attention_bwd.cu is kernel 1's backward), with ptxas's
-     registers for each instance of the backward; a bf16 instance of the
-     backward that spills or whose wgmma ptxas serialises (C7514) fails it;
+     registers for each instance of the backward and of the fp32 forward and
+     the wgmma / mma.sync instructions of their SASS (cuobjdump); one that
+     spills or whose wgmma ptxas serialises (C7514), or an fp32 one with no
+     HGMMA or any HMMA, fails it;
   3. each kernel against its plain PyTorch twin at the shapes of the three
      paths, with its time, the plain time, the time of one library call
      where one computes the same function, and its bound on the card: flash
@@ -16,7 +18,8 @@ Phases, in order; any failure exits non-zero:
      CFG's batch 2, the v2-0 Fast DiT and the streamed geo decode's
      attention; each row's inputs from a generator seeded by its name; the
      fp32 rows also against an fp64 evaluation, within the bound of the
-     kernel's arithmetic), the fused geo decoder
+     kernel's arithmetic; bound against 3xTF32 on the TF32 tensor cores,
+     the CUDA cores' fp32 rate beside it), the fused geo decoder
      (kernel 3's chain) and the streamed decode's MLP tail (kernel 4's
      chain) on x2 from the v2-0 VAE, each kernel of their chain (LN rows,
      the GEMM's epilogues, ln_post) at the coarse pass and a fine chunk of
@@ -109,9 +112,11 @@ Phases, in order; any failure exits non-zero:
           own error); the kernel against flash_attention_backward_plain on
           the same o and lse, two calls bit for bit; forward + backward time
           and the backward's alone beside the plain twin's and
-          F.scaled_dot_product_attention's; for the bf16 rows each pass's
-          device time (pre-pass, dK/dV, dQ; torch.profiler) and its TFLOP/s
-          (the tile sweep is tools/profile_flash_bwd_variants.py);
+          F.scaled_dot_product_attention's (fp32 rows bound against 3xTF32
+          on the TF32 tensor cores, the CUDA cores' rate beside it); each
+          pass's device time (pre-pass, dK/dV, dQ; torch.profiler) and its
+          TFLOP/s (the bf16 tile sweep is
+          tools/profile_flash_bwd_variants.py);
      12b. training at full width (path train): the mini DiT (8 + 16 blocks,
           1024 wide, 16 heads of 64) with random bf16 weights, latents
           [2,512,64], cond [2,1370,1536], AdamW, 10 steps; at step 5 the
@@ -164,7 +169,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 without tensor cores
+# dense tensor-core bf16; fp32 on the CUDA cores (no tensor cores); the fp32
+# kernels' own floor, 3xTF32 on the TF32 tensor cores (495 TFLOP/s, three
+# products a pair)
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "tf32x3": 495e12 / 3}
 VIEWS = [(0, 0), (0, 90), (0, 180), (0, 270), (90, 0), (-90, 180)]   # (elev, azim)
 
 
@@ -254,6 +262,19 @@ def bound(flops, nbytes, kind):
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def row_bounds(flops, nbytes, dtype):
+    """A row's bound keys: bf16 against the bf16 tensor cores; fp32 against
+    its kernels' own floor, 3xTF32 on the TF32 tensor cores (``bound_ms``),
+    with the CUDA cores' fp32 rate under ``bound_cuda_core_ms``."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        ms, by = bound(flops, nbytes, "bf16")
+        return dict(bound_ms=ms, bound_by=by)
+    ms, by = bound(flops, nbytes, "tf32x3")
+    return dict(bound_ms=ms, bound_by=by, bound_cuda_core_ms=bound(flops, nbytes, "fp32")[0])
 
 
 def fp32_check(name, q, k, v, out, plain):
@@ -357,10 +378,9 @@ def flash_phase():
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
         flops = 4.0 * b * h * lq * lk * d
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-        bound_ms, by = bound(flops, nbytes, "bf16" if dt == torch.bfloat16 else "fp32")
         row = dict(shape=f"{name} q {[b, h, lq, d]} k {[b, h, lk, d]} {str(dt).split('.')[-1]}",
                    max_abs_err=err, max_rel_err=rel, rel_rms_err=rms, tol=tol, **extra, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+                   plain_ms=plain_ms, library_ms=lib_ms, **row_bounds(flops, nbytes, dt))
         log("flash_attention " + json.dumps(row))
         rows.append(row)
         del q, k, v, out, ref
@@ -1870,7 +1890,9 @@ def flash_grad_phase():
         dO read and o, dq, dk, dv written once); the backward alone beside
         flash_attention_backward_plain and SDPA's backward (autograd.grad on
         its retained graph; bound: 10·B·H·Lq·Lk·D, a backward that keeps no
-        scores recomputes S once).
+        scores recomputes S once); fp32 bounds at 3xTF32 on the TF32 tensor
+        cores (bound_ms) and on the CUDA cores (bound_cuda_core_ms);
+      * each pass's device time and TFLOP/s (pass_times).
     Returns (the forward + backward rows, the backward rows)."""
     import zlib
 
@@ -1893,7 +1915,6 @@ def flash_grad_phase():
         dout = torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
         scale = d ** -0.5
         label = f"flash_attention grad {name}"
-        kind = "bf16" if dt == torch.bfloat16 else "fp32"
 
         def run(fn):
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -1963,11 +1984,11 @@ def flash_grad_phase():
                       f"err {err} (tol {tol}), relative RMS err {rms} (tol 1e-5)")
             twin_errs[gname] = dict(max_abs_err=err, rel_rms_err=rms, tol=tol)
         del first, second, twin
-        # the bf16 rows' device time a call of each pass, with its TFLOP/s
-        passes = (pass_times(lambda: fa.flash_attention_backward(q, k, v, o, lse, dout, scale),
-                             1.0 * b * h * lq * lk * d) if dt == torch.bfloat16 else None)
-        if passes:
-            log(f"{label} backward passes " + json.dumps(passes))
+        # the device time a call of each pass, with its TFLOP/s (fp32: of its
+        # fp32-grade operations, against 165 TFLOP/s of 3xTF32)
+        passes = pass_times(lambda: fa.flash_attention_backward(q, k, v, o, lse, dout, scale),
+                            1.0 * b * h * lq * lk * d)
+        log(f"{label} backward passes " + json.dumps(passes))
 
         # 20 calls a timing: forward + backward runs eager autograd, whose host
         # time can exceed the device's at these sizes; a longer loop averages
@@ -1987,19 +2008,18 @@ def flash_grad_phase():
         del lib_out, leaves
         work = 1.0 * b * h * lq * lk * d
         nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
-        bound_ms, by = bound(12 * work, nbytes, kind)
-        bwd_bound_ms, bwd_by = bound(10 * work, nbytes + 4 * lse.numel(), kind)
+        bounds = row_bounds(12 * work, nbytes, dt)
+        bwd_bounds = row_bounds(10 * work, nbytes + 4 * lse.numel(), dt)
         shape = f"{name} q {[b, h, lq, d]} k {[b, h, lk, d]} {str(dt).split('.')[-1]}"
         row = dict(shape=shape, what="forward + backward",
                    max_abs_err=max(e["max_abs_err"] for e in errs.values()), grads=errs,
                    launches_per_call=per_call, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bound_ms, bound_by=by)
+                   **bounds)
         check(per_call == 1, f"{label}: {per_call} forward launches a call")
         bwd_row = dict(shape=shape, what="backward (q, k, v, o, lse, dO → dq, dk, dv)",
                        max_abs_err=max(e["max_abs_err"] for e in twin_errs.values()),
                        grads=twin_errs, lse_max_abs_err=lse_err, deterministic=True, ms=bwd_ms,
-                       plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms, bound_ms=bwd_bound_ms,
-                       bound_by=bwd_by, passes=passes)
+                       plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms, passes=passes, **bwd_bounds)
         log("flash_attention grad " + json.dumps(row))
         log("flash_attention_backward " + json.dumps(bwd_row))
         rows.append(row)
@@ -2009,7 +2029,18 @@ def flash_grad_phase():
     return rows, bwd_rows
 
 
-BWD_KERNEL = re.compile(r"(dkdv|dq)_(bf16|f32)_kernel(?:ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E|ILi(\d+)E)")
+# kernel 1's forward and backward instances by pass, dtype and template
+# numbers (flash_f32_masked_kernel, the masked fp32 forward, is not one)
+KERNEL1 = re.compile(r"(flash|dkdv|dq)_(bf16|f32)_kernel(I(?:L[ib]\d+E)+)")
+
+
+def kernel1_instance(mangled):
+    """(pass, dtype, template numbers) of an instance of kernel 1 named by
+    its mangled name, or None."""
+    m = KERNEL1.search(mangled)
+    if not m:
+        return None
+    return m.group(1), m.group(2), tuple(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3)))
 
 
 def ptxas_instances(text):
@@ -2039,28 +2070,53 @@ def ptxas_instances(text):
     return out
 
 
-def backward_build_gate():
-    """Phase 2's gate on kernel 1's backward: ptxas's registers of each
-    instance of its passes (from the build log beside the library), and a
-    failure where a bf16 instance spills or has its wgmma serialised."""
+def sass_mma_counts(library):
+    """{mangled name: (HGMMA, HMMA)}: the wgmma and mma.sync instructions of
+    each function in a library's SASS (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", library], capture_output=True, text=True, check=True,
+                         timeout=600).stdout
+    counts = {}
+    for chunk in re.split(r"\n\s*Function : ", out)[1:]:
+        name, _, body = chunk.partition("\n")
+        counts[name.strip()] = (len(re.findall(r"\bHGMMA\b", body)),
+                                len(re.findall(r"\bHMMA\b", body)))
+    return counts
+
+
+def kernel1_build_gate():
+    """Phase 2's gate on kernel 1: ptxas's registers of each instance of its
+    backward passes (bf16 and fp32) and of its fp32 forward, from the build
+    logs beside the libraries, with each instance's wgmma (HGMMA) and
+    mma.sync (HMMA) instructions in its SASS; a failure where one of them
+    spills or has its wgmma serialised (C7514), or where an fp32 instance
+    issues no HGMMA or any HMMA. The masked fp32 forward (mma.sync, ROADMAP)
+    and the bf16 forward are not gated."""
     from hunyuan3d2_tpu_torch.utils import cuda_build
 
-    with open(cuda_build.library_path("flash_attention_bwd") + ".log") as fh:
-        found = ptxas_instances(fh.read())
     seen = 0
-    for mangled, info in sorted(found.items()):
-        m = BWD_KERNEL.search(mangled)
-        if not m:
-            continue
-        seen += 1
-        args = ", ".join(a for a in m.groups()[2:] if a)
-        label = f"{m.group(1)}_{m.group(2)}_kernel<{args}>"
-        log(f"  flash_attention_bwd ptxas: {label} {json.dumps(info)}")
-        if m.group(2) == "bf16":
+    for library, gated in (("flash_attention_bwd", ("dkdv", "dq")), ("flash_attention", ("flash",))):
+        path = cuda_build.library_path(library)
+        with open(path + ".log") as fh:
+            found = ptxas_instances(fh.read())
+        sass = sass_mma_counts(path)
+        for mangled, info in sorted(found.items()):
+            inst = kernel1_instance(mangled)
+            if inst is None or inst[0] not in gated or (inst[0] == "flash" and inst[1] != "f32"):
+                continue
+            seen += 1
+            label = f"{inst[0]}_{inst[1]}_kernel<{', '.join(map(str, inst[2]))}>"
+            hgmma, hmma = sass.get(mangled, (0, 0))
+            log(f"  {library} ptxas: {label} {json.dumps(info)}, SASS: {hgmma} HGMMA, "
+                f"{hmma} HMMA")
             check(info["spill_stores"] == 0 and info["spill_loads"] == 0,
                   f"{label}: ptxas spills ({info})")
             check(not info["serialized"], f"{label}: ptxas serialised its wgmma (C7514)")
-    check(seen > 0, "flash_attention_bwd's build log names no instance of its passes")
+            if inst[1] == "f32":
+                check(hgmma > 0 and hmma == 0,
+                      f"{label}: {hgmma} HGMMA and {hmma} HMMA in its SASS (wgmma only)")
+    check(seen > 0, "the build logs name no instance of kernel 1's passes")
 
 
 def _zero_counters():
@@ -2377,7 +2433,7 @@ def main() -> int:
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling", "arning", "C75")):
                 log(f"  {name}: {line.strip()}")
-    backward_build_gate()
+    kernel1_build_gate()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     sphere = sphere_mesh()

@@ -50,15 +50,30 @@
 // -1e30, so the running max, alpha = 1, and p = 0 leave m, l and acc as
 // computing it would.
 //
-// Design, fp32 (the VAE self-attention; flash_attention.cuh
-// `flash_f32_kernel`): a CTA of 4 warps per 64-row q tile, K/V tiles of 64
-// keys double-buffered by cp.async, both products on mma.sync.m16n8k8.tf32
-// as 3xTF32 split products (big.big + big.small + small.big), which keep
-// fp32-grade error where plain TF32 would lose ~3 decimal digits. Each key
-// tile's P.V is summed in fresh accumulators and added to the running sum
-// by an FMA: a tensor-core accumulator may truncate, and one carried across
-// every tile would err in proportion to Lk. The error bound of this
-// arithmetic: hunyuan3d2_tpu_torch/tools/flash_fp32_error.py.
+// Design, fp32 unmasked (the VAE's self-attention, the dense fp32 decode,
+// the differentiable surface; flash_attention.cuh `flash_f32_kernel`),
+// D in {64, 128}: 3xTF32 split products (big.big + big.small + small.big),
+// which keep fp32-grade error where plain TF32 would lose ~3 decimal
+// digits, on wgmma at the TF32 tensor cores' 495 TFLOP/s (165 TFLOP/s of
+// fp32-grade products, three a pair):
+//  * TF32 wgmma takes only K-major operands, so a pre-pass (split_kernel)
+//    writes K's split [2, n, lk, D] and V^T's [2, n, D, lk_pad] (keys
+//    contiguous, permuted within each 8 so that the score accumulator is
+//    the tf32 A fragment of P as it stands), 24 B H Lk D bytes a call;
+//  * one CTA per (batch*head, BQ-row q tile), one producer warp keeping a
+//    ring of slots full by TMA (128-byte swizzle, 32 fp32 a row), each slot
+//    one split operand of one key tile: K_j, then V_j^T; 64-row consumer
+//    warpgroups (BQ = 128: two; BQ = 64 where 128-row tiles would leave SMs
+//    idle; D = 128: BQ = 64) split their q rows in place in shared memory;
+//  * S = qs K^T with both operands in shared memory, P's big and small as A
+//    fragments in registers; each key tile's P.V is summed in fresh
+//    accumulators (64 output columns at a time) and added to the running
+//    sum by an FMA: a tensor-core accumulator may truncate, and one carried
+//    across every tile would err in proportion to Lk. The error bound of
+//    this arithmetic: hunyuan3d2_tpu_torch/tools/flash_fp32_error.py.
+// fp32 masked (fp32 paint weights only): `flash_f32_masked_kernel`, a CTA
+// of 4 warps per 64-row q tile, K/V tiles of 64 keys double-buffered by
+// cp.async, the same products on mma.sync.m16n8k8.tf32 (ROADMAP lists it).
 //
 // Under a gradient the wrapper launches the unmasked kernel's kLse instance
 // (hy3d_flash_attention_lse): the same kernel, which also writes each row's
@@ -82,11 +97,26 @@ using flash::Args;
 #define FLASH_TRY_LSE(D_, BQ_, BK_, ST_) \
   if (d == D_ && bq == BQ_ && bk == BK_ && stages == ST_) return flash::launch_bf16<D_, BQ_, BK_, ST_, false, true>(a);
 
+// The unmasked fp32 kernel's (BQ, BK, SLOTS) per head size.
+#define FLASH_F32(X)  \
+  X(64, 128, 64, 4)   \
+  X(64, 64, 64, 6)    \
+  X(128, 64, 64, 2)
+
+#define FLASH_TRY_F32(D_, BQ_, BK_, SL_) \
+  if (d == D_ && bq == BQ_ && bk == BK_ && stages == SL_) return flash::launch_f32<D_, BQ_, BK_, SL_>(a);
+#define FLASH_TRY_F32_LSE(D_, BQ_, BK_, SL_) \
+  if (d == D_ && bq == BQ_ && bk == BK_ && stages == SL_) return flash::launch_f32<D_, BQ_, BK_, SL_, true>(a);
+
 cudaError_t dispatch(const Args& a, int d, int dtype, int bq, int bk, int stages) {
-  if (dtype == 1) {
+  if (dtype == 1 && a.mask) {
     if (bq != flash::kF32BQ || bk != flash::kF32BK || stages != 2) return cudaErrorInvalidValue;
-    if (d == 64) return a.mask ? flash::launch_f32<64, true>(a) : flash::launch_f32<64, false>(a);
-    if (d == 128) return a.mask ? flash::launch_f32<128, true>(a) : flash::launch_f32<128, false>(a);
+    if (d == 64) return flash::launch_f32_masked<64>(a);
+    if (d == 128) return flash::launch_f32_masked<128>(a);
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == 1) {
+    FLASH_F32(FLASH_TRY_F32)
     return cudaErrorInvalidValue;
   }
   if (a.mask) {  // three stages of K, V and mask fit at D = 64, two at D = 128
@@ -102,9 +132,7 @@ cudaError_t dispatch(const Args& a, int d, int dtype, int bq, int bk, int stages
 
 cudaError_t dispatch_lse(const Args& a, int d, int dtype, int bq, int bk, int stages) {
   if (dtype == 1) {
-    if (bq != flash::kF32BQ || bk != flash::kF32BK || stages != 2) return cudaErrorInvalidValue;
-    if (d == 64) return flash::launch_f32<64, false, true>(a);
-    if (d == 128) return flash::launch_f32<128, false, true>(a);
+    FLASH_F32(FLASH_TRY_F32_LSE)
     return cudaErrorInvalidValue;
   }
   FLASH_DEFAULTS(FLASH_TRY_LSE, 64)
@@ -119,15 +147,18 @@ cudaError_t dispatch_lse(const Args& a, int d, int dtype, int bq, int bk, int st
 // [B, lq, lk] uint8 array (nonzero = attend) shared across the heads, with
 // tile_map its [B, ceil(lq / bq), ceil(lk / bk)] uint8 occupancy (nonzero =
 // the tile holds an allowed pair). dtype 0 = bf16, 1 = fp32; d in {64, 128};
-// (bq, bk, stages) one of the compiled configurations. Returns the
-// cudaError_t of the launch (0 on success); the launch is asynchronous on
-// `stream` and allocates nothing.
+// (bq, bk, stages) one of the compiled configurations (the unmasked fp32
+// kernel's `stages` are its ring's slots). scratch: for unmasked fp32, fp32
+// [2 n lk d + 2 n d lk_pad] with lk_pad = lk rounded up to a multiple of 64
+// (the split K and V^T that its pre-pass writes), else NULL. Returns the
+// cudaError_t of the launch (0 on success); the launches are asynchronous on
+// `stream` and allocate nothing.
 extern "C" int hy3d_flash_attention(const void* q, const void* k, const void* v, const void* mask,
-                                    const void* tile_map, void* o, int n, int heads, int lq, int lk,
-                                    int d, int dtype, float scale, int bq, int bk, int stages,
-                                    void* stream) {
+                                    const void* tile_map, void* o, float* scratch, int n, int heads,
+                                    int lq, int lk, int d, int dtype, float scale, int bq, int bk,
+                                    int stages, void* stream) {
   const Args a{q, k, v, static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(tile_map),
-               o, n, heads, lq, lk, scale, static_cast<cudaStream_t>(stream)};
+               o, n, heads, lq, lk, scale, static_cast<cudaStream_t>(stream), nullptr, scratch};
   if (!flash::valid_args(a) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   return (int)dispatch(a, d, dtype, bq, bk, stages);
 }
@@ -136,11 +167,27 @@ extern "C" int hy3d_flash_attention(const void* q, const void* k, const void* v,
 // log-sum-exp of its scaled logits, natural units); the other arguments as
 // hy3d_flash_attention's.
 extern "C" int hy3d_flash_attention_lse(const void* q, const void* k, const void* v, void* o,
-                                        float* lse, int n, int lq, int lk, int d, int dtype,
-                                        float scale, int bq, int bk, int stages, void* stream) {
+                                        float* lse, float* scratch, int n, int lq, int lk, int d,
+                                        int dtype, float scale, int bq, int bk, int stages,
+                                        void* stream) {
   const Args a{q, k, v, nullptr, nullptr, o, n, 1, lq, lk, scale,
-               static_cast<cudaStream_t>(stream), lse};
+               static_cast<cudaStream_t>(stream), lse, scratch};
   if (!flash::valid_args(a) || lse == nullptr || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return (int)dispatch_lse(a, d, dtype, bq, bk, stages);
+}
+
+// The unmasked fp32 kernels' operand pre-pass on its own (they launch it
+// inside their entry points; ops/flash_attention.py `split_operand` serves
+// the tests): x [n, rows, d] fp32 times `scale` -> direct [2, n, rows, d]
+// (big, then small) and, unless trans is NULL, trans [2, n, d, cols] (the
+// same of x^T, columns in perm8 order, zeros past rows; cols a multiple of
+// 8 at least rows). d in {64, 128}. Returns the cudaError_t of the launch.
+extern "C" int hy3d_split_operand(const float* x, float* direct, float* trans, int n, int rows,
+                                  int cols, int d, float scale, void* stream) {
+  if (n <= 0 || rows <= 0 || (d != 64 && d != 128) || direct == nullptr ||
+      (trans != nullptr && (cols % 8 != 0 || cols < rows)))
+    return (int)cudaErrorInvalidValue;
+  return (int)flash::split_operand(x, direct, trans, n, rows, cols, d, scale,
+                                   static_cast<cudaStream_t>(stream));
 }

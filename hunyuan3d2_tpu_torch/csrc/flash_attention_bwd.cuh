@@ -64,14 +64,22 @@
 //    tiles the port launches (one of each pass per head size, the fastest
 //    of tools/profile_flash_bwd_variants.py's sweep over the tiles that
 //    flash_bwd_variants.cu instantiates);
-//  * fp32: 4-warp CTAs on mma.sync.m16n8k8.tf32 as 3xTF32 split products
-//    (big.big + big.small + small.big), the forward's fp32 scheme, operands
-//    double-buffered by cp.async; each q tile's (dK/dV pass) or key tile's
-//    (dQ pass) products are summed in fresh accumulators and added to the
-//    running sums in fp32, so no tensor-core accumulator is carried across
-//    tiles (its truncation would grow with the sequence;
-//    flash_attention.cu's note). TF32 wgmma takes K-major operands only, so
-//    dV, dK and dQ, whose B operand is MN-major, stay on mma.sync.
+//  * fp32 (both passes, one template, bwd_f32): the same warp-specialised
+//    shape with one consumer warpgroup a CTA and every product in 3xTF32
+//    (big.big + big.small + small.big) on tf32 wgmma. TF32 wgmma takes
+//    K-major operands only, and dV, dK and dQ read their B operand (dO, qs,
+//    K) across rows, so the pre-pass also writes, each split into its big
+//    and small halves, qs, dO, K and V as rows and qs^T, dO^T, K^T with
+//    their columns permuted within each 8 (the score accumulators become
+//    the A fragments as they stand): 8 n d (2 lq + 2 lq_pad + 2 lk +
+//    lk_pad) bytes written and read again, where the mma.sync passes that
+//    it replaced wrote the raw qs, 4 n lq d. The streamed operands pass through a ring of slots, one split
+//    operand of one tile a slot, in the order the products read them. Each
+//    q tile's (dK/dV pass) or key tile's (dQ pass) accumulating products
+//    are summed in fresh accumulators, 64 output columns at a time, and
+//    added to the running sums in fp32, so no tensor-core accumulator is
+//    carried across tiles (its truncation would grow with the sequence;
+//    flash_attention.cu's note).
 #pragma once
 
 #include "flash_attention.cuh"  // hopper.cuh, the forward's kLog2e, kMaxSmem and pack_p
@@ -96,7 +104,9 @@ __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_
 // ---------------------------------------------------------------------------
 // pre-pass: qs, delta, lse * log2(e)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+// kQs false (fp32, whose split pre-pass writes qs's operands): delta and
+// lse2 only, qs unused.
+template <typename T, int D, bool kQs = true>
 __global__ void __launch_bounds__(256)
     prep_kernel(const T* __restrict__ q, const T* __restrict__ o, const T* __restrict__ dout,
                 const float* __restrict__ lse, T* __restrict__ qs, float* __restrict__ delta,
@@ -117,7 +127,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
   for (int c = lane; c < D; c += 32) {
     acc = fmaf(to_f(dout[off + c]), to_f(o[off + c]), acc);
-    qs[off + c] = from_f<T>(to_f(q[off + c]) * scale);
+    if constexpr (kQs) qs[off + c] = from_f<T>(to_f(q[off + c]) * scale);
   }
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
@@ -552,364 +562,314 @@ __global__ void __launch_bounds__(Bf16Cfg<false, D, ROWS, BK, STAGES>::kThreads,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 warp products: 3xTF32 on mma.sync m16n8k8
+// fp32: warp-specialised CTAs, a TMA ring of split operands, 3xTF32 on wgmma
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                                     float b0, float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  split_tf32(b0, bb0, bs0);
-  split_tf32(b1, bb1, bs1);
-  mma_tf32_1688(d, as, bb0, bb1);
-  mma_tf32_1688(d, ab, bs0, bs1);
-  mma_tf32_1688(d, ab, bb0, bb1);
-}
-
-// c[16 x 8 NT] += A . Bt^T, A [16 x 8 KS] and Bt [8 NT x 8 KS] row-major in
-// shared memory (row strides lda, ldb floats). Accumulator c[j][e] holds
-// row g + 8 (e / 2), column 8 j + 2 t + (e % 2) (g = lane / 4, t = lane % 4).
-template <int KS, int NT>
-__device__ __forceinline__ void mma32_abt(float (&c)[NT][4], const float* a, int lda, const float* b,
-                                          int ldb) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t ab[4], as[4];
-    split_tf32(a[g * lda + 8 * ks + t], ab[0], as[0]);
-    split_tf32(a[(g + 8) * lda + 8 * ks + t], ab[1], as[1]);
-    split_tf32(a[g * lda + 8 * ks + t + 4], ab[2], as[2]);
-    split_tf32(a[(g + 8) * lda + 8 * ks + t + 4], ab[3], as[3]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float* br = b + (8 * nt + g) * ldb + 8 * ks + t;
-      mma3(c[nt], ab, as, br[0], br[4]);
-    }
-  }
-}
-
-// c[16 x 8 NT] += X . B: X an accumulator [16 x 8 KS] taken over its columns,
-// B [8 KS x 8 NT] row-major in shared memory at b (row stride ldb). The 8 keys of each step are permuted (logical k = t
-// holds column 2 t, k = t + 4 column 2 t + 1), so X's fragment is the A
-// fragment as it stands; B's rows follow the same permutation.
-template <int KS, int NT>
-__device__ __forceinline__ void mma32_xb(float (&c)[NT][4], const float (&x)[KS][4], const float* b,
-                                         int ldb) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    uint32_t ab[4], as[4];
-    split_tf32(x[kk][0], ab[0], as[0]);
-    split_tf32(x[kk][2], ab[1], as[1]);
-    split_tf32(x[kk][1], ab[2], as[2]);
-    split_tf32(x[kk][3], ab[3], as[3]);
-    const float* br = b + (8 * kk + 2 * t) * ldb + g;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) mma3(c[nt], ab, as, br[8 * nt], br[ldb + 8 * nt]);
-  }
-}
-
-// acc += X . B over all D columns, each 64-column block summed in fresh
-// accumulators first (NB = D / 8 column tiles of acc).
-template <int KS, int NB>
-__device__ __forceinline__ void add_xb_fresh(float (&acc)[NB][4], const float (&x)[KS][4],
-                                             const float* b, int ldb) {
-#pragma unroll
-  for (int h = 0; h < NB / 8; ++h) {
-    float part[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) part[i][0] = part[i][1] = part[i][2] = part[i][3] = 0.f;
-    mma32_xb<KS, 8>(part, x, b + 64 * h, ldb);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[8 * h + i][e] += part[i][e];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp32: the two passes on 4-warp CTAs
-// ---------------------------------------------------------------------------
-constexpr int kF32Keys = 64;  // dK/dV pass: keys a CTA (4 warps x 16 keys)
-constexpr int kF32Bq = 32;    // dK/dV pass: q rows a step (what the registers hold)
-constexpr int kF32Rows = 64;  // dQ pass: q rows a CTA (4 warps x 16 rows)
-constexpr int kF32Bk = 64;    // dQ pass: keys a step
-constexpr int kF32Pad = 64;   // lse2 / delta rows are padded to a multiple of this
-constexpr int kRowPad = 4;    // 16 bytes a shared-memory row (free of bank conflicts)
-
-template <int D>
-__device__ __forceinline__ void async_rows(float* dst, const float* src, int rows, int row0,
-                                           int nrows) {
-  constexpr int kLd = D + kRowPad;
-  constexpr int kChunks = D * 4 / 16;  // 16-byte chunks a row
-  for (int e = threadIdx.x; e < rows * kChunks; e += blockDim.x) {
-    const int r = e / kChunks, c = e % kChunks, row = row0 + r;
-    const bool ok = row < nrows;
-    cp_async16(reinterpret_cast<uint8_t*>(dst + r * kLd) + 16 * c,
-               reinterpret_cast<const uint8_t*>(src + (ok ? (size_t)row * D : 0)) + 16 * c, ok);
-  }
-}
-
-__device__ __forceinline__ void async_floats(float* dst, const float* src, int n) {
-  for (int e = threadIdx.x; e < n / 4; e += blockDim.x) cp_async16(dst + 4 * e, src + 4 * e, true);
-}
-
-// P = exp2(s * log2 e - lse2)
-__device__ __forceinline__ float prob32(float s, float lse2) {
-  return exp2f(fmaf(s, kLog2e, -lse2));
-}
-
-template <int D>
-struct F32KvCfg {
-  static constexpr int kLd = D + kRowPad;
-  static constexpr size_t kSmem =
-      4 * (size_t)(2 * kF32Keys * kLd + 4 * kF32Bq * kLd) + 4 * 4 * kF32Bq;
+// The bf16 template's passes with fp32-grade products. Every wgmma operand
+// is K-major and split in two halves (big, small; split_tf32_exact) by the
+// pre-pass (run_f32): row operands [2, n, rows, D] and transposed ones
+// [2, n, D, rows_pad] whose columns are in perm8 order. A CTA owns ROWS rows
+// (64 a consumer warpgroup; 128 only where the shared memory holds them:
+// the dQ pass at D = 64) of two operands X, Y and streams TILE-row tiles of the
+// others through a ring of SLOTS slots, one split operand a slot, in the
+// order the products read them (the producer fills a slot as soon as its
+// last reader is done):
+//   dQ pass    (kKV false): X, Y = qs, dO rows; a tile's parts: K, V rows,
+//                           then K^T;
+//   dK/dV pass (kKV true):  X, Y = K, V rows; a tile's parts: qs, dO rows
+//                           (with the tile's lse2 and delta), then dO^T,
+//                           then qs^T.
+// Per tile: A = X_w P0^T and B = Y_w P1^T (S and dP, or S^T and dP^T), P and
+// dS in fp32 registers, then
+//   dQ pass:    acc0 += dS P2^T                         (dQ)
+//   dK/dV pass: acc1 += P^T P2^T, acc0 += dS^T P3^T     (dV, dK)
+// each 64 output columns at a time in fresh accumulators added to the
+// running sums in fp32 (no tensor-core accumulator is carried across
+// tiles). The operand that the accumulating product reads becomes the tf32
+// A fragments in registers (split_frags), the score accumulators' columns
+// being in the transposed parts' perm8 order.
+template <bool kKV, int D, int ROWS, int TILE, int SLOTS>
+struct F32Cfg {
+  static_assert(D == 64 || D == 128, "head size");
+  static_assert(ROWS == 64 || ROWS == 128, "owned rows: one or two consumer warpgroups");
+  static_assert(TILE == 32 || TILE == 64, "streamed tile: whole 32-column blocks");
+  static constexpr int kParts = kKV ? 4 : 3;
+  static constexpr int kConsumers = ROWS / 64;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  // one CTA an SM: 128 x (24 + 240 kConsumers) of the 65536 registers (232
+  // spilled at D = 128 in the dK/dV pass)
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kOwnHalf = ROWS * D * 4;   // one half of X or Y
+  static constexpr int kPartHalf = TILE * D * 4;  // one half of a streamed part
+  static constexpr int kVecBytes = kKV ? 8 * TILE : 0;  // lse2, then delta
+  static constexpr int kOffY = 2 * kOwnHalf;
+  static constexpr int kOffSlots = 4 * kOwnHalf;
+  static constexpr int kOffVec = kOffSlots + SLOTS * 2 * kPartHalf;
+  static constexpr int kOffBar = kOffVec + SLOTS * kVecBytes;
+  static constexpr size_t kSmem = 1024 + kOffBar + 8 * (1 + 2 * SLOTS);  // + alignment slack
+  static_assert(kSmem <= (size_t)kMaxSmem, "shared memory");
 };
 
-// dK/dV pass: grid (ceil(lk / 64), n, splits), the bf16 pass's split rule.
-template <int D>
-__global__ void __launch_bounds__(128)
-    dkdv_f32_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                    const float* __restrict__ qs, const float* __restrict__ dout,
-                    const float* __restrict__ lse2, const float* __restrict__ delta,
-                    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part, int n,
-                    int lq, int lk, int lq_pad, int per) {
-  constexpr int BQ = kF32Bq;
-  constexpr int kLd = F32KvCfg<D>::kLd;
-  extern __shared__ __align__(16) uint8_t smem_bwd[];
-  float* Ks = reinterpret_cast<float*>(smem_bwd);
-  float* Vs = Ks + kF32Keys * kLd;
-  float* Qs = Vs + kF32Keys * kLd;  // [2][BQ][kLd]
-  float* Os = Qs + 2 * BQ * kLd;    // [2][BQ][kLd]
-  float* Ls = Os + 2 * BQ * kLd;    // [2][BQ]
-  float* Ds = Ls + 2 * BQ;          // [2][BQ]
-
-  const int bh = blockIdx.y, k0 = blockIdx.x * kF32Keys, z = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4, g = lane / 4;
-  const int nqt = (lq + BQ - 1) / BQ;
-  const int it0 = z * per, it1 = min(nqt, it0 + per);
-  k += (size_t)bh * lk * D;
-  v += (size_t)bh * lk * D;
-  qs += (size_t)bh * lq * D;
-  dout += (size_t)bh * lq * D;
-  lse2 += (size_t)bh * lq_pad;
-  delta += (size_t)bh * lq_pad;
-
-  async_rows<D>(Ks, k, kF32Keys, k0, lk);
-  async_rows<D>(Vs, v, kF32Keys, k0, lk);
-  auto load = [&](int it, int b) {
-    async_rows<D>(Qs + b * BQ * kLd, qs, BQ, it * BQ, lq);
-    async_rows<D>(Os + b * BQ * kLd, dout, BQ, it * BQ, lq);
-    async_floats(Ls + b * BQ, lse2 + it * BQ, BQ);
-    async_floats(Ds + b * BQ, delta + it * BQ, BQ);
-  };
-  if (it0 < it1) load(it0, 0);
-  cp_async_commit();
-
-  constexpr int NT = BQ / 8;  // q columns of S^T, in 8-column tiles
-  float dka[D / 8][4], dva[D / 8][4];
+// acc += F . T^T over the TILE columns of the transposed part T (64 output
+// columns at a time in fresh accumulators).
+template <int D, int TILE>
+__device__ __forceinline__ void add_tf32x3(float (&acc)[D / 2], float (&fresh)[32],
+                                           const uint32_t (&fb)[TILE / 8][4],
+                                           const uint32_t (&fs)[TILE / 8][4], const uint8_t* part,
+                                           int small) {
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int h = 0; h < D / 64; ++h) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-  const float* kw = Ks + 16 * warp * kLd;
-  const float* vw = Vs + 16 * warp * kLd;
-
-  for (int it = it0; it < it1; ++it) {
-    const int b = (it - it0) & 1;
-    if (it + 1 < it1) {
-      load(it + 1, b ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* qb = Qs + b * BQ * kLd;
-    const float* ob = Os + b * BQ * kLd;
-    const float* lb = Ls + b * BQ;
-    const float* db = Ds + b * BQ;
-
-    // S^T = K_w . qs^T, then P^T (padded q columns: lse2 = +inf, P = 0)
-    float s[NT][4];
+    for (int e = 0; e < 32; ++e) fresh[e] = 0.f;
+    fence_regs(fresh);
+    wgmma_fence();
+    flash::tf32x3_rs<TILE / 8>(fresh, fb, fs, part + h * 64 * 128, D * 128, small);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(fresh);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma32_abt<D / 8, NT>(s, kw, kLd, qb, kLd);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float l0 = lb[8 * j + 2 * t], l1 = lb[8 * j + 2 * t + 1];
-      s[j][0] = prob32(s[j][0], l0);
-      s[j][1] = prob32(s[j][1], l1);
-      s[j][2] = prob32(s[j][2], l0);
-      s[j][3] = prob32(s[j][3], l1);
-    }
-    // dP^T = V_w . dO^T
-    float dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    mma32_abt<D / 8, NT>(dp, vw, kLd, ob, kLd);
-    // dV += P^T . dO, then dS^T = P^T (dP^T - delta) in dp
-    add_xb_fresh<NT, D / 8>(dva, s, ob, kLd);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float d0 = db[8 * j + 2 * t], d1 = db[8 * j + 2 * t + 1];
-      dp[j][0] = s[j][0] * (dp[j][0] - d0);
-      dp[j][1] = s[j][1] * (dp[j][1] - d1);
-      dp[j][2] = s[j][2] * (dp[j][2] - d0);
-      dp[j][3] = s[j][3] * (dp[j][3] - d1);
-    }
-    // dK += dS^T . qs
-    add_xb_fresh<NT, D / 8>(dka, dp, qb, kLd);
-    __syncthreads();  // buffer b is refilled next
+    for (int e = 0; e < 32; ++e) acc[32 * h + e] += fresh[e];
   }
-  cp_async_wait<0>();
+}
 
-  const int key0 = k0 + 16 * warp + g, key1 = key0 + 8;
-  if (part == nullptr) {
-    float* kb = dk + (size_t)bh * lk * D;
-    float* vb = dv + (size_t)bh * lk * D;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      const int col = 8 * i + 2 * t;
-      if (key0 < lk) {
-        kb[(size_t)key0 * D + col] = dka[i][0];
-        kb[(size_t)key0 * D + col + 1] = dka[i][1];
-        vb[(size_t)key0 * D + col] = dva[i][0];
-        vb[(size_t)key0 * D + col + 1] = dva[i][1];
-      }
-      if (key1 < lk) {
-        kb[(size_t)key1 * D + col] = dka[i][2];
-        kb[(size_t)key1 * D + col + 1] = dka[i][3];
-        vb[(size_t)key1 * D + col] = dva[i][2];
-        vb[(size_t)key1 * D + col + 1] = dva[i][3];
+template <bool kKV, int D, int ROWS, int TILE, int SLOTS>
+__device__ __forceinline__ void bwd_f32(const CUtensorMap& tx, const CUtensorMap& ty,
+                                        const CUtensorMap& tp0, const CUtensorMap& tp1,
+                                        const CUtensorMap& tp2, const CUtensorMap& tp3,
+                                        const float* __restrict__ lse2,
+                                        const float* __restrict__ delta, float* __restrict__ out0,
+                                        float* __restrict__ out1, float* __restrict__ part, int n,
+                                        int lq, int lk, int lq_pad, int per, float scale) {
+  using C = F32Cfg<kKV, D, ROWS, TILE, SLOTS>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + SLOTS;
+
+  const int bh = blockIdx.y, r0 = blockIdx.x * ROWS;  // first owned row: key or q row
+  const int nst = ((kKV ? lq : lk) + TILE - 1) / TILE;
+  const int it0 = kKV ? blockIdx.z * per : 0;
+  const int it1 = kKV ? min(nst, it0 + per) : nst;
+  const int ntiles = it1 > it0 ? it1 - it0 : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto slot = [&](int s) { return smem + C::kOffSlots + s * 2 * C::kPartHalf; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * C::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread loads the owned rows, then keeps the ring full ----
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      mbar_arrive_expect_tx(own_full, 4 * C::kOwnHalf);
+      for (int half = 0; half < 2; ++half)
+        for (int c = 0; c < D / 32; ++c) {
+          tma_load_3d(smem + half * C::kOwnHalf + c * ROWS * 128, &tx, own_full, c * 32, r0,
+                      half * n + bh);
+          tma_load_3d(smem + C::kOffY + half * C::kOwnHalf + c * ROWS * 128, &ty, own_full,
+                      c * 32, r0, half * n + bh);
+        }
+      for (int p = 0; p < ntiles * C::kParts; ++p) {
+        const int s = p % SLOTS, kind = p % C::kParts, row = (it0 + p / C::kParts) * TILE;
+        const CUtensorMap* map = kind == 0 ? &tp0 : kind == 1 ? &tp1 : kind == 2 ? &tp2 : &tp3;
+        const bool vec = kKV && kind == 0;
+        uint8_t* dst = slot(s);
+        mbar_wait(&empty[s], ((p / SLOTS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * C::kPartHalf + (vec ? C::kVecBytes : 0));
+        for (int half = 0; half < 2; ++half) {
+          if (kind < 2) {  // row operand: blocks of 32 columns, TILE rows each
+            for (int c = 0; c < D / 32; ++c)
+              tma_load_3d(dst + half * C::kPartHalf + c * TILE * 128, map, &full[s], c * 32, row,
+                          half * n + bh);
+          } else {  // transposed: blocks of 32 of the TILE columns, D rows each
+            for (int c = 0; c < TILE / 32; ++c)
+              tma_load_3d(dst + half * C::kPartHalf + c * D * 128, map, &full[s], row + c * 32, 0,
+                          half * n + bh);
+          }
+        }
+        if (vec) {  // lq_pad is a multiple of TILE: the vectors exist for every row of the tile
+          uint8_t* v = smem + C::kOffVec + s * C::kVecBytes;
+          bulk_load(v, lse2 + (size_t)bh * lq_pad + row, 4 * TILE, &full[s]);
+          bulk_load(v + 4 * TILE, delta + (size_t)bh * lq_pad + row, 4 * TILE, &full[s]);
+        }
       }
     }
   } else {
-    const size_t slice = (size_t)n * lk * D;  // one split's [n, lk, D]
-    float* kb = part + ((size_t)z * n + bh) * lk * D;
-    float* vb = kb + (size_t)gridDim.z * slice;
+    // ---- consumer warpgroups: 64 owned rows each ----
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, t = lane % 4;
+    const int row = cw * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // and row + 8
+    const uint8_t* xw = smem + cw * 64 * 128;
+    const uint8_t* yw = smem + C::kOffY + cw * 64 * 128;
+    // dQ pass: the statistics of this thread's two q rows (lq_pad is a
+    // multiple of ROWS)
+    float lr[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};
+    if constexpr (!kKV) {
+      const size_t srow = (size_t)bh * lq_pad + r0 + row;
+      lr[0] = lse2[srow];
+      lr[1] = lse2[srow + 8];
+      dr[0] = delta[srow];
+      dr[1] = delta[srow + 8];
+    }
+    float acc0[D / 2], acc1[kKV ? D / 2 : 1], fresh[32];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      const int col = 8 * i + 2 * t;
-      if (key0 < lk) {
-        *reinterpret_cast<float2*>(kb + (size_t)key0 * D + col) = make_float2(dka[i][0], dka[i][1]);
-        *reinterpret_cast<float2*>(vb + (size_t)key0 * D + col) = make_float2(dva[i][0], dva[i][1]);
+    for (int e = 0; e < D / 2; ++e) acc0[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < (kKV ? D / 2 : 1); ++e) acc1[e] = 0.f;
+    float sa[TILE / 2], sb[TILE / 2];  // S (or S^T), dP (or dP^T); then P, dS
+    uint32_t fb[TILE / 8][4], fs[TILE / 8][4];
+
+    auto wait_part = [&](int p) {
+      mbar_wait(&full[p % SLOTS], (p / SLOTS) & 1);
+      return slot(p % SLOTS);
+    };
+    auto free_part = [&](int p) { flash::release(&empty[p % SLOTS]); };
+
+    mbar_wait(own_full, 0);
+    for (int i = 0; i < ntiles; ++i) {
+      const int p0 = i * C::kParts;
+      const uint8_t* x0 = wait_part(p0);
+      const uint8_t* x1 = wait_part(p0 + 1);
+#pragma unroll
+      for (int e = 0; e < TILE / 2; ++e) sa[e] = sb[e] = 0.f;
+      fence_regs(sa);
+      fence_regs(sb);
+      wgmma_fence();
+      flash::tf32x3_ss<TILE, D / 8>(sa, xw, ROWS * 128, C::kOwnHalf, x0, TILE * 128, C::kPartHalf,
+                                    false);
+      flash::tf32x3_ss<TILE, D / 8>(sb, yw, ROWS * 128, C::kOwnHalf, x1, TILE * 128, C::kPartHalf,
+                                    false);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sa);
+      fence_regs(sb);
+
+      // P = exp2(S log2 e - lse2) into sa, dS = P (dP - delta) into sb
+      if constexpr (kKV) {  // statistics per column (q row); padded rows: lse2 +inf, P 0
+        const float* lv = reinterpret_cast<const float*>(smem + C::kOffVec +
+                                                         (p0 % SLOTS) * C::kVecBytes);
+        const float* dv = lv + TILE;
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(lv + 8 * j + 2 * t);
+          const float2 d = *reinterpret_cast<const float2*>(dv + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2f(fmaf(sa[4 * j + e], kLog2e, -((e & 1) ? l.y : l.x)));
+            sa[4 * j + e] = p;
+            sb[4 * j + e] = p * (sb[4 * j + e] - ((e & 1) ? d.y : d.x));
+          }
+        }
+      } else {  // statistics per row; padded key columns: P 0
+        const int col0 = (it0 + i) * TILE + 2 * t;
+        const bool ragged = (it0 + i + 1) * TILE > lk;
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = (e >> 1) & 1;
+            float p = exp2f(fmaf(sa[4 * j + e], kLog2e, -lr[h]));
+            if (ragged && col0 + 8 * j + (e & 1) >= lk) p = 0.f;
+            sb[4 * j + e] = p * (sb[4 * j + e] - dr[h]);
+          }
+        }
       }
-      if (key1 < lk) {
-        *reinterpret_cast<float2*>(kb + (size_t)key1 * D + col) = make_float2(dka[i][2], dka[i][3]);
-        *reinterpret_cast<float2*>(vb + (size_t)key1 * D + col) = make_float2(dva[i][2], dva[i][3]);
+      free_part(p0);
+      free_part(p0 + 1);
+
+      if constexpr (kKV) {
+        flash::split_frags<TILE / 8>(fb, fs, sa);  // P^T
+        add_tf32x3<D, TILE>(acc1, fresh, fb, fs, wait_part(p0 + 2), C::kPartHalf);  // dV
+        free_part(p0 + 2);
+        flash::fence_frags(fb);
+        flash::fence_frags(fs);
+        flash::split_frags<TILE / 8>(fb, fs, sb);  // dS^T
+        add_tf32x3<D, TILE>(acc0, fresh, fb, fs, wait_part(p0 + 3), C::kPartHalf);  // dK
+        free_part(p0 + 3);
+      } else {
+        flash::split_frags<TILE / 8>(fb, fs, sb);  // dS
+        add_tf32x3<D, TILE>(acc0, fresh, fb, fs, wait_part(p0 + 2), C::kPartHalf);  // dQ
+        free_part(p0 + 2);
+      }
+      flash::fence_frags(fb);
+      flash::fence_frags(fs);
+    }
+
+    const int r = r0 + row;  // this thread's rows r, r + 8 (keys or q rows)
+    if constexpr (kKV) {
+      float* kb;
+      float* vb;
+      if (part == nullptr) {
+        kb = out0 + (size_t)bh * lk * D;
+        vb = out1 + (size_t)bh * lk * D;
+      } else {  // this split's partial sums part[0 or 1][z][bh][key][d]
+        kb = part + ((size_t)blockIdx.z * n + bh) * lk * D;
+        vb = kb + (size_t)gridDim.z * n * lk * D;
+      }
+#pragma unroll
+      for (int u = 0; u < D / 8; ++u) {
+        const int col = 8 * u + 2 * t;
+        if (r < lk) {
+          *reinterpret_cast<float2*>(kb + (size_t)r * D + col) = make_float2(acc0[4 * u], acc0[4 * u + 1]);
+          *reinterpret_cast<float2*>(vb + (size_t)r * D + col) = make_float2(acc1[4 * u], acc1[4 * u + 1]);
+        }
+        if (r + 8 < lk) {
+          *reinterpret_cast<float2*>(kb + (size_t)(r + 8) * D + col) =
+              make_float2(acc0[4 * u + 2], acc0[4 * u + 3]);
+          *reinterpret_cast<float2*>(vb + (size_t)(r + 8) * D + col) =
+              make_float2(acc1[4 * u + 2], acc1[4 * u + 3]);
+        }
+      }
+    } else {
+      float* qb = out0 + (size_t)bh * lq * D;
+#pragma unroll
+      for (int u = 0; u < D / 8; ++u) {
+        const int col = 8 * u + 2 * t;
+        if (r < lq)
+          *reinterpret_cast<float2*>(qb + (size_t)r * D + col) =
+              make_float2(scale * acc0[4 * u], scale * acc0[4 * u + 1]);
+        if (r + 8 < lq)
+          *reinterpret_cast<float2*>(qb + (size_t)(r + 8) * D + col) =
+              make_float2(scale * acc0[4 * u + 2], scale * acc0[4 * u + 3]);
       }
     }
   }
 }
 
-template <int D>
-struct F32QCfg {
-  static constexpr int kLd = D + kRowPad;
-  static constexpr size_t kSmem = 4 * (size_t)(2 * kF32Rows * kLd + 4 * kF32Bk * kLd);
-};
+// dK/dV pass: grid (ceil(lk / KEYS), n, splits); split z walks q tiles
+// [z * per, min(nqt, (z + 1) * per)); with part == nullptr (one split) it
+// writes dk, dv, else fp32 partial sums part[0 or 1][z][bh][key][d].
+template <int D, int KEYS, int TILE, int SLOTS>
+__global__ void __launch_bounds__(F32Cfg<true, D, KEYS, TILE, SLOTS>::kThreads, 1)
+    dkdv_f32_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tqs, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdot, const __grid_constant__ CUtensorMap tqst,
+                    const float* __restrict__ lse2, const float* __restrict__ delta,
+                    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part, int n,
+                    int lq, int lk, int lq_pad, int per) {
+  bwd_f32<true, D, KEYS, TILE, SLOTS>(tk, tv, tqs, tdo, tdot, tqst, lse2, delta, dk, dv, part, n,
+                                      lq, lk, lq_pad, per, 1.f);
+}
 
-// dQ pass: grid (ceil(lq / 64), n).
-template <int D>
-__global__ void __launch_bounds__(128)
-    dq_f32_kernel(const float* __restrict__ qs, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse2, const float* __restrict__ delta,
-                  float* __restrict__ dq, int lq, int lk, int lq_pad, float scale) {
-  constexpr int BK = kF32Bk;
-  constexpr int kLd = F32QCfg<D>::kLd;
-  extern __shared__ __align__(16) uint8_t smem_bwd[];
-  float* Qs = reinterpret_cast<float*>(smem_bwd);
-  float* Os = Qs + kF32Rows * kLd;
-  float* Ks = Os + kF32Rows * kLd;  // [2][BK][kLd]
-  float* Vs = Ks + 2 * BK * kLd;    // [2][BK][kLd]
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * kF32Rows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4, g = lane / 4;
-  const int nkt = (lk + BK - 1) / BK;
-  qs += (size_t)bh * lq * D;
-  dout += (size_t)bh * lq * D;
-  k += (size_t)bh * lk * D;
-  v += (size_t)bh * lk * D;
-  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;  // < lq_pad: lq_pad is a multiple of 64
-  const float l0 = lse2[(size_t)bh * lq_pad + r0], l1 = lse2[(size_t)bh * lq_pad + r1];
-  const float e0 = delta[(size_t)bh * lq_pad + r0], e1 = delta[(size_t)bh * lq_pad + r1];
-
-  async_rows<D>(Qs, qs, kF32Rows, q0, lq);
-  async_rows<D>(Os, dout, kF32Rows, q0, lq);
-  auto load = [&](int j, int b) {
-    async_rows<D>(Ks + b * BK * kLd, k, BK, j * BK, lk);
-    async_rows<D>(Vs + b * BK * kLd, v, BK, j * BK, lk);
-  };
-  load(0, 0);
-  cp_async_commit();
-
-  constexpr int NT = BK / 8;  // key columns of S, in 8-column tiles
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
-  const float* qw = Qs + 16 * warp * kLd;
-  const float* ow = Os + 16 * warp * kLd;
-
-  for (int j = 0; j < nkt; ++j) {
-    const int b = j & 1;
-    if (j + 1 < nkt) {
-      load(j + 1, b ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* kb = Ks + b * BK * kLd;
-    const float* vb = Vs + b * BK * kLd;
-
-    // S = qs_w . K^T, then P (padded key columns: P = 0)
-    float s[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    mma32_abt<D / 8, NT>(s, qw, kLd, kb, kLd);
-    const bool ragged = (j + 1) * BK > lk;
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const int col = j * BK + 8 * i + 2 * t;
-      s[i][0] = prob32(s[i][0], l0);
-      s[i][1] = prob32(s[i][1], l0);
-      s[i][2] = prob32(s[i][2], l1);
-      s[i][3] = prob32(s[i][3], l1);
-      if (ragged) {
-        if (col >= lk) s[i][0] = s[i][2] = 0.f;
-        if (col + 1 >= lk) s[i][1] = s[i][3] = 0.f;
-      }
-    }
-    // dP = dO_w . V^T, dS = P (dP - delta) in dp
-    float dp[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    mma32_abt<D / 8, NT>(dp, ow, kLd, vb, kLd);
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      dp[i][0] = s[i][0] * (dp[i][0] - e0);
-      dp[i][1] = s[i][1] * (dp[i][1] - e0);
-      dp[i][2] = s[i][2] * (dp[i][2] - e1);
-      dp[i][3] = s[i][3] * (dp[i][3] - e1);
-    }
-    // dQ += dS . K
-    add_xb_fresh<NT, D / 8>(dqa, dp, kb, kLd);
-    __syncthreads();
-  }
-
-  float* qb = dq + (size_t)bh * lq * D;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = 8 * i + 2 * t;
-    if (r0 < lq) {
-      qb[(size_t)r0 * D + col] = scale * dqa[i][0];
-      qb[(size_t)r0 * D + col + 1] = scale * dqa[i][1];
-    }
-    if (r1 < lq) {
-      qb[(size_t)r1 * D + col] = scale * dqa[i][2];
-      qb[(size_t)r1 * D + col + 1] = scale * dqa[i][3];
-    }
-  }
+// dQ pass: grid (ceil(lq / ROWS), n).
+template <int D, int ROWS, int TILE, int SLOTS>
+__global__ void __launch_bounds__(F32Cfg<false, D, ROWS, TILE, SLOTS>::kThreads, 1)
+    dq_f32_kernel(const __grid_constant__ CUtensorMap tqs, const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tkt, const float* __restrict__ lse2,
+                  const float* __restrict__ delta, float* __restrict__ dq, int n, int lq, int lk,
+                  int lq_pad, float scale) {
+  bwd_f32<false, D, ROWS, TILE, SLOTS>(tqs, tdo, tk, tv, tkt, tkt, lse2, delta, dq, nullptr,
+                                       nullptr, n, lq, lk, lq_pad, 0, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -1015,34 +975,92 @@ cudaError_t run_bf16(const BwdArgs& a) {
   return launch_dq_bf16<D, Q_ROWS, Q_KEYS, Q_STAGES>(a);
 }
 
-template <int D>
+// The fp32 scratch (BwdArgs::qs) of a call, in floats: the split operands
+// that run_f32's pre-pass writes (f32_layout).
+struct F32Layout {
+  size_t qs, dout, qst, dot, k, v, kt, total;
+  int lk_pad;
+};
+
+inline F32Layout f32_layout(const BwdArgs& a, int d) {
+  F32Layout l;
+  const size_t q = (size_t)2 * a.n * a.lq * d, qt = (size_t)2 * a.n * d * a.lq_pad;
+  const size_t k = (size_t)2 * a.n * a.lk * d;
+  l.lk_pad = flash::key_pad(a.lk);
+  l.qs = 0;
+  l.dout = l.qs + q;
+  l.qst = l.dout + q;
+  l.dot = l.qst + qt;
+  l.k = l.dot + qt;
+  l.v = l.k + k;
+  l.kt = l.v + k;
+  l.total = l.kt + (size_t)2 * a.n * d * l.lk_pad;
+  return l;
+}
+
+// The fp32 backward: the pre-pass (delta, lse2; the split operands), the
+// dK/dV pass (KV_KEYS keys a CTA, KV_TILE q rows a step, KV_SLOTS slots;
+// with splits > 1 the ordered reduction), the dQ pass (Q_ROWS q rows a CTA,
+// Q_TILE keys a step, Q_SLOTS slots). a.qs: fp32 scratch of
+// f32_layout(a, D).total floats; lq_pad a multiple of Q_ROWS.
+template <int D, int KV_KEYS, int KV_TILE, int KV_SLOTS, int Q_ROWS, int Q_TILE, int Q_SLOTS>
 cudaError_t run_f32(const BwdArgs& a) {
-  using KC = F32KvCfg<D>;
-  using QC = F32QCfg<D>;
-  if (!valid(a, kF32Bq, kF32Pad)) return cudaErrorInvalidValue;
-  static const cudaError_t attr_kv = smem_attr(dkdv_f32_kernel<D>, KC::kSmem);
-  static const cudaError_t attr_q = smem_attr(dq_f32_kernel<D>, QC::kSmem);
+  using KC = F32Cfg<true, D, KV_KEYS, KV_TILE, KV_SLOTS>;
+  using QC = F32Cfg<false, D, Q_ROWS, Q_TILE, Q_SLOTS>;
+  static_assert(Q_ROWS % KV_TILE == 0, "q tiles of the dK/dV pass within the padded rows");
+  if (!valid(a, KV_TILE, Q_ROWS) || a.qs == nullptr) return cudaErrorInvalidValue;
+  static const cudaError_t attr_kv =
+      smem_attr(dkdv_f32_kernel<D, KV_KEYS, KV_TILE, KV_SLOTS>, KC::kSmem);
+  static const cudaError_t attr_q = smem_attr(dq_f32_kernel<D, Q_ROWS, Q_TILE, Q_SLOTS>, QC::kSmem);
   if (attr_kv != cudaSuccess) return attr_kv;
   if (attr_q != cudaSuccess) return attr_q;
-  cudaError_t err = prep<float, D>(a);
-  if (err != cudaSuccess) return err;
+  const F32Layout l = f32_layout(a, D);
+  float* w = static_cast<float*>(a.qs);
+  CUtensorMap tqs, tdo, tqst, tdot, tk, tv, tkt, tqs_q, tdo_q, tk_q, tv_q;
+  using flash::f32_map;
+  if (!f32_map(&tk, w + l.k, D, a.lk, 2 * a.n, KV_KEYS) ||
+      !f32_map(&tv, w + l.v, D, a.lk, 2 * a.n, KV_KEYS) ||
+      !f32_map(&tqs, w + l.qs, D, a.lq, 2 * a.n, KV_TILE) ||
+      !f32_map(&tdo, w + l.dout, D, a.lq, 2 * a.n, KV_TILE) ||
+      !f32_map(&tqst, w + l.qst, a.lq_pad, D, 2 * a.n, D) ||
+      !f32_map(&tdot, w + l.dot, a.lq_pad, D, 2 * a.n, D) ||
+      !f32_map(&tqs_q, w + l.qs, D, a.lq, 2 * a.n, Q_ROWS) ||
+      !f32_map(&tdo_q, w + l.dout, D, a.lq, 2 * a.n, Q_ROWS) ||
+      !f32_map(&tk_q, w + l.k, D, a.lk, 2 * a.n, Q_TILE) ||
+      !f32_map(&tv_q, w + l.v, D, a.lk, 2 * a.n, Q_TILE) ||
+      !f32_map(&tkt, w + l.kt, l.lk_pad, D, 2 * a.n, D))
+    return cudaErrorInvalidDevicePointer;  // the driver refused a tensor map
 
-  const int nqt = (a.lq + kF32Bq - 1) / kF32Bq;
+  // pre-pass: delta, lse2; then qs (q * scale), dO, K rows and transposed, V rows
+  prep_kernel<float, D, false><<<dim3(a.lq_pad / 8, a.n), 256, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.dout), a.lse, nullptr, a.delta, a.lse2, a.lq, a.lq_pad, a.scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  using flash::split_operand;
+  if ((err = split_operand(static_cast<const float*>(a.q), w + l.qs, w + l.qst, a.n, a.lq,
+                           a.lq_pad, D, a.scale, a.stream)) != cudaSuccess ||
+      (err = split_operand(static_cast<const float*>(a.dout), w + l.dout, w + l.dot, a.n, a.lq,
+                           a.lq_pad, D, 1.f, a.stream)) != cudaSuccess ||
+      (err = split_operand(static_cast<const float*>(a.k), w + l.k, w + l.kt, a.n, a.lk, l.lk_pad,
+                           D, 1.f, a.stream)) != cudaSuccess ||
+      (err = split_operand(static_cast<const float*>(a.v), w + l.v, nullptr, a.n, a.lk, 0, D, 1.f,
+                           a.stream)) != cudaSuccess)
+    return err;
+
+  const int nqt = (a.lq + KV_TILE - 1) / KV_TILE;
   const int per = (nqt + a.splits - 1) / a.splits;
-  const dim3 gkv((a.lk + kF32Keys - 1) / kF32Keys, a.n, a.splits);
-  dkdv_f32_kernel<D><<<gkv, 128, KC::kSmem, a.stream>>>(
-      static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<const float*>(a.qs), static_cast<const float*>(a.dout), a.lse2, a.delta,
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.splits > 1 ? a.part : nullptr, a.n,
-      a.lq, a.lk, a.lq_pad, per);
+  const dim3 gkv((a.lk + KV_KEYS - 1) / KV_KEYS, a.n, a.splits);
+  dkdv_f32_kernel<D, KV_KEYS, KV_TILE, KV_SLOTS><<<gkv, KC::kThreads, KC::kSmem, a.stream>>>(
+      tk, tv, tqs, tdo, tdot, tqst, a.lse2, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.splits > 1 ? a.part : nullptr, a.n, a.lq, a.lk, a.lq_pad, per);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (a.splits > 1 && (err = reduce<float, D>(a)) != cudaSuccess) return err;
 
-  const dim3 gq((a.lq + kF32Rows - 1) / kF32Rows, a.n);
-  dq_f32_kernel<D><<<gq, 128, QC::kSmem, a.stream>>>(
-      static_cast<const float*>(a.qs), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse2, a.delta,
-      static_cast<float*>(a.dq), a.lq, a.lk, a.lq_pad, a.scale);
+  const dim3 gq((a.lq + Q_ROWS - 1) / Q_ROWS, a.n);
+  dq_f32_kernel<D, Q_ROWS, Q_TILE, Q_SLOTS><<<gq, QC::kThreads, QC::kSmem, a.stream>>>(
+      tqs_q, tdo_q, tk_q, tv_q, tkt, a.lse2, a.delta, static_cast<float*>(a.dq), a.n, a.lq, a.lk,
+      a.lq_pad, a.scale);
   return cudaGetLastError();
 }
 

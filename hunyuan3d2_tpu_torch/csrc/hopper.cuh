@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tile loads (multicast too) and bulk copies, cluster barriers, wgmma
-// descriptors and products, named barriers, register rebalancing, cp.async
-// and the 3xTF32 split. Plain PTX wrappers, no CUTLASS.
+// descriptors and products (bf16 and tf32), named barriers, register
+// rebalancing, cp.async and the 3xTF32 splits. Plain PTX wrappers, no
+// CUTLASS.
 //
 // Layout conventions (both operands of every wgmma here sit in shared memory
 // in the layout that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes):
@@ -270,6 +271,49 @@ __device__ __forceinline__ void wgmma_rs_kmajor<64>(float (&d)[32], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// D[64 x N] (+)= A[64 x 8] . B[8 x N], fp32 accumulate, tf32 inputs (fp32
+// bit patterns, of which the tensor cores take the top 19 bits). TF32 wgmma takes only K-major operands: B (and A from shared memory)
+// in the 128-byte-swizzled layout above, with 32 fp32 (128 bytes) a row of
+// a block, so that a k step of 8 is the same 32 bytes as bf16's 16. The
+// accumulator as the bf16 form's. wgmma_tf32_rs: A from registers, the
+// mma.sync m16n8k8 tf32 A fragment of each warp's 16 rows (a[0] row g,
+// column t; a[1] row g + 8; a[2], a[3] the same rows at column t + 4;
+// g = lane / 4, t = lane % 4). scale_d = 0 overwrites D.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                              int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // cp.async (Ampere-style asynchronous copies) and mma.sync helpers
 // ---------------------------------------------------------------------------
@@ -309,6 +353,25 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
 }
 
+// x = big + small for the wgmma products, exactly: big is x rounded to
+// TF32 (to nearest, ties away from zero, as cvt.rna; where that would
+// overflow, truncated), small = x - big in fp32 (exact), which the tensor
+// cores truncate to its top 19 bits when they read it. inf and NaN: big = x,
+// small = +-0; a value that is already TF32 (+-0 too): small = 0 of x's
+// sign, so that big + small gives x's bits back. The plain twin:
+// ops/flash_attention.py `tf32_split_plain`.
+__device__ __forceinline__ void split_tf32_exact(float x, float& big, float& small) {
+  const uint32_t u = __float_as_uint(x);
+  uint32_t b = u;
+  if ((u & 0x7f800000u) != 0x7f800000u) {
+    b = (u + 0x1000u) & 0xffffe000u;
+    if ((b & 0x7f800000u) == 0x7f800000u) b = u & 0xffffe000u;
+  }
+  big = __uint_as_float(b);
+  small = (b == u || (u & 0x7f800000u) == 0x7f800000u) ? __uint_as_float(u & 0x80000000u)
+                                                       : x - big;
+}
+
 __device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                               uint32_t b1) {
   asm volatile(
@@ -345,6 +408,11 @@ static inline EncodeTiledFn encode_tiled_fn() {
 
 // A row-major [d2, d1, d0] tensor (d0 contiguous, element `elem` bytes) cut
 // into boxes of [1, box1, box0]. Returns false when the driver refuses it.
+// The driver refuses a map on a thread to which no context is bound yet
+// (the library's runtime binds the device's primary context lazily, at a
+// thread's first launch, and autograd runs the backward on a thread of its
+// own): where it refuses one, the context of the tensor's device is bound
+// (cudaSetDevice, which does not synchronise) and the map encoded again.
 static inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr,
                       uint64_t d0, uint64_t d1, uint64_t d2, uint32_t box0, uint32_t box1,
                       CUtensorMapSwizzle swizzle) {
@@ -354,9 +422,16 @@ static inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, int ele
   const cuuint64_t strides[2] = {d0 * elem, d0 * d1 * elem};
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t estride[3] = {1, 1, 1};
-  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, estride,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  auto encode = [&]() {
+    return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, estride,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  if (encode()) return true;
+  cudaPointerAttributes where;
+  if (cudaPointerGetAttributes(&where, ptr) != cudaSuccess || cudaSetDevice(where.device) != cudaSuccess)
+    return false;
+  return encode();
 }
 
 }  // namespace hopper

@@ -18,7 +18,12 @@ A CPU tensor goes through :func:`flash_attention_plain`; a CUDA tensor
 launches the kernel or raises. The kernel's tile configuration (q rows and
 keys per tile, stages of the K/V ring) is a function of the call's shape
 (:func:`default_config`), chosen from the sweep of
-``hunyuan3d2_tpu_torch.tools.profile_flash_variants``. The masked kernel
+``hunyuan3d2_tpu_torch.tools.profile_flash_variants``. The unmasked fp32
+kernels run 3xTF32 products on tf32 ``wgmma``, which reads K-major operands
+only: a pre-pass inside their entry points writes each operand's TF32 big
+and small halves, transposed where a product reads it across rows
+(:func:`split_operand_plain` is its twin); the wrappers allocate that
+scratch. The masked kernel
 walks only the key tiles that hold an allowed pair; the wrapper finds them
 on the device (:func:`tile_map`), without a host synchronisation.
 
@@ -104,6 +109,53 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def tf32_split_plain(x: torch.Tensor):
+    """fp32 x → (big, small) with big + small = x bit for bit: the split that
+    the fp32 kernels' pre-pass writes (csrc/hopper.cuh `split_tf32_exact`).
+    big is x rounded to TF32 (10 mantissa bits; to nearest, ties away from
+    zero, as cvt.rna; truncated where that would overflow), small = x - big,
+    exact in fp32 (the tensor cores read its top 19 bits). inf and NaN give
+    big = x; a value already in TF32 (±0 too) gives small = 0 of x's sign."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    special = (u & 0x7F800000) == 0x7F800000
+    b = (u + 0x1000) & 0xFFFFE000
+    b = torch.where((b & 0x7F800000) == 0x7F800000, u & 0xFFFFE000, b)
+    b = torch.where(special, u, b)
+
+    def bits(v):
+        return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32).view(torch.float32)
+
+    big = bits(b)
+    small = torch.where((b == u) | special, bits(u & 0x80000000), x - big)
+    return big, small
+
+
+def _perm8(cols: int, device) -> torch.Tensor:
+    """The key (or q row) that each column of a transposed operand holds:
+    within each group of 8, position p < 4 holds 2p and p ≥ 4 holds
+    2(p - 4) + 1 (csrc/flash_attention.cuh `perm8`)."""
+    c = torch.arange(cols, device=device)
+    p = c % 8
+    return c - p + torch.where(p < 4, 2 * p, 2 * (p - 4) + 1)
+
+
+def split_operand_plain(x: torch.Tensor, scale: float = 1.0, cols: Optional[int] = None):
+    """The fp32 kernels' operand pre-pass in plain PyTorch: x [n, rows, D]
+    fp32, y = x·scale in fp32 → (direct [2, n, rows, D], the big and small
+    halves of y; transposed [2, n, D, cols] or None, the halves of yᵀ with
+    the columns in :func:`_perm8` order and zeros past ``rows``; ``cols`` a
+    multiple of 8 at least ``rows``)."""
+    n, rows, d = x.shape
+    y = x.float() * scale
+    direct = torch.stack(tf32_split_plain(y))
+    if cols is None:
+        return direct, None
+    yt = torch.zeros(n, d, cols, dtype=torch.float32, device=x.device)
+    yt[:, :, :rows] = y.transpose(1, 2)
+    yt = yt[:, :, _perm8(cols, x.device)]
+    return direct, torch.stack(tf32_split_plain(yt))
+
+
 def flash_attention_masked_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  mask: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     """The masked kernel's function in plain PyTorch: scale folded into q in
@@ -171,18 +223,22 @@ SM_COUNT = 132  # H100 SXM
 
 def default_config(b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype,
                    masked: bool = False) -> tuple:
-    """The kernel's (q rows, keys, stages) per tile for a call's shape: fp32
-    runs (64, 64, 2); the masked bf16 kernel (128, 128, 3) at D = 64 and
-    (128, 128, 2) at D = 128 (what fits with the mask tiles); the unmasked
-    bf16 kernel (128, 128, 3), or 64-row q tiles where 128-row tiles would
-    give fewer CTAs than the card has SMs."""
+    """The kernel's (q rows, keys, stages) per tile for a call's shape. fp32:
+    the masked kernel (64, 64, 2); the unmasked one's third number is its
+    ring's slots: (128, 64, 4) at D = 64, or 64-row q tiles with 6 slots
+    where 128-row tiles would give fewer CTAs than the card has SMs, and
+    (64, 64, 2) at D = 128. bf16: the masked kernel (128, 128, 3) at D = 64
+    and (128, 128, 2) at D = 128 (what fits with the mask tiles); the
+    unmasked kernel (128, 128, 3), or 64-row q tiles where 128-row tiles
+    would give fewer CTAs than the card has SMs."""
+    few = b * h * -(-lq // 128) < SM_COUNT
     if dtype == torch.float32:
-        return (64, 64, 2)
+        if masked or d == 128:
+            return (64, 64, 2)
+        return (64, 64, 6) if few else (128, 64, 4)
     if masked:
         return (128, 128, 3 if d == 64 else 2)
-    if b * h * -(-lq // 128) < SM_COUNT:
-        return (64, 128, 3)
-    return (128, 128, 3)
+    return (64, 128, 3) if few else (128, 128, 3)
 
 
 class BackwardConfig(NamedTuple):
@@ -196,20 +252,21 @@ class BackwardConfig(NamedTuple):
     lq_pad: int
 
 
-# What csrc/flash_attention_bwd.cu launches sets these, per dtype: the dK/dV
-# pass's keys a CTA and q rows a step, the multiple its statistics are
-# padded to (bf16: the dQ pass's 128 q rows a CTA), and the dK/dV pass's
-# resident CTAs an SM (bf16: one 64-key consumer warpgroup, two CTAs; fp32:
-# 4-warp CTAs, four). The entry point refuses sizes that do not suit its
-# tiles.
-_BWD_TILES = {torch.bfloat16: (64, 64, 128, 2), torch.float32: (64, 32, 64, 4)}
+# What csrc/flash_attention_bwd.cu launches sets these, per dtype and head
+# size: the dK/dV pass's keys a CTA and q rows a step, the multiple its
+# statistics are padded to (the dQ pass's q rows a CTA), and the dK/dV
+# pass's resident CTAs an SM (bf16: one 64-key consumer warpgroup, two
+# CTAs; fp32: one, its split operands fill the shared memory). The entry
+# point refuses sizes that do not suit its tiles.
+_BWD_TILES = {(torch.bfloat16, 64): (64, 64, 128, 2), (torch.bfloat16, 128): (64, 64, 128, 2),
+              (torch.float32, 64): (64, 32, 128, 1), (torch.float32, 128): (64, 32, 64, 1)}
 
 
 def backward_config(b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype) -> BackwardConfig:
-    """The backward's launch sizes for a call's shape (D = 64 and 128 share
-    them): the dK/dV pass's q range split by :func:`bwd_splits`, the
-    statistics padded to the kernel's multiple."""
-    keys, rows, pad, per_sm = _BWD_TILES[dtype]
+    """The backward's launch sizes for a call's shape: the dK/dV pass's q
+    range split by :func:`bwd_splits`, the statistics padded to the kernel's
+    multiple."""
+    keys, rows, pad, per_sm = _BWD_TILES[dtype, d]
     return BackwardConfig(rows, bwd_splits(b * h, lq, lk, keys, rows, per_sm),
                           -(-lq // pad) * pad)
 
@@ -249,7 +306,7 @@ def _entry(library: str, name: str, argtypes):
 def _lib():
     """The kernel's C entry point, built and loaded at first use."""
     return _entry("flash_attention", "hy3d_flash_attention",
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
@@ -257,8 +314,15 @@ def _lib():
 def _lse_lib():
     """The entry point of the kernel's instance that keeps the row lse."""
     return _entry("flash_attention", "hy3d_flash_attention_lse",
-                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _split_lib():
+    """The fp32 kernels' operand pre-pass on its own (csrc/flash_attention.cu)."""
+    return _entry("flash_attention", "hy3d_split_operand",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -334,16 +398,35 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch_backward(q, k, v, o, lse, dout, scale)
 
 
+def _key_pad(lk: int) -> int:
+    """The row length of the fp32 kernels' transposed key operands: whole
+    64-key tiles (csrc/flash_attention.cuh `key_pad`)."""
+    return -(-lk // 64) * 64
+
+
+def _forward_scratch(q, k, mask):
+    """The unmasked fp32 kernel's scratch, which its pre-pass fills with K's
+    and Vᵀ's split halves (2·n·Lk·D + 2·n·D·key_pad(Lk) floats); None for
+    the other kernels."""
+    if q.dtype != torch.float32 or mask is not None:
+        return None
+    b, h, lk, d = k.shape
+    return torch.empty(2 * b * h * d * (lk + _key_pad(lk)), dtype=torch.float32, device=q.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(q, k, v, mask, scale):
     b, h, lq, d = q.shape
     lk = k.shape[2]
     bq, bk, stages = default_config(b, h, lq, lk, d, q.dtype, mask is not None)
     occupancy = None if mask is None else tile_map(mask, bq, bk)
     out = torch.empty_like(q)
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if mask is None else mask.data_ptr(),
-                 None if occupancy is None else occupancy.data_ptr(), out.data_ptr(), b * h, h,
-                 lq, lk, d, _DTYPES[q.dtype], float(scale), bq, bk, stages,
+    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(occupancy),
+                 out.data_ptr(), _ptr(_forward_scratch(q, k, mask)), b * h, h, lq, lk, d,
+                 _DTYPES[q.dtype], float(scale), bq, bk, stages,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
@@ -358,22 +441,52 @@ def _launch_lse(q, k, v, scale):
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
     err = _lse_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                     b * h, lq, lk, d, _DTYPES[q.dtype], float(scale), bq, bk, stages,
-                     torch.cuda.current_stream(q.device).cuda_stream)
+                     _ptr(_forward_scratch(q, k, None)), b * h, lq, lk, d, _DTYPES[q.dtype],
+                     float(scale), bq, bk, stages, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention (lse) kernel launch failed: cudaError {err}")
     return out, lse
 
 
+def split_operand(x: torch.Tensor, scale: float = 1.0, cols: Optional[int] = None):
+    """The fp32 kernels' operand pre-pass on its own (they launch it inside
+    their entry points; this wrapper serves the tests): x [n, rows, D] fp32,
+    D in {64, 128} → (direct, transposed) as :func:`split_operand_plain`
+    gives them, ``cols`` a multiple of 8 at least ``rows``. A CPU tensor
+    goes through that twin; a CUDA tensor launches the kernel or raises."""
+    n, rows, d = x.shape
+    if x.dtype != torch.float32 or d not in (64, 128) or not x.is_contiguous():
+        raise ValueError(f"split_operand takes a contiguous fp32 [n, rows, 64 or 128], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if cols is not None and (cols % 8 or cols < rows):
+        raise ValueError(f"split_operand: cols {cols} is not a multiple of 8 at least {rows}")
+    if not x.is_cuda:
+        return split_operand_plain(x, scale, cols)
+    direct = torch.empty(2, n, rows, d, dtype=torch.float32, device=x.device)
+    trans = None if cols is None else torch.empty(2, n, d, cols, dtype=torch.float32,
+                                                  device=x.device)
+    err = _split_lib()(x.data_ptr(), direct.data_ptr(), _ptr(trans), n, rows, cols or 0, d,
+                       float(scale), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split_operand kernel launch failed: cudaError {err}")
+    split_operand.launches += 1
+    return direct, trans
+
+
 def _launch_backward(q, k, v, o, lse, dout, scale):
     """The backward kernel's pre-pass and two passes → (dq, dk, dv), counted
-    in ``flash_attention_backward.launches``; the scratch (qs, δ, lse·log2 e,
-    the split partial sums) is allocated here."""
+    in ``flash_attention_backward.launches``; the scratch (qs, or fp32's
+    split operands; δ, lse·log2 e; the split partial sums) is allocated
+    here."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     n = b * h
     _, splits, lq_pad = backward_config(b, h, lq, lk, d, q.dtype)
-    qs = torch.empty_like(q)
+    if q.dtype == torch.float32:  # the split operands (csrc/flash_attention_bwd.cu)
+        qs = torch.empty(2 * n * d * (2 * lq + 2 * lq_pad + 2 * lk + _key_pad(lk)),
+                         dtype=torch.float32, device=q.device)
+    else:
+        qs = torch.empty_like(q)
     stats = torch.empty(2, n, lq_pad, dtype=torch.float32, device=q.device)
     part = (torch.empty(2, splits, n, lk, d, dtype=torch.float32, device=q.device)
             if splits > 1 else None)
@@ -418,3 +531,4 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention_backward.launches = 0
 flash_attention_masked.launches = 0
+split_operand.launches = 0

@@ -9,15 +9,19 @@ fp64 from the fp32 q̂, k, v. :func:`fp32_error_bound` bounds, per output
 element, how far an fp32 evaluation by the kernel's algorithm may lie from
 it. With u = 2^-24 (fp32 unit roundoff):
 
-* A 3xTF32 product (x = big + small, both rounded to nearest TF32, the
-  small·small term dropped) errs by at most ε_split = 3·2^-22 of |x y|:
-  |x - big| ≤ 2^-11 |x| and the rest of small's rounding ≤ 2^-22 |x|.
-  TF32 products are exact in fp32.
-* Each ``mma.sync`` adds 8 products to its accumulator. Tensor cores may
-  align the terms to the largest and truncate, so each such step is
-  allowed two ulps (4u) of the sum of the magnitudes it has taken in; a
-  chain of n steps on one accumulator errs by at most 4u·n·Σ|terms|.
-  3xTF32 takes three steps per 8 products.
+* A 3xTF32 product (x = big + small, big rounded to nearest TF32, small =
+  x - big exact in fp32, which the tensor cores truncate to TF32 when they
+  read it; the small·small term dropped) errs by at most ε_split = 5·2^-22
+  of |x y|: |small| ≤ 2^-11 |x|, its truncation loses < 2^-10 of it
+  (2^-21 |x|), so big·small and small·big each err by 2^-21 (1 + 2^-11)
+  |x y| and the dropped term is ≤ 2^-22 |x y|. (The masked kernel's split,
+  which also rounds small to nearest TF32, errs by 3·2^-22.) TF32 products
+  are exact in fp32.
+* Each ``wgmma`` (``mma.sync`` in the masked kernel) k step adds 8 products
+  to its accumulator. Tensor cores may align the terms to the largest and
+  truncate, so each such step is allowed two ulps (4u) of the sum of the
+  magnitudes it has taken in; a chain of n steps on one accumulator errs
+  by at most 4u·n·Σ|terms|. 3xTF32 takes three steps per 8 products.
 * Logits, over D: |δs_ij| ≤ ε_s · Σ_d |q̂_id k_jd|, with
   ε_s = ε_split + 4u (3 D/8 + 1).
 * p_j = exp(s_j - m): the argument rounds once (u |s_j - m|) and expf errs
@@ -33,7 +37,9 @@ it. With u = 2^-24 (fp32 unit roundoff):
   (Summed on the tensor cores across all tiles, the chain would need
   4u·24⌈Lk/64⌉, 30x more at Lk = 3072, and its error grows so with Lk.)
 * l, per thread 16 sums, one rescale and one add a tile, then two
-  shuffle adds; the final division: (u (18 ⌈Lk/64⌉ + 3) + u) |o|.
+  shuffle adds; the final division, a reciprocal refined by Newton's step
+  and one corrected quotient (within 1 ulp, 2u): (u (18 ⌈Lk/64⌉ + 3) + 2u)
+  |o|. (The masked kernel divides in IEEE, u.)
 
 The bound is first order; a factor 1 + 2^-10 covers the rest. cuBLAS's
 fp32 GEMM (the plain twin on the card, and on the CPU) sums with round to
@@ -52,7 +58,7 @@ import zlib
 import torch
 
 U = 2.0 ** -24
-EPS_SPLIT = 3 * 2.0 ** -22
+EPS_SPLIT = 5 * 2.0 ** -22
 
 
 def _chunks(lq: int, rows: int):
@@ -117,7 +123,7 @@ def error_bound(t, a, r, o, lk: int, d: int) -> torch.Tensor:
     eps_s = EPS_SPLIT + 4 * U * (3 * math.ceil(d / 8) + 1)
     eta = eps_s * a + U * r + 4 * U
     eps_pv = EPS_SPLIT + 4 * U * 24 + U * tiles
-    eps_l = U * (18 * tiles + 3) + U
+    eps_l = U * (18 * tiles + 3) + 2 * U
     return (eta * (t + o.abs()) + eps_pv * t + eps_l * o.abs()) * (1 + 2.0 ** -10)
 
 

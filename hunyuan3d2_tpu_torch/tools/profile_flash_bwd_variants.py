@@ -39,7 +39,7 @@ KV_VARIANTS = {64: ((64, 64, 2), (64, 64, 3), (128, 64, 2), (128, 64, 3), (128, 
 Q_VARIANTS = {64: ((64, 128, 2), (128, 64, 2), (128, 128, 2), (128, 128, 3), (128, 128, 4)),
               128: ((64, 64, 2), (128, 64, 2), (128, 64, 3), (128, 64, 4))}
 SHAPES = ((2, 16, 1882, 1882, 64), (1, 8, 4096, 4096, 128))
-_KERNEL = re.compile(r"fbwd::(prep|dkdv|reduce|dq)_\w*kernel")
+_KERNEL = re.compile(r"(?:fbwd|flash)::(prep|split|dkdv|reduce|dq)_\w*kernel")
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,12 +105,14 @@ def _time_ms(fn: Callable[[], object], iters: int) -> float:
 
 
 def pass_times(call: Callable[[], object], work: float, iters: int = 10) -> dict:
-    """Device ms a call of the backward's pre-pass, dK/dV pass (with its
-    ordered reduction where the q range is split) and dQ pass: the median of
-    each kernel's launches in a ``utils.profiling`` trace of ``iters``
-    calls (a long process's trace can drop launches, and ``key_averages``
-    then misreads their totals), with each pass's TFLOP/s of its own
-    operations (dK/dV 8·``work``, dQ 6·``work``; ``work`` = B·H·Lq·Lk·D)."""
+    """Device ms a call of the backward's pre-pass (fp32: with its four
+    operand splits), dK/dV pass (with its ordered reduction where the q
+    range is split) and dQ pass: the median of each kernel's launches in a
+    ``utils.profiling`` trace of ``iters`` calls (a long process's trace can
+    drop launches, and ``key_averages`` then misreads their totals; the
+    splits, four launches a call of other sizes, by their total over
+    ``iters``), with each pass's TFLOP/s of its own operations (dK/dV
+    8·``work``, dQ 6·``work``; ``work`` = B·H·Lq·Lk·D)."""
     from hunyuan3d2_tpu_torch.utils import profiling
 
     call()
@@ -128,7 +130,10 @@ def pass_times(call: Callable[[], object], work: float, iters: int = 10) -> dict
     by = {k: statistics.median(v) for k, v in durs.items()}
     kv_ms = by.get("dkdv", 0) + by.get("reduce", 0)
     q_ms = by.get("dq", 0)
-    return dict(prep_ms=by.get("prep"), dkdv_ms=kv_ms or None, dq_ms=q_ms or None,
+    prep_ms = by.get("prep")
+    if prep_ms is not None and "split" in durs:
+        prep_ms += sum(durs["split"]) / iters
+    return dict(prep_ms=prep_ms, dkdv_ms=kv_ms or None, dq_ms=q_ms or None,
                 dkdv_tflops=8 * work / kv_ms / 1e9 if kv_ms else None,
                 dq_tflops=6 * work / q_ms / 1e9 if q_ms else None,
                 traced_launches={k: len(v) for k, v in durs.items()})

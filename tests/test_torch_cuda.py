@@ -21,9 +21,12 @@ def gen():
 
 
 # bf16: the output is rounded once (ulp 2^-8 at 1) and P before P.V in both,
-# at other block boundaries; fp32: summation order only
+# at other block boundaries; fp32: summation order only. The last two shapes
+# give more q tiles than the card has SMs (2 x 3 x 24 of 128 rows at D = 64,
+# 2 x 3 x 24 of 64 rows at D = 128), ragged in Lq and Lk.
 @pytest.mark.parametrize("dt,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("lq,lk,d", [(130, 200, 64), (700, 333, 128), (512, 512, 64)])
+@pytest.mark.parametrize("lq,lk,d", [(130, 200, 64), (700, 333, 128), (512, 512, 64),
+                                     (3000, 333, 64), (1500, 1100, 128)])
 def test_flash_attention_kernel_matches_plain(gen, lq, lk, d, dt, tol):
     from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
@@ -89,7 +92,8 @@ def test_flash_attention_d128_bf16_many_q_tiles(gen):
 
 @pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("b,h,lq,lk,d", [(1, 16, 512, 512, 64), (1, 4, 1000, 333, 128),
-                                         (1, 16, 3072, 3072, 64), (1, 8, 1024, 1024, 128)])
+                                         (1, 16, 3072, 3072, 64), (1, 8, 1024, 1024, 128),
+                                         (1, 8, 1500, 1100, 128)])
 def test_flash_attention_fp32_error(gen, b, h, lq, lk, d, seed):
     """The fp32 kernel (3xTF32, each key tile summed apart) against an fp64
     evaluation of its function: every element within the bound that its
@@ -811,8 +815,10 @@ def test_flash_attention_gradient_matches_plain(gen, lq, lk, dt):
 # pass splits its q range (backward_config) and adds the parts in order. The
 # bf16 tiles' edges: Lq and Lk one short of and one past 128 (a CTA's keys or
 # q rows, a step's keys), Lk below 64, and a bf16 split of few key ranges.
+# (1, 4, 2500, 300): more dQ CTAs (4 x 40 of 64 q rows) than the card has SMs.
 BWD_SHAPES = [(2, 3, 130, 200), (1, 4, 700, 333), (2, 2, 64, 1000), (1, 2, 3000, 100),
-              (1, 3, 127, 129), (1, 3, 129, 127), (2, 2, 300, 40), (1, 1, 1000, 130)]
+              (1, 3, 127, 129), (1, 3, 129, 127), (2, 2, 300, 40), (1, 1, 1000, 130),
+              (1, 4, 2500, 300)]
 
 
 def _grad_inputs(gen, b, h, lq, lk, d, dt):
@@ -890,18 +896,73 @@ def test_flash_attention_backward_bf16_tiles_match_plain(gen, shape, d, kv, q):
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("shape", [(2, 3, 700, 333), (1, 2, 3000, 100)], ids=["one", "split"])
-def test_flash_attention_backward_is_deterministic(gen, shape, dt):
+def test_flash_attention_backward_is_deterministic(gen, shape, d, dt):
     """No atomics: two backward calls on the same inputs give the same bits,
-    with and without the split dK/dV pass."""
+    with and without the split dK/dV pass, at both head sizes."""
     from hunyuan3d2_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, dout = _grad_inputs(gen, *shape, 64, dt)
+    q, k, v, dout = _grad_inputs(gen, *shape, d, dt)
     o, lse = fa._launch_lse(q, k, v, 0.125)
     first = fa.flash_attention_backward(q, k, v, o, lse, dout)
     second = fa.flash_attention_backward(q, k, v, o, lse, dout)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("rows,cols,d", [(100, 128, 64), (333, 384, 128), (64, 64, 64)])
+def test_split_operand_kernel_matches_twin_bit_for_bit(gen, rows, cols, d):
+    """The fp32 kernels' operand pre-pass (csrc/flash_attention.cuh
+    split_kernel) against split_operand_plain, bit for bit, on random values
+    with ties, ±0, inf, NaN, subnormals and the largest finite values among
+    them (a NaN stays a NaN: the card's x·scale gives its own NaN bits)."""
+    from hunyuan3d2_tpu_torch.ops import flash_attention as fa
+
+    x = torch.randn(2, rows, d, generator=gen, device="cuda")
+    special = torch.tensor([0x3F801000, 0x80000000, 0x00000000, 0x7F800000, 0xFF800000,
+                            0x7FC00000, 0x00001000, 0x00000FFF, 0x7F7FFFFF, 0xFF7FF001],
+                           dtype=torch.int64).to(torch.int32).view(torch.float32)
+    x.view(-1)[:special.numel()] = special.cuda()
+    before = fa.split_operand.launches
+    got = fa.split_operand(x, 1.0, cols)
+    ref = fa.split_operand_plain(x.cpu(), 1.0, cols)
+    torch.cuda.synchronize()
+    assert fa.split_operand.launches == before + 1
+    got = got + fa.split_operand(x, 0.125)[:1]
+    ref = ref + fa.split_operand_plain(x.cpu(), 0.125)[:1]
+    for g, r in zip(got, ref):
+        g, nan = g.cpu(), torch.isnan(r)
+        assert torch.equal(torch.isnan(g), nan)
+        assert torch.equal(g[~nan].view(torch.int32), r[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_flash_attention_launches_from_a_new_thread(gen, dt):
+    """The forward and the backward launched from a thread that has made no
+    CUDA call before (as autograd's backward thread may be): the tensor
+    maps' encoding needs the device's context bound to the calling thread."""
+    import threading
+
+    from hunyuan3d2_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = _grad_inputs(gen, 1, 2, 300, 200, 64, dt)
+    o, lse = fa._launch_lse(q, k, v, 0.125)
+    want = fa.flash_attention(q, k, v)
+    got = {}
+
+    def run():
+        got["fwd"] = fa.flash_attention(q, k, v)
+        got["bwd"] = fa.flash_attention_backward(q, k, v, o, lse, dout, 0.125)
+
+    for _ in range(2):
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        torch.cuda.synchronize()
+        assert torch.equal(got["fwd"], want)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(got["bwd"], fa.flash_attention_backward(q, k, v, o, lse, dout, 0.125)))
 
 
 def test_flash_attention_gradient_never_takes_the_plain_route(gen, monkeypatch):

@@ -230,20 +230,24 @@ def test_backward_wrapper_takes_the_twin_on_the_cpu_and_checks_its_inputs():
 # (B, H, Lq, Lk, D, dtype) → BackwardConfig (q rows a step of the dK/dV pass,
 # splits, lq_pad), written from csrc/flash_attention_bwd.cu's tiles (bf16:
 # 64-key CTAs, two an SM, 64 q rows a step, the dQ pass's 128 q rows a CTA;
-# fp32: 64-key CTAs, four an SM, 32 q rows a step, 64-row dQ CTAs): the DiT
-# training row, D = 128, the VAE and decode-chunk rows (fp32), ragged and
-# split shapes
+# fp32: 64-key CTAs, one an SM, 32 q rows a step, dQ CTAs of 128 q rows at
+# D = 64 and 64 at D = 128): the DiT
+# training row, D = 128, the VAE, v2-0 VAE and decode-chunk rows (fp32), the
+# fp32 D = 128 row, ragged and split shapes
 BF16, F32 = torch.bfloat16, torch.float32
 CONFIG_TABLE = {
     "dit train": ((2, 16, 1882, 1882, 64, BF16), (64, 1, 1920)),
     "d128": ((1, 8, 4096, 4096, 128, BF16), (64, 1, 4096)),
-    "vae fp32": ((1, 16, 512, 512, 64, F32), (32, 4, 512)),
-    "chunk fp32": ((1, 16, 65536, 512, 64, F32), (32, 5, 65536)),
+    "vae fp32": ((1, 16, 512, 512, 64, F32), (32, 2, 512)),
+    "vae full fp32": ((1, 16, 3072, 3072, 64, F32), (32, 1, 3072)),
+    "chunk fp32": ((1, 16, 65536, 512, 64, F32), (32, 2, 65536)),
+    "d128 fp32": ((1, 8, 1024, 1024, 128, F32), (32, 2, 1024)),
+    "split fp32 d128": ((1, 2, 3000, 100, 128, F32), (32, 32, 3008)),
     "ragged d128": ((2, 3, 130, 200, 128, BF16), (64, 3, 256)),
     "ragged d64": ((1, 4, 700, 333, 64, BF16), (64, 11, 768)),
     "lk below 64": ((2, 2, 300, 40, 64, BF16), (64, 5, 384)),
     "split bf16": ((1, 2, 3000, 100, 64, BF16), (64, 47, 3072)),
-    "ragged fp32": ((2, 3, 130, 200, 64, F32), (32, 5, 192)),
+    "ragged fp32": ((2, 3, 130, 200, 64, F32), (32, 5, 256)),
 }
 
 
@@ -261,7 +265,7 @@ def test_backward_config_splits_and_padding(d, dt):
     row either pass reads (the last q tile of the dK/dV pass, the last CTA
     of the dQ pass), and the q range is split only where the key ranges
     leave SMs idle."""
-    pad, per_sm = (128, 2) if dt == BF16 else (64, 4)
+    keys, _, pad, per_sm = fa._BWD_TILES[dt, d]
     rs = np.random.RandomState(d)
     for _ in range(60):
         b, h = rs.randint(1, 4), rs.randint(1, 17)
@@ -272,7 +276,7 @@ def test_backward_config_splits_and_padding(d, dt):
         assert (cfg.splits - 1) * per < n_qt <= cfg.splits * per
         assert cfg.lq_pad >= lq and cfg.lq_pad - lq < pad and cfg.lq_pad % pad == 0
         assert cfg.lq_pad >= n_qt * cfg.rows
-        if b * h * -(-lk // 64) >= per_sm * fa.SM_COUNT:
+        if b * h * -(-lk // keys) >= per_sm * fa.SM_COUNT:
             assert cfg.splits == 1
 
 
@@ -322,13 +326,16 @@ def test_chip_smoke_reads_ptxas_spills_and_serialised_wgmma():
 
     found = chip_smoke.ptxas_instances(PTXAS_LOG)
     assert len(found) == 3
-    by_label = {}
-    for mangled, info in found.items():
-        m = chip_smoke.BWD_KERNEL.search(mangled)
-        by_label[(m.group(1), m.group(2), tuple(a for a in m.groups()[2:] if a))] = info
-    assert by_label[("dkdv", "bf16", ("64", "128", "64", "2"))] == dict(
+    by_label = {chip_smoke.kernel1_instance(mangled): info for mangled, info in found.items()}
+    assert by_label[("dkdv", "bf16", (64, 128, 64, 2))] == dict(
         registers=168, spill_stores=0, spill_loads=0, serialized=False)
-    assert by_label[("dq", "f32", ("128",))] == dict(
+    assert by_label[("dq", "f32", (128,))] == dict(
         registers=255, spill_stores=36, spill_loads=40, serialized=False)
-    assert by_label[("dq", "bf16", ("64", "128", "128", "2"))] == dict(
+    assert by_label[("dq", "bf16", (64, 128, 128, 2))] == dict(
         registers=90, spill_stores=0, spill_loads=0, serialized=True)
+    # the forward's instances (bool template arguments too); the masked fp32
+    # forward is not one of the gated names
+    assert chip_smoke.kernel1_instance(
+        "_ZN5flash16flash_f32_kernelILi64ELi128ELi64ELi4ELb1EEEv14CUtensorMap_st") == (
+        "flash", "f32", (64, 128, 64, 4, 1))
+    assert chip_smoke.kernel1_instance("_ZN5flash23flash_f32_masked_kernelILi64EEEvPKf") is None
