@@ -7,10 +7,11 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel from csrc/ (one nvcc per source, in parallel;
      csrc/flash_attention_bwd.cu is kernel 1's backward), with ptxas's
-     registers for each instance of the backward and of the fp32 forward and
-     the wgmma / mma.sync instructions of their SASS (cuobjdump); one that
-     spills or whose wgmma ptxas serialises (C7514), or an fp32 one with no
-     HGMMA or any HMMA, fails it;
+     registers for each instance of the backward and of the fp32 forward,
+     unmasked (kernel 1) and masked (kernel 2), and the wgmma / mma.sync
+     instructions of their SASS (cuobjdump); one that spills or whose wgmma
+     ptxas serialises (C7514), or an fp32 one with no HGMMA or any HMMA,
+     fails it;
   3. each kernel against its plain PyTorch twin at the shapes of the three
      paths, with its time, the plain time, the time of one library call
      where one computes the same function, and its bound on the card: flash
@@ -26,7 +27,9 @@ Phases, in order; any failure exits non-zero:
      both decodes with a breakdown of the chain's time (then the whole
      streamed decode against the plain decode), the masked flash
      attention under voxel masks built from the test sphere's cond maps
-     (with the share of key tiles it skips), and the rasterizer (the whole
+     (with the share of key tiles it skips) in bf16 and in fp32 (held to an
+     fp64 evaluation under the mask; SDPA with the bool mask beside it),
+     and the rasterizer (the whole
      call, its face setup in the kernel, its records held to face_setup's
      bit for bit) on that sphere (a 512² view and the 2048² UV raster), on
      screen-sized faces and on ties, degenerate, NaN, w = 0 and off-screen
@@ -59,11 +62,18 @@ Phases, in order; any failure exits non-zero:
      standard one (EulerAncestral 30 steps, CFG 2.0: the path
      textured_glb_standard), each run cold and warm; stage times, launch
      counts and peak memory; each textured GLB is written under tmp/ and
-     read back;
+     read back; then (path textured_glb_fp32) the same DEFAULT stack written
+     as a paint-turbo checkpoint under tmp/ and loaded back by
+     load_paint_pipeline(dtype="fp32"): one turbo GLB, cold and warm, in
+     which every attention launch is fp32 and the masked fp32 kernel runs
+     100 times a run;
   7. slice 2 at a small size on the card against the same stack on the CPU
      (plain twins), with the same weights and noise, through each sampler,
      at a head size and sequence lengths that send the UNet through flash
-     attention (both samplers) and the masked kernel (turbo);
+     attention (both samplers) and the masked kernel (turbo, in bf16 and
+     with the stack in fp32); then the plain-MLP DINOv2 at DINOv2-L's widths
+     (24 layers, 1024 wide, 518²) through the conditioner on the card (24
+     kernel-1 launches) against the CPU;
   8. the served path at full width: checkpoints written from random weights
      (rounded to fp16) in the published layouts under tmp/ (the mini shape
      stack with DINOv2-giant as config.yaml + model.fp16.safetensors, the
@@ -277,8 +287,9 @@ def row_bounds(flops, nbytes, dtype):
     return dict(bound_ms=ms, bound_by=by, bound_cuda_core_ms=bound(flops, nbytes, "fp32")[0])
 
 
-def fp32_check(name, q, k, v, out, plain):
-    """An fp32 row against an fp64 evaluation of the kernel's function:
+def fp32_check(name, q, k, v, out, plain, mask=None):
+    """An fp32 row against an fp64 evaluation of the kernel's function
+    (under ``mask`` for the masked kernel: a fully masked row must be 0):
     every element within the bound that the kernel's arithmetic allows
     (hunyuan3d2_tpu_torch/tools/flash_fp32_error.py: 3xTF32 products, each
     64-key tile summed apart, fp32 softmax); a max abs error within 8x the
@@ -295,7 +306,7 @@ def fp32_check(name, q, k, v, out, plain):
     from hunyuan3d2_tpu_torch.tools.flash_fp32_error import check_against_fp64, fp32_error_bound
 
     check(torch.isfinite(out).all().item(), f"{name}: non-finite output")
-    ref, bound = fp32_error_bound(q, k, v)
+    ref, bound = fp32_error_bound(q, k, v, mask=mask)
     c, t = check_against_fp64(out, ref, bound), check_against_fp64(plain, ref, bound)
     rms, twin_rms = ((x.double() - ref).norm().item() / ref.norm().item() for x in (out, plain))
     check(c["within"] and c["max_abs_err"] <= 8 * t["max_abs_err"] and rms <= 4 * twin_rms,
@@ -914,10 +925,22 @@ def _views(render):
             torch.from_numpy(np.stack([m[1] for m in mats])).cuda())
 
 
+# The masked fp32 rows' time under the kernel this tree replaced (3xTF32 on
+# mma.sync, 4-warp CTAs, cp.async double buffering), at the same voxel
+# masks: the median of the parent tree's six 20-call timings in
+# `python -m hunyuan3d2_tpu_torch.tools.masked_flash_ab --roots PARENT . .
+# PARENT` on NVIDIA H100 80GB HBM3, 700 W (this kernel: 1.3903 and 0.2216
+# ms). Logged beside each fp32 row as "before_ms"; not measured by this
+# script, so it stays out of the kernels line.
+MASKED_F32_BEFORE_MS = {32: 3.8212, 16: 0.5035}
+
+
 def masked_phase(gen, sphere):
     """The masked kernel at the paint UNet's masked multiview shapes, under
     the voxel masks that the paint path builds from the sphere's 512²
-    position maps (grid 32 → 6144 tokens, grid 16 → 1536)."""
+    position maps (grid 32 → 6144 tokens, grid 16 → 1536), in bf16 and in
+    fp32 (an fp32 paint stack's; held to an fp64 evaluation, bound against
+    3xTF32)."""
     import torch
     import torch.nn.functional as F
 
@@ -936,33 +959,49 @@ def masked_phase(gen, sphere):
     _, position = cond_maps(upload_mesh(render, "cuda"), _views(render)[1], 512)
     pos = position[None].float() / 255.0
     rows = []
-    for g, h, tol in ((32, 10, 2e-2), (16, 20, 2e-2)):
-        mask = compute_voxel_grid_mask(pos, g)
-        b, lq, lk = mask.shape
-        d = 64
-        q, k, v = (torch.randn(b, h, lq, d, generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
-        out = flash_attention_masked(q, k, v, mask)
-        ref = flash_attention_masked_plain(q, k, v, mask)
-        torch.cuda.synchronize()
-        err, rel, rms, tol = attention_check(f"masked flash g={g}", out, ref, tol)
-        # the share of (128 q, 128 key) tiles the kernel skips; its ms
-        # includes building the occupancy map
-        bq, bk, _ = default_config(b, h, lq, lk, d, q.dtype, masked=True)
-        skipped = 1.0 - tile_map(mask, bq, bk).float().mean().item()
-        ms = time_ms(lambda: flash_attention_masked(q, k, v, mask), 20)
-        plain_ms = time_ms(lambda: flash_attention_masked_plain(q, k, v, mask), 3)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None]),
-                         20)
-        allowed = mask.sum().item()
-        # the work these inputs need: the allowed (query, key) pairs only
-        bound_ms, by = bound(4.0 * h * d * allowed, 4 * q.numel() * 2 + mask.numel(), "bf16")
-        row = dict(shape=f"voxel grid {g}: q/k/v {[b, h, lq, d]} bf16, mask {[b, lq, lk]} "
-                         f"density {allowed / mask.numel():.4f}",
-                   tiles_skipped=skipped, max_abs_err=err, max_rel_err=rel, rel_rms_err=rms, tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
-        log("flash_attention_masked " + json.dumps(row))
-        rows.append(row)
+    for dt in (torch.bfloat16, torch.float32):
+        for g, h, tol in ((32, 10, 2e-2), (16, 20, 2e-2)):
+            mask = compute_voxel_grid_mask(pos, g)
+            b, lq, lk = mask.shape
+            d = 64
+            q, k, v = (torch.randn(b, h, lq, d, generator=gen, device="cuda").to(dt)
+                       for _ in range(3))
+            out = flash_attention_masked(q, k, v, mask)
+            ref = flash_attention_masked_plain(q, k, v, mask)
+            torch.cuda.synchronize()
+            name = f"masked flash g={g} {str(dt)[6:]}"
+            extra = {}
+            if dt == torch.bfloat16:
+                err, rel, rms, tol = attention_check(name, out, ref, tol)
+                extra = dict(max_rel_err=rel, rel_rms_err=rms, tol=tol)
+            else:
+                check(bool((out[:, :, ~mask[0].any(-1)] == 0).all()),
+                      f"{name}: a fully masked row is not 0")
+                err, share, bnd, twin_err, rms, twin_rms = fp32_check(name, q, k, v, out, ref,
+                                                                      mask)
+                extra = dict(share_of_fp64_bound=share, fp64_bound=bnd, twin_max_abs_err=twin_err,
+                             rel_rms_err=rms, twin_rel_rms_err=twin_rms, tol="fp64 rule")
+            # the share of (q, 64 or 128 key) tiles the kernel skips; its ms
+            # includes building the occupancy map
+            bq, bk, _ = default_config(b, h, lq, lk, d, q.dtype, masked=True)
+            skipped = 1.0 - tile_map(mask, bq, bk).float().mean().item()
+            ms = time_ms(lambda: flash_attention_masked(q, k, v, mask), 20)
+            plain_ms = time_ms(lambda: flash_attention_masked_plain(q, k, v, mask), 3)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                    attn_mask=mask[:, None]), 20)
+            allowed = mask.sum().item()
+            # the work these inputs need: the allowed (query, key) pairs only
+            bounds = row_bounds(4.0 * h * d * allowed, 4 * q.numel() * q.element_size()
+                                + mask.numel(), dt)
+            row = dict(shape=f"voxel grid {g}: q/k/v {[b, h, lq, d]} {str(dt)[6:]}, mask "
+                             f"{[b, lq, lk]} density {allowed / mask.numel():.4f}",
+                       tiles=[bq, bk], tiles_skipped=skipped, max_abs_err=err, **extra, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, **bounds)
+            before = {} if dt == torch.bfloat16 else dict(
+                before_ms=MASKED_F32_BEFORE_MS[g],
+                before_from="the parent's mma.sync kernel (tools/masked_flash_ab.py)")
+            log("flash_attention_masked " + json.dumps({**row, **before}))
+            rows.append(row)
     return rows
 
 
@@ -1195,7 +1234,74 @@ def texture_paths(sphere):
     return turbo, standard
 
 
-def texture_agreement(turbo: bool):
+def texture_fp32_path(sphere):
+    """6b. The paint-turbo stack at full width loaded in fp32 (path
+    textured_glb_fp32): the DEFAULT stack of texture_paths (same seed)
+    written in the published layout (rounded to fp16) under tmp/, loaded by
+    load_paint_pipeline(..., dtype="fp32") and wrapped by the texture
+    pipeline's classes; one textured GLB, cold and warm. Every attention
+    launch in it must be fp32 (kernel 1's fp32 instances, the masked fp32
+    kernel 100 times a run). Returns the warm run's launch counts."""
+    import torch
+
+    from hunyuan3d2_tpu_torch import Hunyuan3DPaintPipeline
+    from hunyuan3d2_tpu_torch.io.checkpoints import load_paint_pipeline
+    from hunyuan3d2_tpu_torch.ops import flash_attention as fa
+    from hunyuan3d2_tpu_torch.pipelines.multiview import Multiview_Diffusion_Net
+    from hunyuan3d2_tpu_torch.pipelines.texgen import Hunyuan3DTexGenConfig
+
+    root = os.path.join(ROOT, "tmp", "fp32_paint_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        src = Hunyuan3DPaintPipeline.init_random(size="default", view_size=512, device="cuda",
+                                                 seed=0)
+        nbytes = _write_paint_checkpoint(root, src.models["multiview_model"].pipeline)
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+        written = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inner = load_paint_pipeline(root, "hunyuan3d-paint-v2-0-turbo", view_size=512,
+                                    device="cuda", dtype="fp32")
+        torch.cuda.synchronize()
+        loaded = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(inner.dtype == torch.float32
+          and all(p.dtype == torch.float32 for m in (inner.unet, inner.vae)
+                  for p in m.parameters()), "texture path fp32: a loaded parameter is not fp32")
+    log(f"texture path fp32: checkpoint {nbytes / 2 ** 30:.2f} GiB written in {written:.2f} s, "
+        f"loaded in fp32 in {loaded:.2f} s")
+    inner.set_turbo()
+    pipe = Hunyuan3DPaintPipeline({"multiview_model": Multiview_Diffusion_Net(inner)},
+                                  Hunyuan3DTexGenConfig(), "cuda")   # render, texture 2048
+    # the dtypes the flash launcher sees: every attention of the fp32 stack
+    # must run an fp32 instance
+    dtypes = {}
+    launch = fa._launch
+
+    def tally(q, k, v, mask, scale):
+        key = f"{'masked' if mask is not None else 'flash'} {str(q.dtype)[6:]}"
+        dtypes[key] = dtypes.get(key, 0) + 1
+        return launch(q, k, v, mask, scale)
+
+    fa._launch = tally
+    try:
+        launches = textured_runs("texture path fp32", pipe, sphere, test_image(),
+                                 "Paint Denoising (turbo)", "chip_smoke_textured_fp32.glb")
+    finally:
+        fa._launch = launch
+    log(f"texture path fp32: flash launches by kind and dtype (both runs) {json.dumps(dtypes)}")
+    check(launches["flash_attention_masked"] == 100,
+          f"texture path fp32: {launches['flash_attention_masked']} masked launches, 100 expected")
+    check(set(dtypes) == {"flash float32", "masked float32"},
+          f"texture path fp32: attention ran {sorted(dtypes)}, fp32 only expected")
+    del pipe, inner
+    return launches
+
+
+def texture_agreement(turbo: bool, fp32: bool = False):
     """Slice 2 at a small size on the card (kernels, cuDNN) against the same
     stack on the CPU (plain twins), same weights, same noise, through either
     sampler. The UNet keeps the paint UNet's head size (64) at narrow
@@ -1205,7 +1311,10 @@ def texture_agreement(turbo: bool):
     (standard loop) its 6144-token multiview attention at CFG batch 2; the
     turbo loop's masked kernel for that multiview attention under the
     grid-32 voxel mask and the 16² level's 1536 tokens under the grid-16
-    mask. The check fails unless the path's kernels ran on the card."""
+    mask. With ``fp32`` the stack (UNet and VAE, on both devices) is fp32,
+    as load_paint_pipeline(dtype="fp32") builds it, so the kernels' fp32
+    instances run. The check fails unless the path's kernels ran on the
+    card."""
     import dataclasses
 
     import numpy as np
@@ -1234,6 +1343,10 @@ def texture_agreement(turbo: bool):
     b.unet = build(paint_unet.UNet2p5D, ucfg, device="cuda")
     b.unet.load_state_dict(a.unet.state_dict())
     b.vae.load_state_dict(a.vae.state_dict())
+    if fp32:
+        for inner in (a, b):
+            inner.unet.float()
+            inner.vae.float()
     counters = _kernel_counters()
     outs = {}
     for dev, pipe in pipes.items():
@@ -1245,7 +1358,7 @@ def texture_agreement(turbo: bool):
     y = outs["cpu"].texture.astype(np.float64)
     corr = np.corrcoef(x.ravel(), y.ravel())[0, 1]
     mad = np.abs(x - y).mean()
-    name = "texture check" if turbo else "texture check standard"
+    name = ("texture check" if turbo else "texture check standard") + (" fp32" if fp32 else "")
     log(f"{name} (UNet {ucfg.block_out_channels} head 64, {view}² views, 128² "
         f"texture, {'LCM' if turbo else 'EulerAncestral + CFG 2.0'} {steps} steps): card vs "
         f"CPU texture corr {corr:.6f}, mean |diff| {mad:.3f} levels, card launches "
@@ -1255,6 +1368,49 @@ def texture_agreement(turbo: bool):
         check(launches[kernel] > 0, f"{name}: kernel {kernel} did not run on the card")
     check(np.array_equal(outs["cuda"].uv, outs["cpu"].uv) and corr >= 0.99 and mad <= 3.0,
           f"{name}: the card's textured mesh disagrees with the CPU's")
+
+
+def dinov2_large_check():
+    """The plain-MLP DINOv2 at DINOv2-L's published widths (1024 wide, 24
+    layers, 16 heads of 64, fc1 → exact GELU → fc2 at 4096, 518² → 1370
+    tokens; random bf16 weights from a seed) through the conditioner's
+    encode_image on the card, where its attention launches kernel 1 once a
+    layer, against the same weights on the CPU (plain twins)."""
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch.models import conditioner as cond_lib
+    from hunyuan3d2_tpu_torch.models import dinov2
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+    from hunyuan3d2_tpu_torch.ops.nn import build
+
+    cfg = cond_lib.DinoEncoderConfig(
+        dino=dinov2.DinoConfig(hidden_size=1024, num_layers=24, num_heads=16,
+                               use_swiglu_ffn=False, mlp_ratio=4), image_size=518)
+    encoders = {dev: cond_lib.SingleImageEncoder(build(cond_lib.DinoImageEncoder, cfg, device=dev))
+                for dev in ("cuda", "cpu")}
+    encoders["cpu"].load_state_dict(encoders["cuda"].state_dict())
+    img = np.asarray(test_image().convert("RGB")).astype(np.float32)[None] / 127.5 - 1.0
+    with torch.no_grad():
+        encoders["cuda"].encode_image(img)            # warm
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        card = encoders["cuda"].encode_image(img)["main"]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = flash_attention.launches
+        cpu = encoders["cpu"].encode_image(img)["main"]
+    x, y = card.float().cpu().numpy(), cpu.float().numpy()
+    corr = np.corrcoef(x.ravel(), y.ravel())[0, 1]
+    err = np.abs(x - y).max() / np.abs(y).max()
+    log(f"dinov2-L check (plain MLP, 1024 wide, 24 layers, 16 heads, 518²): tokens "
+        f"{list(card.shape)}, card {ms:.2f} ms, {launches} kernel-1 launches, card vs CPU corr "
+        f"{corr:.6f}, max |diff| {err:.4f} of the largest")
+    check(tuple(card.shape) == (1, 1370, 1024) and np.isfinite(x).all(),
+          "dinov2-L check: bad tokens")
+    check(launches == 24, f"dinov2-L check: {launches} kernel-1 launches, 24 expected")
+    check(corr >= 0.99, f"dinov2-L check: card vs CPU corr {corr}")
 
 
 def _round_to_fp16(modules):
@@ -1331,7 +1487,17 @@ def _write_checkpoints(root, shape, paint):
         _round_to_fp16({"model": shape.model, "vae": shape.vae,
                         "conditioner": shape.conditioner}),
         os.path.join(sub, "model.fp16.safetensors"))}
-    inner = paint.models["multiview_model"].pipeline
+    sizes["paint"] = _write_paint_checkpoint(root, paint.models["multiview_model"].pipeline)
+    return sizes
+
+
+def _write_paint_checkpoint(root, inner):
+    """The paint stack ``inner`` (a HunyuanPaintPipeline) as the published
+    paint-turbo layout under ``root``: unet/ and vae/, each a config.json
+    and a diffusion_pytorch_model.safetensors rounded to fp16. Returns the
+    bytes written."""
+    import safetensors.torch
+
     u, s = inner.unet.cfg, inner.vae.cfg
     parts = {"unet": (inner.unet, {"block_out_channels": list(u.block_out_channels),
                                    "layers_per_block": u.layers_per_block,
@@ -1342,15 +1508,16 @@ def _write_checkpoints(root, shape, paint):
                                  "layers_per_block": s.layers_per_block,
                                  "latent_channels": s.latent_channels,
                                  "scaling_factor": s.scaling_factor})}
-    sizes["paint"] = 0
+    total = 0
     for part, (module, cfg) in parts.items():
         d = os.path.join(root, "hunyuan3d-paint-v2-0-turbo", part)
         os.makedirs(d)
         with open(os.path.join(d, "config.json"), "w") as fh:
             json.dump(cfg, fh)
-        sizes["paint"] += save(_round_to_fp16({"": module}),
-                               os.path.join(d, "diffusion_pytorch_model.safetensors"))
-    return sizes
+        path = os.path.join(d, "diffusion_pytorch_model.safetensors")
+        safetensors.torch.save_file(_round_to_fp16({"": module}), path)
+        total += os.path.getsize(path)
+    return total
 
 
 def _log_postprocess(stages):
@@ -2030,7 +2197,8 @@ def flash_grad_phase():
 
 
 # kernel 1's forward and backward instances by pass, dtype and template
-# numbers (flash_f32_masked_kernel, the masked fp32 forward, is not one)
+# numbers; kernel 2's fp32 forward is flash_f32_kernel's kMask instance
+# (template numbers ..., kLse 0, kMask 1), so the gate takes it too
 KERNEL1 = re.compile(r"(flash|dkdv|dq)_(bf16|f32)_kernel(I(?:L[ib]\d+E)+)")
 
 
@@ -2086,16 +2254,16 @@ def sass_mma_counts(library):
 
 
 def kernel1_build_gate():
-    """Phase 2's gate on kernel 1: ptxas's registers of each instance of its
-    backward passes (bf16 and fp32) and of its fp32 forward, from the build
-    logs beside the libraries, with each instance's wgmma (HGMMA) and
-    mma.sync (HMMA) instructions in its SASS; a failure where one of them
-    spills or has its wgmma serialised (C7514), or where an fp32 instance
-    issues no HGMMA or any HMMA. The masked fp32 forward (mma.sync, ROADMAP)
-    and the bf16 forward are not gated."""
+    """Phase 2's gate on kernels 1 and 2: ptxas's registers of each instance
+    of kernel 1's backward passes (bf16 and fp32) and of the fp32 forward,
+    unmasked (kernel 1) and masked (kernel 2), from the build logs beside
+    the libraries, with each instance's wgmma (HGMMA) and mma.sync (HMMA)
+    instructions in its SASS; a failure where one of them spills or has its
+    wgmma serialised (C7514), or where an fp32 instance issues no HGMMA or
+    any HMMA. The bf16 forwards are not gated."""
     from hunyuan3d2_tpu_torch.utils import cuda_build
 
-    seen = 0
+    seen = masked = 0
     for library, gated in (("flash_attention_bwd", ("dkdv", "dq")), ("flash_attention", ("flash",))):
         path = cuda_build.library_path(library)
         with open(path + ".log") as fh:
@@ -2106,6 +2274,7 @@ def kernel1_build_gate():
             if inst is None or inst[0] not in gated or (inst[0] == "flash" and inst[1] != "f32"):
                 continue
             seen += 1
+            masked += inst[0] == "flash" and inst[2][-1] == 1 and len(inst[2]) == 6
             label = f"{inst[0]}_{inst[1]}_kernel<{', '.join(map(str, inst[2]))}>"
             hgmma, hmma = sass.get(mangled, (0, 0))
             log(f"  {library} ptxas: {label} {json.dumps(info)}, SASS: {hgmma} HGMMA, "
@@ -2117,6 +2286,7 @@ def kernel1_build_gate():
                 check(hgmma > 0 and hmma == 0,
                       f"{label}: {hgmma} HGMMA and {hmma} HMMA in its SASS (wgmma only)")
     check(seen > 0, "the build logs name no instance of kernel 1's passes")
+    check(masked == 2, f"{masked} masked fp32 instances in the build log, 2 expected (D = 64, 128)")
 
 
 def _zero_counters():
@@ -2458,8 +2628,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches_tex, launches_std = texture_paths(sphere)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_tex32 = texture_fp32_path(sphere)
+    gc.collect()
+    torch.cuda.empty_cache()
     texture_agreement(turbo=True)
+    texture_agreement(turbo=True, fp32=True)
     texture_agreement(turbo=False)
+    dinov2_large_check()
     gc.collect()
     torch.cuda.empty_cache()
     launches_served = served_path()
@@ -2502,7 +2679,8 @@ def main() -> int:
     parallel_two_ranks(card)
     by_path = {"image_to_mesh": launches_mesh, "image_to_mesh_v2_0_fast": launches_v20,
                "image_to_mesh_v2_0_multiview": launches_mv, "textured_glb": launches_tex,
-               "textured_glb_standard": launches_std, "flash_sweep": launches_sweep,
+               "textured_glb_standard": launches_std, "textured_glb_fp32": launches_tex32,
+               "flash_sweep": launches_sweep,
                "served": launches_served, "text_to_mesh": launches_text,
                "delight": launches_delight, "upscale": launches_upscale,
                "align": launches_align, "train": launches_train,

@@ -71,9 +71,15 @@
 //    sum by an FMA: a tensor-core accumulator may truncate, and one carried
 //    across every tile would err in proportion to Lk. The error bound of
 //    this arithmetic: hunyuan3d2_tpu_torch/tools/flash_fp32_error.py.
-// fp32 masked (fp32 paint weights only): `flash_f32_masked_kernel`, a CTA
-// of 4 warps per 64-row q tile, K/V tiles of 64 keys double-buffered by
-// cp.async, the same products on mma.sync.m16n8k8.tf32 (ROADMAP lists it).
+// fp32 masked (kernel 2 under an fp32 paint stack: the turbo multiview
+// attention): the same kernel's kMask instance, with the bf16 masked
+// kernel's mask handling: warp 0 lists the occupied key tiles before the
+// roles split and the producer walks only those; each K_j slot carries the
+// [BQ, 64] mask tile (TMA with 64-byte swizzle where Lk % 16 == 0, else
+// byte loads); each score's mask bit sets it to -1e30 and its p to 0. The
+// pre-pass splits every key, visited or not. Tiles: (128, 64, 4 slots) at
+// D = 64, (64, 64, 2) at D = 128; the producer keeps 40 registers (its byte
+// loads), the consumers 232 (two) or 248 (one).
 //
 // Under a gradient the wrapper launches the unmasked kernel's kLse instance
 // (hy3d_flash_attention_lse): the same kernel, which also writes each row's
@@ -97,22 +103,26 @@ using flash::Args;
 #define FLASH_TRY_LSE(D_, BQ_, BK_, ST_) \
   if (d == D_ && bq == BQ_ && bk == BK_ && stages == ST_) return flash::launch_bf16<D_, BQ_, BK_, ST_, false, true>(a);
 
-// The unmasked fp32 kernel's (BQ, BK, SLOTS) per head size.
+// The fp32 kernel's (BQ, BK, SLOTS) per head size: unmasked, and masked
+// (one configuration a head size; K_j and its mask tile take the even slots).
 #define FLASH_F32(X)  \
   X(64, 128, 64, 4)   \
   X(64, 64, 64, 6)    \
+  X(128, 64, 64, 2)
+#define FLASH_F32_MASKED(X) \
+  X(64, 128, 64, 4)         \
   X(128, 64, 64, 2)
 
 #define FLASH_TRY_F32(D_, BQ_, BK_, SL_) \
   if (d == D_ && bq == BQ_ && bk == BK_ && stages == SL_) return flash::launch_f32<D_, BQ_, BK_, SL_>(a);
 #define FLASH_TRY_F32_LSE(D_, BQ_, BK_, SL_) \
   if (d == D_ && bq == BQ_ && bk == BK_ && stages == SL_) return flash::launch_f32<D_, BQ_, BK_, SL_, true>(a);
+#define FLASH_TRY_F32_MASKED(D_, BQ_, BK_, SL_) \
+  if (d == D_ && bq == BQ_ && bk == BK_ && stages == SL_) return flash::launch_f32<D_, BQ_, BK_, SL_, false, true>(a);
 
 cudaError_t dispatch(const Args& a, int d, int dtype, int bq, int bk, int stages) {
   if (dtype == 1 && a.mask) {
-    if (bq != flash::kF32BQ || bk != flash::kF32BK || stages != 2) return cudaErrorInvalidValue;
-    if (d == 64) return flash::launch_f32_masked<64>(a);
-    if (d == 128) return flash::launch_f32_masked<128>(a);
+    FLASH_F32_MASKED(FLASH_TRY_F32_MASKED)
     return cudaErrorInvalidValue;
   }
   if (dtype == 1) {
@@ -147,8 +157,8 @@ cudaError_t dispatch_lse(const Args& a, int d, int dtype, int bq, int bk, int st
 // [B, lq, lk] uint8 array (nonzero = attend) shared across the heads, with
 // tile_map its [B, ceil(lq / bq), ceil(lk / bk)] uint8 occupancy (nonzero =
 // the tile holds an allowed pair). dtype 0 = bf16, 1 = fp32; d in {64, 128};
-// (bq, bk, stages) one of the compiled configurations (the unmasked fp32
-// kernel's `stages` are its ring's slots). scratch: for unmasked fp32, fp32
+// (bq, bk, stages) one of the compiled configurations (the fp32 kernel's
+// `stages` are its ring's slots). scratch: for fp32, masked or not, fp32
 // [2 n lk d + 2 n d lk_pad] with lk_pad = lk rounded up to a multiple of 64
 // (the split K and V^T that its pre-pass writes), else NULL. Returns the
 // cudaError_t of the launch (0 on success); the launches are asynchronous on
@@ -177,7 +187,7 @@ extern "C" int hy3d_flash_attention_lse(const void* q, const void* k, const void
   return (int)dispatch_lse(a, d, dtype, bq, bk, stages);
 }
 
-// The unmasked fp32 kernels' operand pre-pass on its own (they launch it
+// The fp32 kernels' operand pre-pass on its own (they launch it
 // inside their entry points; ops/flash_attention.py `split_operand` serves
 // the tests): x [n, rows, d] fp32 times `scale` -> direct [2, n, rows, d]
 // (big, then small) and, unless trans is NULL, trans [2, n, d, cols] (the

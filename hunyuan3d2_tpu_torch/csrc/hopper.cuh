@@ -1,8 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tile loads (multicast too) and bulk copies, cluster barriers, wgmma
 // descriptors and products (bf16 and tf32), named barriers, register
-// rebalancing, cp.async and the 3xTF32 splits. Plain PTX wrappers, no
-// CUTLASS.
+// rebalancing and the 3xTF32 split. Plain PTX wrappers, no CUTLASS.
 //
 // Layout conventions (both operands of every wgmma here sit in shared memory
 // in the layout that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes):
@@ -315,24 +314,8 @@ __device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t
 }
 
 // ---------------------------------------------------------------------------
-// cp.async (Ampere-style asynchronous copies) and mma.sync helpers
+// Scalar helpers: exp2, bf16 packing, the 3xTF32 split
 // ---------------------------------------------------------------------------
-// 16 bytes from global to shared memory; zeros where `valid` is false.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // 2^x on the SFU in one instruction; results below 2^-126 flush to 0.
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -343,14 +326,6 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// x = big + small with both parts exact in TF32 (round to nearest); the
-// product of two such sums, less small * small, keeps ~fp32 precision.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float rest = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
 }
 
 // x = big + small for the wgmma products, exactly: big is x rounded to
@@ -370,15 +345,6 @@ __device__ __forceinline__ void split_tf32_exact(float x, float& big, float& sma
   big = __uint_as_float(b);
   small = (b == u || (u & 0x7f800000u) == 0x7f800000u) ? __uint_as_float(u & 0x80000000u)
                                                        : x - big;
-}
-
-__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                              uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

@@ -154,6 +154,12 @@ def on_meta(cls, *args, **kwargs) -> nn.Module:
         return cls(*args, **kwargs)
 
 
+def _in_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A ``meta`` module as a loader builds it: its own dtypes (bf16
+    weights, fp32 norms) for bf16, every parameter fp32 for fp32."""
+    return module.float() if dtype == torch.float32 else module
+
+
 def load_weights(module: nn.Module, sd: Dict[str, torch.Tensor], device,
                  ignored: Tuple[str, ...] = (), what: str = "checkpoint") -> nn.Module:
     """Give a ``meta`` module storage on ``device`` and fill every parameter
@@ -239,8 +245,7 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
     dtype = resolve_dtype(dtype)
 
     def meta(build, *args):
-        module = on_meta(build, *args)
-        return module.float() if dtype == torch.float32 else module
+        return _in_dtype(on_meta(build, *args), dtype)
 
     with open(config_path) as fh:
         config = yaml.safe_load(fh)
@@ -275,15 +280,21 @@ def load_pipeline_single_file(cls, ckpt_path: str, config_path: str, device=None
     main_spec = cp.get("main_image_encoder") or {}
     mk = main_spec.get("kwargs") or {}
     ec = mk.get("config") or {}
-    if not ec.get("use_swiglu_ffn", True):
-        raise NotImplementedError("the port's DINOv2 has the SwiGLU FFN only")
+    swiglu = bool(ec.get("use_swiglu_ffn", True))
+    hidden = ec.get("hidden_size", 1536)
     # the FFN width as the checkpoint stores it (HF derives it from mlp_ratio)
-    ffn = cond_sd.get("main_image_encoder.model.encoder.layer.0.mlp.weights_out.weight")
+    layer0 = "main_image_encoder.model.encoder.layer.0.mlp."
+    ffn = cond_sd.get(layer0 + ("weights_out.weight" if swiglu else "fc1.weight"))
+    if swiglu:
+        width = dict(swiglu_hidden=dinov2.GIANT.swiglu_hidden if ffn is None
+                     else int(ffn.shape[1]))
+    else:
+        width = dict(mlp_ratio=dinov2.GIANT.mlp_ratio if ffn is None
+                     else int(ffn.shape[0]) // hidden)
     dcfg = dinov2.DinoConfig(
-        hidden_size=ec.get("hidden_size", 1536), num_layers=ec.get("num_hidden_layers", 40),
+        hidden_size=hidden, num_layers=ec.get("num_hidden_layers", 40),
         num_heads=ec.get("num_attention_heads", 24), patch_size=ec.get("patch_size", 14),
-        image_size=mk.get("image_size", 518),
-        swiglu_hidden=dinov2.GIANT.swiglu_hidden if ffn is None else int(ffn.shape[1]))
+        image_size=mk.get("image_size", 518), use_swiglu_ffn=swiglu, **width)
     enc_cfg = cond_lib.DinoEncoderConfig(dino=dcfg, image_size=dcfg.image_size)
     target = str((config.get("conditioner") or {}).get("target", ""))
     mv = ("MV" in target or "MV" in str(main_spec.get("type", ""))
@@ -347,9 +358,10 @@ def _diffusers_part(root: str, part: str, names=("diffusion_pytorch_model.bin",
 
 
 def _sd_vae(root: str, device, block_out_channels, scaling_factor: float, what: str,
-            names=("diffusion_pytorch_model.bin", "diffusion_pytorch_model.safetensors")):
+            names=("diffusion_pytorch_model.bin", "diffusion_pytorch_model.safetensors"),
+            dtype: torch.dtype = torch.bfloat16):
     """The SD VAE of ``root/vae``, its config from ``config.json`` with the
-    given defaults."""
+    given defaults, its weights in ``dtype`` (:func:`_in_dtype`)."""
     from hunyuan3d2_tpu_torch.models import sd_vae
 
     vj, vae_sd = _diffusers_part(root, "vae", names)
@@ -358,18 +370,22 @@ def _sd_vae(root: str, device, block_out_channels, scaling_factor: float, what: 
         block_out_channels=tuple(vj.get("block_out_channels", block_out_channels)),
         layers_per_block=vj.get("layers_per_block", 2),
         scaling_factor=vj.get("scaling_factor", scaling_factor))
-    return load_weights(on_meta(sd_vae.AutoencoderKL, vcfg), vae_sd, device, (), what)
+    return load_weights(_in_dtype(on_meta(sd_vae.AutoencoderKL, vcfg), dtype), vae_sd, device,
+                        (), what)
 
 
 def load_paint_pipeline(model_path: str, subfolder: str = "hunyuan3d-paint-v2-0-turbo",
-                        view_size: int = 512, device=None):
+                        view_size: int = 512, device=None, dtype="bf16"):
     """The HunyuanPaint stack (2.5D UNet with its dual copy, SD VAE) from a
     diffusers-layout directory, on ``device`` (``cuda`` unless the caller
-    passes another)."""
+    passes another). ``dtype`` (:func:`resolve_dtype`) is the stack's:
+    bf16, or fp32, in which every parameter is fp32 (as the JAX loader's
+    ``dtype``) and the pipeline computes in fp32 (HunyuanPaintPipeline)."""
     from hunyuan3d2_tpu_torch.models import paint_unet
     from hunyuan3d2_tpu_torch.pipelines.hunyuanpaint import HunyuanPaintPipeline
 
     device = torch.device(device if device is not None else "cuda")
+    dtype = resolve_dtype(dtype)
     root = _paint_root(model_path, subfolder)
     uj, unet_sd = _diffusers_part(root, "unet")
     ucfg = paint_unet.PaintUNetConfig(
@@ -378,8 +394,9 @@ def load_paint_pipeline(model_path: str, subfolder: str = "hunyuan3d-paint-v2-0-
         layers_per_block=uj.get("layers_per_block", 2),
         cross_attention_dim=uj.get("cross_attention_dim", 1024), attention_head_dim=64,
         norm_num_groups=uj.get("norm_num_groups", 32))
-    unet = load_weights(on_meta(paint_unet.UNet2p5D, ucfg), unet_sd, device, (), "unet")
-    vae = _sd_vae(root, device, (128, 256, 512, 512), 0.18215, "paint vae")
+    unet = load_weights(_in_dtype(on_meta(paint_unet.UNet2p5D, ucfg), dtype), unet_sd, device,
+                        (), "unet")
+    vae = _sd_vae(root, device, (128, 256, 512, 512), 0.18215, "paint vae", dtype=dtype)
     return HunyuanPaintPipeline(unet, vae, view_size=view_size, device=device)
 
 

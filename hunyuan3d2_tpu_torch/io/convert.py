@@ -139,8 +139,10 @@ def dinov2_state_dict(params: dict, cfg, prefix: str = "model.") -> Dict[str, np
         sd[f"{b}.norm2.weight"] = _f32(ly["norm2_scale"][i])
         sd[f"{b}.norm2.bias"] = _f32(ly["norm2_bias"][i])
         sd[f"{b}.layer_scale2.lambda1"] = _f32(ly["ls2"][i])
-        _lin(sd, f"{b}.mlp.weights_in", ly["ffn_in"], i)   # SwiGLU FFN
-        _lin(sd, f"{b}.mlp.weights_out", ly["ffn_out"], i)
+        ffn_in, ffn_out = (("weights_in", "weights_out") if cfg.use_swiglu_ffn  # SwiGLU
+                           else ("fc1", "fc2"))                                 # plain MLP
+        _lin(sd, f"{b}.mlp.{ffn_in}", ly["ffn_in"], i)
+        _lin(sd, f"{b}.mlp.{ffn_out}", ly["ffn_out"], i)
     sd["layernorm.weight"] = _f32(params["final_norm_scale"])
     sd["layernorm.bias"] = _f32(params["final_norm_bias"])
     return {prefix + k: v for k, v in sd.items()}

@@ -1,8 +1,9 @@
 """DINOv2 ViT image encoder (port of hunyuan3d2_tpu/models/dinov2.py).
 
 Giant: 1536 hidden, 40 layers, 24 heads, patch 14, SwiGLU FFN, LayerScale
-(the conditioner of every Hunyuan3D-2 shape model; the plain-MLP FFN variant
-is not ported).
+(the conditioner of every Hunyuan3D-2 shape model). With
+``use_swiglu_ffn=False`` the FFN is the plain MLP of the HF ViT-S/B/L
+configs: fc1 → exact GELU → fc2, ``mlp_ratio`` × hidden wide.
 Modules carry the HF ``Dinov2Model`` parameter names, so a checkpoint's
 state dict loads as it is. The patch embedding is one matmul over patches
 flattened channel-major (c, py, px), the order of the conv weight's
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from hunyuan3d2_tpu_torch.ops.attention import attention, merge_heads, split_heads
-from hunyuan3d2_tpu_torch.ops.nn import LayerNorm, Linear, dense, silu
+from hunyuan3d2_tpu_torch.ops.nn import LayerNorm, Linear, dense, gelu_exact, silu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +31,8 @@ class DinoConfig:
     image_size: int = 518
     swiglu_hidden: int = 4096
     num_channels: int = 3
+    use_swiglu_ffn: bool = True
+    mlp_ratio: int = 4
 
     @property
     def num_patches(self) -> int:
@@ -75,6 +78,18 @@ class SwiGLUFFN(nn.Module):
         return self.weights_out(silu(x1) * x2)
 
 
+class Mlp(nn.Module):
+    """The plain FFN (HF ``Dinov2MLP``): fc1 → exact (erf) GELU → fc2."""
+
+    def __init__(self, cfg: DinoConfig):
+        super().__init__()
+        self.fc1 = Linear(cfg.hidden_size, cfg.mlp_ratio * cfg.hidden_size)
+        self.fc2 = Linear(cfg.mlp_ratio * cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, x):
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -96,7 +111,7 @@ class Layer(nn.Module):
         self.attention.output.dense = Linear(h, h)
         self.layer_scale1 = LayerScale(h)
         self.norm2 = LayerNorm(h)
-        self.mlp = SwiGLUFFN(cfg)
+        self.mlp = SwiGLUFFN(cfg) if cfg.use_swiglu_ffn else Mlp(cfg)
         self.layer_scale2 = LayerScale(h)
 
     def forward(self, x):

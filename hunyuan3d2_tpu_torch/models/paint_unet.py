@@ -485,7 +485,9 @@ class UNet2p5D(nn.Module):
         """The reference 'w' pass: ref_latents [B, N_ref, h, w, 4] → the
         per-layer cache {layer: [B, N_ref·L, C]}. The dual copy has no camera
         embedding; the single-stream pass takes the reference camera indices
-        ``camera_info_ref`` [B, N_ref] (default 0)."""
+        ``camera_info_ref`` [B, N_ref] (default 0). Either pass attends to the
+        main UNet's ``learned_text_clip_ref``, as the JAX package's does (the
+        dual copy's own, which the checkpoint also holds, is not read)."""
         b, n_ref = ref_latents.shape[:2]
         ref = ref_latents.reshape((b * n_ref,) + ref_latents.shape[2:])
         cache: Dict[str, torch.Tensor] = {}
@@ -497,7 +499,7 @@ class UNet2p5D(nn.Module):
             if self.cfg.use_camera_embedding:
                 cam = torch.zeros(b, n_ref) if camera_info_ref is None else camera_info_ref
                 labels = torch.as_tensor(cam, dtype=torch.long, device=ref.device).reshape(-1)
-        ctx = core.learned_text_clip_ref.to(ref.dtype).expand(b * n_ref, -1, -1)
+        ctx = self.unet.learned_text_clip_ref.to(ref.dtype).expand(b * n_ref, -1, -1)
         core(ref, torch.zeros(b * n_ref, device=ref.device), ctx, labels, "w", n_ref, cache)
         return cache
 

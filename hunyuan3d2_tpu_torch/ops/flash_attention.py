@@ -18,14 +18,14 @@ A CPU tensor goes through :func:`flash_attention_plain`; a CUDA tensor
 launches the kernel or raises. The kernel's tile configuration (q rows and
 keys per tile, stages of the K/V ring) is a function of the call's shape
 (:func:`default_config`), chosen from the sweep of
-``hunyuan3d2_tpu_torch.tools.profile_flash_variants``. The unmasked fp32
-kernels run 3xTF32 products on tf32 ``wgmma``, which reads K-major operands
-only: a pre-pass inside their entry points writes each operand's TF32 big
-and small halves, transposed where a product reads it across rows
+``hunyuan3d2_tpu_torch.tools.profile_flash_variants``. The fp32 kernels,
+masked or not, run 3xTF32 products on tf32 ``wgmma``, which reads K-major
+operands only: a pre-pass inside their entry points writes each operand's
+TF32 big and small halves, transposed where a product reads it across rows
 (:func:`split_operand_plain` is its twin); the wrappers allocate that
-scratch. The masked kernel
-walks only the key tiles that hold an allowed pair; the wrapper finds them
-on the device (:func:`tile_map`), without a host synchronisation.
+scratch. The masked kernels walk only the key tiles that hold an allowed
+pair; the wrapper finds them on the device (:func:`tile_map`, at the
+kernel's own tiles), without a host synchronisation.
 
 The unmasked kernel has a gradient (:class:`_FlashAttentionFn`), written by
 hand too: under a gradient the forward launches the kernel's instance that
@@ -223,19 +223,20 @@ SM_COUNT = 132  # H100 SXM
 
 def default_config(b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype,
                    masked: bool = False) -> tuple:
-    """The kernel's (q rows, keys, stages) per tile for a call's shape. fp32:
-    the masked kernel (64, 64, 2); the unmasked one's third number is its
-    ring's slots: (128, 64, 4) at D = 64, or 64-row q tiles with 6 slots
-    where 128-row tiles would give fewer CTAs than the card has SMs, and
-    (64, 64, 2) at D = 128. bf16: the masked kernel (128, 128, 3) at D = 64
+    """The kernel's (q rows, keys, stages) per tile for a call's shape. fp32
+    (the third number is the ring's slots): (128, 64, 4) at D = 64, or for
+    the unmasked kernel 64-row q tiles with 6 slots where 128-row tiles
+    would give fewer CTAs than the card has SMs (the masked kernel keeps
+    one configuration a head size: its mask tiles ride in the even slots),
+    and (64, 64, 2) at D = 128. bf16: the masked kernel (128, 128, 3) at D = 64
     and (128, 128, 2) at D = 128 (what fits with the mask tiles); the
     unmasked kernel (128, 128, 3), or 64-row q tiles where 128-row tiles
     would give fewer CTAs than the card has SMs."""
     few = b * h * -(-lq // 128) < SM_COUNT
     if dtype == torch.float32:
-        if masked or d == 128:
+        if d == 128:
             return (64, 64, 2)
-        return (64, 64, 6) if few else (128, 64, 4)
+        return (64, 64, 6) if few and not masked else (128, 64, 4)
     if masked:
         return (128, 128, 3 if d == 64 else 2)
     return (64, 128, 3) if few else (128, 128, 3)
@@ -404,11 +405,11 @@ def _key_pad(lk: int) -> int:
     return -(-lk // 64) * 64
 
 
-def _forward_scratch(q, k, mask):
-    """The unmasked fp32 kernel's scratch, which its pre-pass fills with K's
-    and Vᵀ's split halves (2·n·Lk·D + 2·n·D·key_pad(Lk) floats); None for
-    the other kernels."""
-    if q.dtype != torch.float32 or mask is not None:
+def _forward_scratch(q, k):
+    """The fp32 kernels' scratch (masked or not), which their pre-pass fills
+    with K's and Vᵀ's split halves (2·n·Lk·D + 2·n·D·key_pad(Lk) floats);
+    None for bf16."""
+    if q.dtype != torch.float32:
         return None
     b, h, lk, d = k.shape
     return torch.empty(2 * b * h * d * (lk + _key_pad(lk)), dtype=torch.float32, device=q.device)
@@ -425,7 +426,7 @@ def _launch(q, k, v, mask, scale):
     occupancy = None if mask is None else tile_map(mask, bq, bk)
     out = torch.empty_like(q)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(occupancy),
-                 out.data_ptr(), _ptr(_forward_scratch(q, k, mask)), b * h, h, lq, lk, d,
+                 out.data_ptr(), _ptr(_forward_scratch(q, k)), b * h, h, lq, lk, d,
                  _DTYPES[q.dtype], float(scale), bq, bk, stages,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -441,7 +442,7 @@ def _launch_lse(q, k, v, scale):
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
     err = _lse_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                     _ptr(_forward_scratch(q, k, None)), b * h, lq, lk, d, _DTYPES[q.dtype],
+                     _ptr(_forward_scratch(q, k)), b * h, lq, lk, d, _DTYPES[q.dtype],
                      float(scale), bq, bk, stages, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention (lse) kernel launch failed: cudaError {err}")

@@ -13,6 +13,11 @@ The views are decoded one at a time and quantised to uint8 on the device.
 
 Randomness comes from an explicit ``torch.Generator``; ``init_latents`` and
 ``step_noises`` replace its draws (the tests inject the JAX package's).
+
+The stack computes in its weights' dtype (:attr:`HunyuanPaintPipeline.dtype`):
+bf16, or fp32 for a stack loaded with ``load_paint_pipeline(dtype="fp32")``.
+The JAX pipeline casts the latents to bf16 whatever its weights, so its
+fp32 stack runs bf16 activations; the port's runs fp32 (ROADMAP C.16).
 """
 
 from __future__ import annotations
@@ -133,12 +138,20 @@ class HunyuanPaintPipeline:
         self.is_turbo = turbo
         self.scheduler = LCMScheduler() if turbo else EulerAncestralDiscreteScheduler()
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the stack computes in: its weights' (bf16 as built,
+        fp32 where ``load_paint_pipeline(dtype="fp32")`` loaded it), read
+        from the VAE, which makes the latents (the loader builds the UNet
+        and the VAE in one dtype)."""
+        return self.vae.encoder.conv_in.weight.dtype
+
     def encode_images(self, images_u8: torch.Tensor) -> torch.Tensor:
         """[B, N, H, W, 3] uint8 → scaled latents [B, N, h, w, 4] fp32 (×2−1
-        in bf16, then the mode of the VAE posterior)."""
+        in the stack's dtype, then the mode of the VAE posterior)."""
         b, n = images_u8.shape[:2]
         flat = images_u8.reshape((b * n,) + tuple(images_u8.shape[2:])).to(self.device)
-        flat = flat.to(torch.bfloat16) / 255.0
+        flat = flat.to(self.dtype) / 255.0
         lat = self.vae.encode(flat * 2.0 - 1.0)
         return lat.reshape((b, n) + tuple(lat.shape[1:])).float()
 
@@ -146,7 +159,7 @@ class HunyuanPaintPipeline:
         """Latents [1, N, h, w, 4] → views [N, H, W, 3] uint8 on the device,
         one view at a time: the 512² decoder activations of six views at
         once would take several GB for the same total work."""
-        views = torch.stack([self.vae.decode(z[None].to(torch.bfloat16))[0] for z in latents[0]])
+        views = torch.stack([self.vae.decode(z[None].to(self.dtype))[0] for z in latents[0]])
         return torch.round((views.float() / 2 + 0.5).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
 
     @torch.no_grad()
@@ -156,9 +169,9 @@ class HunyuanPaintPipeline:
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The standard loop: EulerAncestral from x_T = σ₀·(unit draw), with
         classifier-free guidance when ``guidance_scale`` > 1. Latents
-        [1, N, h, w, 4] (bf16 into the UNet; the scaling, the guidance
-        combine and the step in fp32), camera indices [1, N] → views
-        [N, H, W, 3] uint8 on the device."""
+        [1, N, h, w, 4] (the stack's dtype into the UNet; the scaling, the
+        guidance combine and the step in fp32), camera indices [1, N] →
+        views [N, H, W, 3] uint8 on the device."""
         from hunyuan3d2_tpu_torch.parallel.sharding import gather_batch, shard_batch
 
         dev = self.device
@@ -196,8 +209,9 @@ class HunyuanPaintPipeline:
                     init_latents=None, step_noises=None,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The turbo loop: LCM consistency sampling, no CFG. Latents
-        [B, N, h, w, 4] (bf16 into the UNet), position_u8 [B, N, H, W, 3]
-        for the voxel masks → views [N, H, W, 3] uint8 on the device."""
+        [B, N, h, w, 4] (the stack's dtype into the UNet), position_u8
+        [B, N, H, W, 3] for the voxel masks → views [N, H, W, 3] uint8 on the
+        device."""
         dev = self.device
         masks = None
         if position_u8 is not None and mask_grids:
@@ -238,9 +252,8 @@ class HunyuanPaintPipeline:
         ref = torch.from_numpy(np.stack([_reference_array(im, size) for im in images])[None])
         normal, position = _stack_views(normal_imgs, size), _stack_views(position_imgs, size)
         with timed_scope("Paint VAE Encode"):
-            ref_latents = self.encode_images(ref).to(torch.bfloat16)
-            normal_latents = self.encode_images(normal).to(torch.bfloat16)
-            position_latents = self.encode_images(position).to(torch.bfloat16)
+            ref_latents, normal_latents, position_latents = (
+                self.encode_images(x).to(self.dtype) for x in (ref, normal, position))
         cam_gen = torch.as_tensor(camera_info_gen, dtype=torch.long, device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         if self.is_turbo:

@@ -1,5 +1,6 @@
-"""Kernel 1's fp32 path against an fp64 evaluation of its function, with the
-error bound that its arithmetic allows.
+"""The flash kernels' fp32 paths (kernel 1, and kernel 2 under its mask)
+against an fp64 evaluation of their function, with the error bound that
+their arithmetic allows.
 
     python -m hunyuan3d2_tpu_torch.tools.flash_fp32_error [--seeds 8]
 
@@ -14,10 +15,10 @@ it. With u = 2^-24 (fp32 unit roundoff):
   read it; the small·small term dropped) errs by at most ε_split = 5·2^-22
   of |x y|: |small| ≤ 2^-11 |x|, its truncation loses < 2^-10 of it
   (2^-21 |x|), so big·small and small·big each err by 2^-21 (1 + 2^-11)
-  |x y| and the dropped term is ≤ 2^-22 |x y|. (The masked kernel's split,
-  which also rounds small to nearest TF32, errs by 3·2^-22.) TF32 products
-  are exact in fp32.
-* Each ``wgmma`` (``mma.sync`` in the masked kernel) k step adds 8 products
+  |x y| and the dropped term is ≤ 2^-22 |x y|. TF32 products are exact in
+  fp32. The masked kernel splits so too, from the same pre-pass (its
+  mma.sync design rounded small to nearest TF32, 3·2^-22).
+* Each ``wgmma`` k step adds 8 products
   to its accumulator. Tensor cores may align the terms to the largest and
   truncate, so each such step is allowed two ulps (4u) of the sum of the
   magnitudes it has taken in; a chain of n steps on one accumulator errs
@@ -39,7 +40,13 @@ it. With u = 2^-24 (fp32 unit roundoff):
 * l, per thread 16 sums, one rescale and one add a tile, then two
   shuffle adds; the final division, a reciprocal refined by Newton's step
   and one corrected quotient (within 1 ulp, 2u): (u (18 ⌈Lk/64⌉ + 3) + 2u)
-  |o|. (The masked kernel divides in IEEE, u.)
+  |o|. The masked kernel divides so too (its mma.sync design divided in
+  IEEE, u).
+* Under a [B, Lq, Lk] mask (the masked kernel, kernel 2): masked logits
+  get no weight (p = 0 exactly), so Σ, A, R and T run over a row's allowed
+  keys only; the kernel visits only the key tiles holding an allowed pair,
+  at most ⌈Lk/64⌉, so the terms above stay upper bounds. A fully masked row
+  has o = T = 0 and a bound of 0: the kernel must give exactly 0 there.
 
 The bound is first order; a factor 1 + 2^-10 covers the rest. cuBLAS's
 fp32 GEMM (the plain twin on the card, and on the CPU) sums with round to
@@ -66,11 +73,13 @@ def _chunks(lq: int, rows: int):
 
 
 def attention_fp64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   scale: float = None, rows: int = 1024):
+                   scale: float = None, rows: int = 1024, mask: torch.Tensor = None):
     """The kernel's function in fp64 (q̂ rounded to q's dtype first), and the
     terms of the bound: (o, T, A, R), o and T [B, H, Lq, D], A and R
-    [B, H, Lq, 1], all fp64 on q's device. Computed in row chunks, which
-    keep the fp64 scores of ``rows`` queries in memory."""
+    [B, H, Lq, 1], all fp64 on q's device. ``mask`` [B, Lq, Lk] bool (True =
+    attend, shared across heads): each row over its allowed keys only, and
+    o = T = A = R = 0 on a row with none. Computed in row chunks, which keep
+    the fp64 scores of ``rows`` queries in memory."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qs = (q.float() * scale).to(q.dtype).double()
@@ -79,15 +88,22 @@ def attention_fp64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = {n: [] for n in ("o", "t", "a", "r")}
     for i0, i1 in _chunks(q.shape[2], rows):
         s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, i0:i1], k64)
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
-        l = p.sum(-1, keepdim=True)
+        a = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, i0:i1].abs(), ka)
+        if mask is None:
+            allowed = torch.ones((), dtype=torch.bool, device=q.device)
+        else:
+            allowed = mask[:, None, i0:i1].to(q.device)
+        any_key = allowed.any(-1, keepdim=True)
+        m = torch.where(allowed, s, -math.inf).amax(-1, keepdim=True)
+        m = torch.where(any_key, m, 0.0)
+        p = torch.where(allowed, torch.exp(s - m), 0.0)
+        l = torch.where(any_key, p.sum(-1, keepdim=True), 1.0)
         outs["o"].append(torch.einsum("bhqk,bhkd->bhqd", p, v64) / l)
         outs["t"].append(torch.einsum("bhqk,bhkd->bhqd", p, va) / l)
-        outs["r"].append(m - s.amin(-1, keepdim=True))
-        del s, p
-        outs["a"].append(torch.einsum("bhqd,bhkd->bhqk", qs[:, :, i0:i1].abs(), ka)
-                         .amax(-1, keepdim=True))
+        low = torch.where(allowed, s, math.inf).amin(-1, keepdim=True)
+        outs["r"].append(torch.where(any_key, m - low, 0.0))
+        outs["a"].append(torch.where(allowed, a, 0.0).amax(-1, keepdim=True))
+        del s, p, a
     return tuple(torch.cat(outs[n], dim=2) for n in ("o", "t", "a", "r"))
 
 
@@ -127,17 +143,24 @@ def error_bound(t, a, r, o, lk: int, d: int) -> torch.Tensor:
     return (eta * (t + o.abs()) + eps_pv * t + eps_l * o.abs()) * (1 + 2.0 ** -10)
 
 
-def fp32_error_bound(q, k, v, scale=None, rows: int = 1024):
-    """(fp64 result, its per-element error bound) for fp32 q, k, v."""
-    o, t, a, r = attention_fp64(q, k, v, scale, rows)
-    return o, error_bound(t, a, r, o, k.shape[2], q.shape[-1])
+def fp32_error_bound(q, k, v, scale=None, rows: int = 1024, mask=None):
+    """(fp64 result, its per-element error bound) for fp32 q, k, v, under
+    ``mask`` where one is given (:func:`attention_fp64`); a row with no
+    allowed key has a bound of 0."""
+    o, t, a, r = attention_fp64(q, k, v, scale, rows, mask)
+    bound = error_bound(t, a, r, o, k.shape[2], q.shape[-1])
+    if mask is not None:
+        bound = bound * mask.any(-1)[:, None, :, None].to(q.device)
+    return o, bound
 
 
 def check_against_fp64(out: torch.Tensor, ref: torch.Tensor, bound: torch.Tensor) -> dict:
-    """Max |out - ref|, the largest share of the bound it takes, and
+    """Max |out - ref|, the largest share of the bound it takes (an error
+    where the bound is 0 takes an infinite share, none takes 0), and
     whether every element lies within its bound."""
     err = (out.double() - ref).abs()
-    return {"max_abs_err": err.max().item(), "max_share_of_bound": (err / bound).max().item(),
+    share = torch.where(bound > 0, err / bound, torch.where(err > 0, math.inf, 0.0))
+    return {"max_abs_err": err.max().item(), "max_share_of_bound": share.max().item(),
             "max_bound": bound.max().item(), "within": bool((err <= bound).all().item())}
 
 

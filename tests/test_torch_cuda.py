@@ -144,6 +144,8 @@ def test_masked_flash_attention_skips_empty_tiles(gen, dt, tol):
     assert (out[:, :, 5] == 0).all() and (out[1, :, 700:830] == 0).all()
     torch.testing.assert_close(out.float(), flash_attention_masked_plain(q, k, v, mask).float(),
                                atol=tol, rtol=tol)
+    if dt == torch.float32:
+        _masked_fp32_rule(out, q, k, v, mask)
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(gen):
@@ -340,10 +342,36 @@ def test_geo_kernels_refuse_what_they_do_not_take(gen):
                   torch.zeros(96, device="cuda"), 1e-6)
 
 
-@pytest.mark.parametrize("dt,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def _masked_fp32_rule(out, q, k, v, mask):
+    """The fp32 rows' rule (test_flash_attention_fp32_error's) under a mask:
+    every element within the analysed bound of an fp64 evaluation of the
+    masked function (tools/flash_fp32_error.py; 0 on a fully masked row),
+    a max abs error within 8x and a relative RMS error within 4x the plain
+    twin's (fp32 GEMMs) on the same inputs."""
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention_masked_plain
+    from hunyuan3d2_tpu_torch.tools.flash_fp32_error import check_against_fp64, fp32_error_bound
+
+    ref, bound = fp32_error_bound(q, k, v, mask=mask)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    twin = flash_attention_masked_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    c = check_against_fp64(out, ref, bound)
+    assert c["within"], c
+    assert c["max_abs_err"] <= 8 * (twin.double() - ref).abs().max().item()
+    assert (out.double() - ref).norm() <= 4 * (twin.double() - ref).norm()
+
+
+# fp32 (kernel 2's 3xTF32 instance) is held to fp64; bf16 to the twin. The
+# masks' hard rows: fully masked (exactly 0), masked through the first key
+# tile (a leak of exp(0) = 1 there would show), one allowed key in the
+# ragged last tile. Lk % 16 != 0 (200, 333, 777, 1000) takes the byte-load
+# mask path; the last three shapes give more q tiles than the card has SMs.
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,h,lq,lk,d", [(1, 10, 6144, 6144, 64), (2, 3, 130, 200, 64),
-                                         (1, 4, 700, 333, 128), (2, 2, 512, 1040, 64)])
-def test_masked_flash_attention_kernel_matches_plain(gen, b, h, lq, lk, d, dt, tol):
+                                         (1, 4, 700, 333, 128), (2, 2, 512, 1040, 64),
+                                         (2, 8, 1500, 777, 128), (1, 16, 2100, 1000, 64),
+                                         (1, 20, 1536, 1536, 64)])
+def test_masked_flash_attention_kernel_matches_plain(gen, b, h, lq, lk, d, dt):
     from hunyuan3d2_tpu_torch.ops.flash_attention import (
         flash_attention_masked,
         flash_attention_masked_plain,
@@ -363,8 +391,13 @@ def test_masked_flash_attention_kernel_matches_plain(gen, b, h, lq, lk, d, dt, t
     assert flash_attention_masked.launches == before + 1
     assert out.dtype == dt and out.shape == q.shape
     assert (out[:, :, 0] == 0).all()
-    torch.testing.assert_close(out.float(), flash_attention_masked_plain(q, k, v, mask).float(),
-                               atol=tol, rtol=tol)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    if dt == torch.float32:
+        _masked_fp32_rule(out, q, k, v, mask)
+    else:
+        torch.testing.assert_close(out.float(),
+                                   flash_attention_masked_plain(q, k, v, mask).float(),
+                                   atol=tol, rtol=tol)
     torch.testing.assert_close(out[:, :, 2].float(), v[:, :, lk - 1].float(), atol=tol, rtol=tol)
 
 

@@ -333,9 +333,13 @@ def test_chip_smoke_reads_ptxas_spills_and_serialised_wgmma():
         registers=255, spill_stores=36, spill_loads=40, serialized=False)
     assert by_label[("dq", "bf16", (64, 128, 128, 2))] == dict(
         registers=90, spill_stores=0, spill_loads=0, serialized=True)
-    # the forward's instances (bool template arguments too); the masked fp32
-    # forward is not one of the gated names
+    # the forward's instances (bool template arguments too), the masked fp32
+    # one (kernel 2: kLse 0, kMask 1) among them; the bf16 masked forward is
+    # named so too, and the gate skips bf16 forwards
     assert chip_smoke.kernel1_instance(
-        "_ZN5flash16flash_f32_kernelILi64ELi128ELi64ELi4ELb1EEEv14CUtensorMap_st") == (
-        "flash", "f32", (64, 128, 64, 4, 1))
+        "_ZN5flash16flash_f32_kernelILi64ELi128ELi64ELi4ELb1ELb0EEEv14CUtensorMap_st") == (
+        "flash", "f32", (64, 128, 64, 4, 1, 0))
+    assert chip_smoke.kernel1_instance(
+        "_ZN5flash16flash_f32_kernelILi64ELi128ELi64ELi4ELb0ELb1EEEv14CUtensorMap_st") == (
+        "flash", "f32", (64, 128, 64, 4, 0, 1))
     assert chip_smoke.kernel1_instance("_ZN5flash23flash_f32_masked_kernelILi64EEEvPKf") is None

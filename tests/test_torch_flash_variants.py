@@ -78,18 +78,20 @@ def test_default_configs_are_compiled_variants():
     assert default_config(1, 2, 300, 77, 64, torch.bfloat16)[0] == 64   # 6 CTAs of 128 rows
 
 
-# (B, H, Lq, Lk, D, masked) → the fp32 kernels' (q rows, keys, stages or
-# slots): the unmasked kernel's tiles as csrc/flash_attention.cu compiles
-# them (FLASH_F32), 64-row q tiles where 128-row ones would leave SMs idle;
-# the masked kernel's one configuration
+# (B, H, Lq, Lk, D, masked) → the fp32 kernels' (q rows, keys, slots), as
+# csrc/flash_attention.cu compiles them (FLASH_F32, FLASH_F32_MASKED): the
+# unmasked kernel's 64-row q tiles where 128-row ones would leave SMs idle;
+# the masked kernel's one configuration a head size
 FP32_CONFIGS = {
     "vae": ((1, 16, 512, 512, 64, False), (64, 64, 6)),
     "vae full": ((1, 16, 3072, 3072, 64, False), (128, 64, 4)),
     "decode chunk": ((1, 16, 65536, 512, 64, False), (128, 64, 4)),
     "d128": ((1, 8, 1024, 1024, 128, False), (64, 64, 2)),
     "d128 many q tiles": ((2, 8, 4096, 4096, 128, False), (64, 64, 2)),
-    "masked": ((1, 10, 6144, 6144, 64, True), (64, 64, 2)),
+    "masked": ((1, 10, 6144, 6144, 64, True), (128, 64, 4)),
     "masked d128": ((1, 2, 300, 77, 128, True), (64, 64, 2)),
+    "masked few q tiles": ((2, 3, 130, 200, 64, True), (128, 64, 4)),
+    "masked grid 16": ((1, 20, 1536, 1536, 64, True), (128, 64, 4)),
 }
 
 
