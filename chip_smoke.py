@@ -60,9 +60,16 @@ Phases, in order; any failure exits non-zero:
      a seed, on a ~40k-face sphere from the port's surface nets: first with
      the paint-turbo sampler (LCM 10 steps), then on the same stack with the
      standard one (EulerAncestral 30 steps, CFG 2.0: the path
-     textured_glb_standard), each run cold and warm; stage times, launch
-     counts and peak memory; each textured GLB is written under tmp/ and
-     read back; then (path textured_glb_fp32) the same DEFAULT stack written
+     textured_glb_standard), each run cold and warm; stage times (the UV
+     unwrap's as "UV Unwrap (overlaps denoise)", the host worker process's
+     own time, and "UV Unwrap (wait)", the call's wait for it), launch
+     counts and peak memory; every textured call must have run its unwrap
+     in the host worker (its pid is not this process's); each textured GLB
+     is written under tmp/ and read back; after each sampler's runs, one
+     call on given init_latents / step_noises must equal the public stages
+     run by hand in the serial order (cond maps → multiview net →
+     mesh_uv_wrap → upload → bake → inpaint) bit for bit (texture, UVs,
+     faces, vertices); then (path textured_glb_fp32) the same DEFAULT stack written
      as a paint-turbo checkpoint under tmp/ and loaded back by
      load_paint_pipeline(dtype="fp32"): one turbo GLB, cold and warm, in
      which every attention launch is fp32 and the masked fp32 kernel runs
@@ -1152,6 +1159,19 @@ def _kernel_counters():
             **{n: getattr(g, n) for n in CHAIN_KERNELS}}
 
 
+# the textured call's unwrap: the worker's own time, overlapped with the
+# device's cond maps and diffusion, then the request's wait for it
+UNWRAP_STAGES = ("UV Unwrap (overlaps denoise)", "UV Unwrap (wait)")
+
+
+def unwrap_ran_in_worker(name, pipe):
+    """Fail unless the last textured call's unwrap ran in the host worker
+    process, not in this one."""
+    check(pipe.unwrap_pid is not None and pipe.unwrap_pid != os.getpid(),
+          f"{name}: the unwrap ran in process {pipe.unwrap_pid}, not in the host worker "
+          f"(this process is {os.getpid()})")
+
+
 def textured_runs(name, pipe, sphere, image, denoise_stage, glb):
     """Drive ``pipe(sphere, image)`` cold and warm with the kernels' counts
     set to 0 just before each run; log stage times, launch counts and peak
@@ -1175,7 +1195,7 @@ def textured_runs(name, pipe, sphere, image, denoise_stage, glb):
         launches = {n: fn.launches for n, fn in counters.items()}
         stages = {k: round(LAST_TIMINGS[k], 4) for k in (
             "Cond Maps (device)", "Paint VAE Encode", denoise_stage,
-            "Multiview Diffusion (device)", "UV Unwrap", "Bake Geometry (device)",
+            "Multiview Diffusion (device)", *UNWRAP_STAGES, "Bake Geometry (device)",
             "Texture Baking (device)", "Texture Inpaint")}
         log(f"{name} {run}: {elapsed:.3f} s, stages {json.dumps(stages)}, "
             f"{len(out.vertices)} vertices, {len(out.faces)} faces, launches "
@@ -1193,6 +1213,7 @@ def textured_runs(name, pipe, sphere, image, denoise_stage, glb):
         check(launches["rasterize"] == 13, f"{name}: {launches['rasterize']} rasterize "
               "launches, 13 expected")
         check(launches["flash_attention"] > 0, f"{name}: flash_attention was never launched")
+        unwrap_ran_in_worker(name, pipe)
     os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
     path = os.path.join(ROOT, "tmp", glb)
     out.export(path)
@@ -1203,6 +1224,41 @@ def textured_runs(name, pipe, sphere, image, denoise_stage, glb):
     log(f"{name}: wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes), "
         f"uv and texture read back")
     return launches
+
+
+def serial_check(name, pipe, sphere, image):
+    """The overlapped call (the unwrap in the host worker while the device
+    denoises) against the public stages run by hand in the serial order
+    (tools/texgen_overlap_ab.serial_texture: cond maps → multiview net →
+    mesh_uv_wrap in this process → upload → bake → inpaint) on the same
+    init_latents and step_noises: texture, UVs, faces and vertices bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from hunyuan3d2_tpu_torch.tools.texgen_overlap_ab import serial_texture
+
+    mv_net = pipe.models["multiview_model"]
+    lat = mv_net.view_size >> (len(mv_net.pipeline.vae.cfg.block_out_channels) - 1)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shape = (1, len(pipe.config.candidate_camera_azims), lat, lat, 4)
+    init = torch.randn(shape, generator=gen, device="cuda")
+    noises = [torch.randn(shape, generator=gen, device="cuda")
+              for _ in range(mv_net.num_inference_steps)]
+    t0 = time.perf_counter()
+    out = pipe(sphere, image, init_latents=init, step_noises=noises)
+    t_overlap = time.perf_counter() - t0
+    unwrap_ran_in_worker(name, pipe)
+    t0 = time.perf_counter()
+    ref = serial_texture(pipe, sphere, image, init_latents=init, step_noises=noises)
+    t_serial = time.perf_counter() - t0
+    same = {k: bool(np.array_equal(getattr(out, k), getattr(ref, k)))
+            for k in ("texture", "uv", "faces", "vertices")}
+    check(all(same.values()), f"{name}: the overlapped call differs from the serial stages "
+          f"({json.dumps(same)})")
+    log(f"{name}: overlapped call equals the serial stages bit for bit (texture, uv, faces, "
+        f"vertices; {len(out.faces)} faces); {t_overlap:.3f} s overlapped, {t_serial:.3f} s "
+        f"serial by hand, the unwrap in worker pid {pipe.unwrap_pid}")
 
 
 def texture_paths(sphere):
@@ -1221,12 +1277,18 @@ def texture_paths(sphere):
     log(f"texture paths: stack up in {time.perf_counter() - t0:.2f} s (paint UNet DEFAULT + "
         f"dual, SD VAE DEFAULT, random weights, seed 0); mesh {len(sphere.vertices)} vertices, "
         f"{len(sphere.faces)} faces")
+    from hunyuan3d2_tpu_torch.utils import host_worker
+
+    log(f"texture paths: the unwrap's host worker runs {host_worker.THREADS} threads; this host "
+        f"has {os.cpu_count()} CPUs")
     image = test_image()
     turbo = textured_runs("texture path", pipe.set_turbo(), sphere, image,
                           "Paint Denoising (turbo)", "chip_smoke_textured.glb")
     check(turbo["flash_attention_masked"] > 0, "texture path: the masked kernel never ran")
+    serial_check("texture path", pipe, sphere, image)
     standard = textured_runs("texture path standard", pipe.set_turbo(False), sphere, image,
                              "Paint Denoising", "chip_smoke_textured_standard.glb")
+    serial_check("texture path standard", pipe, sphere, image)
     # the standard loop builds no voxel masks
     check(standard["flash_attention_masked"] == 0,
           "texture path standard: the masked kernel was launched off its path")
@@ -1677,7 +1739,8 @@ def served_path():
                   and tex.texture.shape == (2048, 2048, 3), "served (b): no 2048² texture")
             log(f"served (b) /generate texture: {time.perf_counter() - t0:.3f} s, "
                 f"{len(tex.faces)} faces; postprocess (stage, faces in, faces out) "
-                f"{json.dumps(stages)}; stages {json.dumps({k: round(LAST_TIMINGS[k], 4) for k in ('Diffusion Sampling', 'Volume Decoding', 'FloaterRemover', 'DegenerateFaceRemover', 'FaceReducer', 'Cond Maps (device)', 'Multiview Diffusion (device)', 'UV Unwrap', 'Bake Geometry (device)', 'Texture Baking (device)', 'Texture Inpaint')})}")
+                f"{json.dumps(stages)}; stages {json.dumps({k: round(LAST_TIMINGS[k], 4) for k in ('Diffusion Sampling', 'Volume Decoding', 'FloaterRemover', 'DegenerateFaceRemover', 'FaceReducer', 'Cond Maps (device)', 'Multiview Diffusion (device)', *UNWRAP_STAGES, 'Bake Geometry (device)', 'Texture Baking (device)', 'Texture Inpaint')})}")
+            unwrap_ran_in_worker("served (b)", paint)
 
             # (c) /send, then /status until done
             t0 = time.perf_counter()
@@ -2508,6 +2571,7 @@ def parallel_world_one(launches_mesh, launches_tex, sphere):
     from hunyuan3d2_tpu_torch.parallel import make_mesh
     from hunyuan3d2_tpu_torch.parallel.mesh import init_process_group
     from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
+    from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
 
     image = test_image()
     call = dict(num_inference_steps=5, guidance_scale=5.0)   # the main path's, seed 1234
@@ -2544,6 +2608,9 @@ def parallel_world_one(launches_mesh, launches_tex, sphere):
         out = paint(sphere, image)
         torch.cuda.synchronize()
         tex_launches = {n: fn.launches for n, fn in counters.items()}
+        unwrap_ran_in_worker("parallel 14a textured", paint)
+        log(f"parallel 14a textured: stages "
+            f"{json.dumps({k: round(LAST_TIMINGS[k], 4) for k in UNWRAP_STAGES})}")
         check(np.array_equal(out.texture, textures[1]), "parallel 14a: the sharded texture "
               "differs from the unsharded run's (the two unsharded runs "
               f"{'agree' if np.array_equal(*textures) else 'differ too'})")

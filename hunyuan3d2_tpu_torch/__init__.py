@@ -5,7 +5,8 @@ single- or multiview → flow-matching DiT, with CFG or a guidance embedding →
 ShapeVAE → FlashVDM, hierarchical or vanilla decode → on-device surface
 nets or host marching cubes / tetrahedra), and
 mesh + image → textured mesh through the paint-turbo stack (device cond
-maps → 2.5D UNet multiview diffusion → UV unwrap → texture-space bake);
+maps → 2.5D UNet multiview diffusion → texture-space bake, the UV unwrap
+running meanwhile in a host worker process, utils/host_worker.py);
 the published checkpoints load with ``from_pretrained`` (io/checkpoints.py),
 meshes are cleaned on the host (geometry/postprocess.py), text → image runs
 through HunyuanDiT (pipelines/t2i.py, utils/text2image.py), and apps/ serves
@@ -21,19 +22,19 @@ Hand-written Hopper kernels: flash attention, unmasked and masked
 (csrc/flash_attention.cu), the fused geo decoder and the streamed decode's
 MLP tail (csrc/geo_decode.cu) and the z-buffer rasterizer
 (csrc/rasterize.cu); the unmasked flash kernel is differentiable (its
-backward is its plain twin's gradient), the others refuse inputs that
-require a gradient. Entry points run on ``cuda``
+backward is a hand-written kernel too, csrc/flash_attention_bwd.cu), the
+others refuse inputs that require a gradient. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on CPU tensors each kernel
 wrapper runs its plain PyTorch twin. The package imports neither ``jax``
 nor ``hunyuan3d2_tpu``.
 """
 
 from hunyuan3d2_tpu_torch.utils.logger import get_logger  # noqa: F401
-from hunyuan3d2_tpu_torch.utils.timer import synchronize_timer  # noqa: F401
 
-# The pipelines and models load at first use, so that importing the package
-# stays cheap.
+# The pipelines, the models and torch load at first use, so that importing
+# the package stays cheap (the host worker process imports no torch).
 _LAZY = {
+    "synchronize_timer": "hunyuan3d2_tpu_torch.utils.timer",
     "Hunyuan3DDiTFlowMatchingPipeline": "hunyuan3d2_tpu_torch.pipelines.shapegen",
     "Hunyuan3DDiTPipeline": "hunyuan3d2_tpu_torch.pipelines.shapegen",
     "Hunyuan3DPaintPipeline": "hunyuan3d2_tpu_torch.pipelines.texgen",

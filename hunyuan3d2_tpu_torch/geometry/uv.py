@@ -1302,3 +1302,12 @@ def mesh_uv_wrap(mesh: Mesh, max_faces: int = 500000000) -> Mesh:
         return mesh
     nv, nf, uv, _ = unwrap(mesh.vertices, mesh.faces)
     return Mesh(nv, nf, uv=uv)
+
+
+def mesh_uv_wrap_arrays(vertices: np.ndarray, faces: np.ndarray):
+    """``mesh_uv_wrap`` of the mesh (vertices, faces) → the wrapped mesh's
+    (vertices, faces, uv): the textured path's entry into its host worker
+    process (utils/host_worker.py). Module-level and on numpy arrays, so it
+    pickles; it touches no CUDA state and no MeshRender."""
+    out = mesh_uv_wrap(Mesh(vertices, faces))
+    return out.vertices, out.faces, out.uv

@@ -3,12 +3,16 @@ hunyuan3d2_tpu/pipelines/texgen.py, the device texture path).
 
 Six candidate cameras (azims [0, 90, 180, 270, 0, 180], elevs
 [0, 0, 0, 0, 90, −90], weights [1, .1, .5, .1, .05, .05]), render 2048,
-texture 2048, bake exponent 4. Stages, in order: cond maps (device raster) →
-multiview diffusion (the standard EulerAncestral + CFG sampler, or
-paint-turbo) → UV unwrap (host) → bake geometry (device) → bake (device) →
-inpaint (host). A failure raises: there is no host-bake fallback. The host
-renders and bake are public stage methods (``render_normal_multiview``,
-``render_position_multiview``, ``bake_from_multiview``).
+texture 2048, bake exponent 4. Stages: the UV unwrap (host) runs in the host
+worker process (utils/host_worker.py) from the start of the call, while the
+device computes the cond maps (device raster) and the multiview diffusion
+(the standard EulerAncestral + CFG sampler, or paint-turbo); then, with the
+unwrapped mesh, bake geometry (device) → bake (device) → inpaint (host). The
+result is the serial order's bit for bit. A failure raises: there is no
+host-bake fallback, and an unwrap that fails in the worker is not run again
+in-process. The host renders and bake are public stage methods
+(``render_normal_multiview``, ``render_position_multiview``,
+``bake_from_multiview``).
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ from hunyuan3d2_tpu_torch.geometry.render_device import (
     prepare_bake,
     upload_mesh,
 )
-from hunyuan3d2_tpu_torch.geometry.uv import mesh_uv_wrap
+from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
+from hunyuan3d2_tpu_torch.geometry.uv import mesh_uv_wrap_arrays
 from hunyuan3d2_tpu_torch.pipelines.multiview import Multiview_Diffusion_Net
-from hunyuan3d2_tpu_torch.utils.timer import timed_scope
+from hunyuan3d2_tpu_torch.utils import host_worker
+from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS, timed_scope
 
 
 class Hunyuan3DTexGenConfig:
@@ -69,6 +75,7 @@ class Hunyuan3DPaintPipeline:
         self.device = torch.device(device if device is not None else "cuda")
         self.render = MeshRender(default_resolution=self.config.render_size,
                                  texture_size=self.config.texture_size)
+        self.unwrap_pid = None   # the process that ran the last call's unwrap
 
     def shard(self, mesh=None):
         """Distribute the multiview diffusion stack over a (dp, tp)
@@ -180,6 +187,11 @@ class Hunyuan3DPaintPipeline:
         ``init_latents`` / ``step_noises`` replace the sampler's draws."""
         from PIL import Image
 
+        # the unwrap needs only the mesh: the host worker runs it while the
+        # device computes the cond maps and the diffusion (a mesh that has
+        # UVs is kept as it is)
+        unwrap = None if mesh.uv is not None else host_worker.submit(
+            mesh_uv_wrap_arrays, mesh.vertices, mesh.faces)
         images = image if isinstance(image, list) else [image]
         images = [self.recenter_image(Image.open(im) if isinstance(im, str) else im)
                   for im in images]
@@ -204,8 +216,13 @@ class Hunyuan3DPaintPipeline:
                            output_type="device", init_latents=init_latents,
                            step_noises=step_noises)
         del normal_dev, position_dev
-        with timed_scope("UV Unwrap"):
-            wrapped = mesh_uv_wrap(mesh)
+        if unwrap is None:
+            wrapped = mesh
+        else:
+            with timed_scope("UV Unwrap (wait)"):
+                (nv, nf, uv), seconds, self.unwrap_pid = unwrap.result()
+            LAST_TIMINGS["UV Unwrap (overlaps denoise)"] = seconds
+            wrapped = Mesh(nv, nf, uv=uv)
         self.render.load_mesh(wrapped)
         dev_mesh = upload_mesh(self.render, dev, need_uv=True)
         render_res = max(self.render.default_resolution)

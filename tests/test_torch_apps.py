@@ -137,7 +137,8 @@ def test_generate_textured_runs_postprocess_and_paint(server, tmp_path):
     assert mesh.uv is not None and mesh.texture is not None and mesh.texture.shape == (64, 64, 3)
     assert len(mesh.faces) <= 2000
     for stage in ("FloaterRemover", "DegenerateFaceRemover", "FaceReducer",
-                  "Multiview Diffusion (device)", "UV Unwrap"):
+                  "Multiview Diffusion (device)", "UV Unwrap (overlaps denoise)",
+                  "UV Unwrap (wait)"):
         assert stage in LAST_TIMINGS
 
 
