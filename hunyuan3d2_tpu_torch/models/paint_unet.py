@@ -522,3 +522,98 @@ class UNet2p5D(nn.Module):
             ref_scale = rs.repeat_interleave(n_gen).reshape(-1, 1, 1) if rs.ndim == 1 else rs
         out = self.unet(x, t, ctx, labels, "r", n_gen, cache, ref_scale, mva_scale, mva_masks)
         return out.reshape(b, n_gen, *out.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# analytic FLOPs (the paint stage's utilization)
+# ---------------------------------------------------------------------------
+def flops(cfg: PaintUNetConfig, h: int, w: int, num_views: int = 6, num_ref: int = 1,
+          batch: int = 1, mode: str = "r") -> float:
+    """Matmul and conv FLOPs of one :class:`UNetCore` pass over
+    ``batch · num_views`` samples at latent size (h, w): 2·k²·c_in·c_out
+    a pixel per conv, 2·c_in·c_out a row per linear, 4·T·S·d per attention;
+    norms and elementwise work are not counted. The walk is the modules'
+    (the same block loops, resolution halving and doubling, 77 text tokens,
+    the reference and multiview attentions in 'r' mode only). Attention is
+    counted dense: the key tiles that the masked kernel skips under the
+    turbo voxel mask are counted too. Returns the JAX package's float for
+    the same config fields (hunyuan3d2_tpu/models/paint_unet.py ``flops``)
+    and ``torch.utils.flop_counter``'s count of the port's pass."""
+    bn = batch * num_views
+    ted = cfg.time_embed_dim
+
+    def conv(cin, cout, k, pix):
+        return 2.0 * k * k * cin * cout * pix * bn
+
+    def lin(cin, cout, tokens_total):
+        return 2.0 * cin * cout * tokens_total
+
+    def res(cin, cout, pix):
+        r = conv(cin, cout, 3, pix) + conv(cout, cout, 3, pix)
+        r += lin(ted, cout, bn)                                   # time_emb_proj
+        if cin != cout:
+            r += conv(cin, cout, 1, pix)
+        return r
+
+    def t2d(ch, hh, ww):
+        t = hh * ww
+        tt = t * bn
+        x = 2 * lin(ch, ch, tt)                                   # proj_in, proj_out
+        x += 4 * lin(ch, ch, tt) + 4.0 * t * t * ch * bn          # attn1
+        x += 2 * lin(ch, ch, tt)                                  # attn2 q, out
+        x += 2 * lin(cfg.cross_attention_dim, ch, 77 * bn)        # attn2 k, v
+        x += 4.0 * t * 77 * ch * bn
+        if mode == "r" and cfg.use_reference_attention:
+            s = num_ref * t
+            x += 2 * lin(ch, ch, tt) + 2 * lin(ch, ch, s * bn)
+            x += 4.0 * t * s * ch * bn
+        if mode == "r" and cfg.use_multiview_attention and num_views > 1:
+            seq = num_views * t
+            x += 4 * lin(ch, ch, seq * batch) + 4.0 * seq * seq * ch * batch
+        x += lin(ch, 8 * ch, tt) + lin(4 * ch, ch, tt)            # GEGLU feed-forward
+        return x
+
+    chs = cfg.block_out_channels
+    n = len(chs)
+    hh, ww = h, w
+    f = conv(cfg.in_channels, chs[0], 3, hh * ww)
+    f += lin(chs[0], ted, bn) + lin(ted, ted, bn)                 # time MLP
+    c_in = chs[0]
+    for i, c_out in enumerate(chs):
+        for j in range(cfg.layers_per_block):
+            f += res(c_in if j == 0 else c_out, c_out, hh * ww)
+            if cfg.is_cross(i, down=True):
+                f += t2d(c_out, hh, ww)
+        if i < n - 1:
+            hh, ww = hh // 2, ww // 2
+            f += conv(c_out, c_out, 3, hh * ww)                   # stride-2 downsample
+        c_in = c_out
+    f += 2 * res(chs[-1], chs[-1], hh * ww) + t2d(chs[-1], hh, ww)
+    rev = list(reversed(chs))
+    for i, c_out in enumerate(rev):
+        prev = rev[max(i - 1, 0)]
+        skip_src = rev[min(i + 1, n - 1)]
+        for j in range(cfg.layers_per_block + 1):
+            res_skip = prev if j == 0 else c_out
+            skip_ch = c_out if j < cfg.layers_per_block else skip_src
+            f += res(res_skip + skip_ch, c_out, hh * ww)
+            if cfg.is_cross(i, down=False):
+                f += t2d(c_out, hh, ww)
+        if i < n - 1:
+            hh, ww = hh * 2, ww * 2
+            f += conv(c_out, c_out, 3, hh * ww)                   # post-upsample conv
+    f += conv(chs[0], cfg.out_channels, 3, hh * ww)
+    return f
+
+
+def apply_flops(cfg: PaintUNetConfig, h: int, w: int, num_views: int = 6, num_ref: int = 1,
+                batch: int = 1):
+    """(the 'r' pass's FLOPs, one a denoise step; the 'w' pass's, once a
+    call: :meth:`UNet2p5D.write_cache`) at latent size (h, w); ``batch`` is
+    2 under CFG."""
+    r = flops(cfg, h, w, num_views, num_ref, batch, mode="r")
+    wr = 0.0
+    if cfg.use_reference_attention:
+        dcfg = dual_config(cfg) if cfg.use_dual_stream else cfg
+        wr = flops(dcfg, h, w, num_ref, num_ref, batch, mode="w")
+    return r, wr

@@ -147,3 +147,55 @@ class AutoencoderKL(nn.Module):
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(upsample_nearest2x(x))
         return d.conv_out(silu(d.conv_norm_out(x, g)))
+
+
+def flops(cfg: SDVAEConfig, h: int, w: int, batch: int = 1, direction: str = "encode") -> float:
+    """Conv and attention FLOPs of one :meth:`AutoencoderKL.encode` (h, w the
+    image size) or :meth:`AutoencoderKL.decode` (h, w the latent size) of
+    ``batch`` images: 2·k²·c_in·c_out a pixel per conv, 4·T²·c for the
+    single-head mid attention; norms and elementwise work are not counted.
+    The JAX package's float for the same config fields
+    (hunyuan3d2_tpu/models/sd_vae.py ``flops``)."""
+    chs = cfg.block_out_channels
+    n = len(chs)
+
+    def conv(cin, cout, k, pix):
+        return 2.0 * k * k * cin * cout * pix * batch
+
+    def res(cin, cout, pix):
+        r = conv(cin, cout, 3, pix) + conv(cout, cout, 3, pix)
+        if cin != cout:
+            r += conv(cin, cout, 1, pix)
+        return r
+
+    def attn(c, pix):
+        return 4 * conv(c, c, 1, pix) + 4.0 * pix * pix * c * batch
+
+    pix = h * w
+    if direction == "encode":
+        f = conv(cfg.in_channels, chs[0], 3, pix)
+        c_in = chs[0]
+        for i, c_out in enumerate(chs):
+            for j in range(cfg.layers_per_block):
+                f += res(c_in if j == 0 else c_out, c_out, pix)
+            if i < n - 1:
+                pix //= 4
+                f += conv(c_out, c_out, 3, pix)
+            c_in = c_out
+        f += 2 * res(c_in, c_in, pix) + attn(c_in, pix)
+        f += conv(c_in, 2 * cfg.latent_channels, 3, pix)
+        f += conv(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1, pix)
+    else:
+        f = conv(cfg.latent_channels, cfg.latent_channels, 1, pix)
+        f += conv(cfg.latent_channels, chs[-1], 3, pix)
+        f += 2 * res(chs[-1], chs[-1], pix) + attn(chs[-1], pix)
+        c_in = chs[-1]
+        for i, c_out in enumerate(reversed(chs)):
+            for j in range(cfg.layers_per_block + 1):
+                f += res(c_in if j == 0 else c_out, c_out, pix)
+            if i < n - 1:
+                pix *= 4
+                f += conv(c_out, c_out, 3, pix)
+            c_in = c_out
+        f += conv(c_in, cfg.in_channels, 3, pix)
+    return f

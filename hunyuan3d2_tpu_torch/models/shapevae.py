@@ -224,6 +224,13 @@ def decode_queries_pruned(vae: "ShapeVAE", queries: torch.Tensor, k: torch.Tenso
     return g.output_proj(x)[..., 0]
 
 
+def decode_queries_topk(vae: "ShapeVAE", queries: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, k_top: int, group_size: int = 512) -> torch.Tensor:
+    """The pruned decode's 'mean' mode, under the name the JAX package keeps
+    for it."""
+    return decode_queries_pruned(vae, queries, k, v, k_top, group_size, mode="mean")
+
+
 class ShapeVAE(nn.Module):
     """Reference public surface: ``__call__`` (latents → hidden tokens),
     ``enable_flashvdm_decoder``, ``latents2mesh``, ``decode_grid``."""

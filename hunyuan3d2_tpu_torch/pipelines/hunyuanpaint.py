@@ -37,16 +37,22 @@ from hunyuan3d2_tpu_torch.pipelines.paint_schedulers import (
 from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 
+def to_rgb_image(image, bg: int = 255):
+    """A PIL image as RGB, any alpha composited on ``bg``; an RGB image or a
+    non-PIL input comes back as it is."""
+    from PIL import Image
+
+    if not isinstance(image, Image.Image) or image.mode == "RGB":
+        return image
+    arr = np.asarray(image.convert("RGBA")).astype(np.float32)
+    alpha = arr[..., 3:] / 255.0
+    return Image.fromarray((arr[..., :3] * alpha + bg * (1 - alpha)).astype(np.uint8))
+
+
 def _reference_array(image, size: int) -> np.ndarray:
     """A PIL reference image as uint8 RGB [size, size, 3]: alpha composited
     on white, then a bilinear resize to size²."""
-    from PIL import Image
-
-    if image.mode != "RGB":
-        arr = np.asarray(image.convert("RGBA")).astype(np.float32)
-        alpha = arr[..., 3:] / 255.0
-        image = Image.fromarray((arr[..., :3] * alpha + 255 * (1 - alpha)).astype(np.uint8))
-    return _control_array(image, size)
+    return _control_array(to_rgb_image(image), size)
 
 
 def _control_array(img, size: int) -> np.ndarray:

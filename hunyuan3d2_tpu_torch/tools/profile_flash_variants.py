@@ -41,11 +41,10 @@ from hunyuan3d2_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
     refuse_grad,
 )
+from hunyuan3d2_tpu_torch.utils.flops import HBM_BYTES_PER_S, PEAK_BF16
 
 # (q rows, keys, stages) per CTA, as compiled in csrc/flash_variants.cu
 VARIANTS = ((64, 128, 2), (64, 128, 3), (128, 64, 3), (128, 128, 2), (128, 128, 3))
-PEAK_BF16 = 989e12       # H100 SXM, dense bf16 tensor cores
-HBM_BYTES_PER_S = 3.35e12
 
 
 @functools.lru_cache(maxsize=None)

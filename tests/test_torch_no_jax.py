@@ -108,6 +108,9 @@ from hunyuan3d2_tpu_torch.parallel import collectives, diagnostics, mesh, pipeli
 from hunyuan3d2_tpu_torch.tools import parallel_check
 from hunyuan3d2_tpu_torch.tools import profile_flash_bwd_variants
 from hunyuan3d2_tpu_torch.pipelines import shapegen
+from hunyuan3d2_tpu_torch.utils import flops
+assert flops.dit_forward_flops(pipe.model.cfg, 64, 5, 2) > 0
+assert flops.volume_decode_queries(decoders.VanillaVolumeDecoder(), 16, 65536) == 17 ** 3
 assert all(hasattr(c, "shard") for c in (shapegen.Hunyuan3DDiTFlowMatchingPipeline,
                                          texgen.Hunyuan3DPaintPipeline,
                                          hunyuanpaint.HunyuanPaintPipeline))
