@@ -1,0 +1,9 @@
+"""volume_decoding_s: the program's "Volume Decoding" stage, mean seconds a request over the
+window (its own timed scope: host clock, device drained at both ends)."""
+
+SCOPE = "Volume Decoding"
+
+
+def read(run):
+    seconds = [t[SCOPE] for t in run.timings if SCOPE in t]
+    return sum(seconds) / len(seconds) if seconds else None
