@@ -42,6 +42,7 @@ from hunyuan3d2_tpu_torch.ops.geo_decoder import (
     fused_geo_supported,
 )
 from hunyuan3d2_tpu_torch.ops.nn import LayerNorm, Linear, build, gelu_exact, layer_norm
+from hunyuan3d2_tpu_torch.utils import timer
 from hunyuan3d2_tpu_torch.utils.logger import get_logger
 
 logger = get_logger("hunyuan3d2_tpu_torch.shapevae")
@@ -333,17 +334,27 @@ class ShapeVAE(nn.Module):
     def _decode_fn(self, k: torch.Tensor, v: torch.Tensor):
         """The FlashVDM decoder's decode (:meth:`query_decoder`); the dense
         fp32 decode (:meth:`decode_queries`) for the vanilla and hierarchical
-        decoders."""
+        decoders. Each call is a "Geo Decode" span that adds the queries it
+        sends to the request's "Volume Decoding/queries_sent"."""
         from hunyuan3d2_tpu_torch.volume import decoders
 
         if isinstance(self.volume_decoder, decoders.FlashVDMVolumeDecoding):
-            return self.query_decoder(k, v)
-        return lambda pts: self.decode_queries(pts, k, v)
+            fn = self.query_decoder(k, v)
+        else:
+            def fn(pts):
+                return self.decode_queries(pts, k, v)
+
+        def decode(pts):
+            with timer.span("Geo Decode"):
+                timer.add("Volume Decoding/queries_sent", pts.shape[0] * pts.shape[1])
+                return fn(pts)
+        return decode
 
     def _decode_sparse(self, latents, octree_resolution, num_chunks, box_v, mc_level):
         """A block-sparse decoder's (coarse16, blk_idx, fine16) for latents
         [1, L, C]."""
-        k, v = self.compute_kv(self.decode_latents(latents))
+        with timer.span("VAE Trunk"):
+            k, v = self.compute_kv(self.decode_latents(latents))
         return self.volume_decoder.decode_sparse(
             self._decode_fn(k, v), 1, octree_resolution, num_chunks, box_v, mc_level,
             device=self.device)
@@ -367,7 +378,8 @@ class ShapeVAE(nn.Module):
                 return decoders.assemble_sparse_grid(*sparse, octree_resolution, dec.block,
                                                      dec.coarse_factor)
             return dec.densify(*sparse, octree_resolution)
-        k, v = self.compute_kv(self.decode_latents(latents))
+        with timer.span("VAE Trunk"):
+            k, v = self.compute_kv(self.decode_latents(latents))
         grid = dec(self._decode_fn(k, v), batch_size=latents.shape[0],
                    octree_resolution=octree_resolution, num_chunks=num_chunks, box_v=box_v,
                    mc_level=mc_level, device=self.device)
@@ -403,8 +415,9 @@ class ShapeVAE(nn.Module):
                 latents[i:i + 1], octree_resolution, mc_level, num_chunks, mc_algo, box_v)]
         sparse = self._decode_sparse(latents, octree_resolution, num_chunks, box_v, mc_level)
         if hasattr(extractor, "from_actives"):
-            mesh = self._mesh_on_device(dec.densify(*sparse, octree_resolution), extractor,
-                                        octree_resolution, mc_level, box_v)
+            with timer.span("Surface"):
+                mesh = self._mesh_on_device(dec.densify(*sparse, octree_resolution), extractor,
+                                            octree_resolution, mc_level, box_v)
             if mesh is not None:
                 return [mesh]
         grid = decoders.assemble_sparse_grid(*sparse, octree_resolution, dec.block,

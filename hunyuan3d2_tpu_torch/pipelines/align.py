@@ -35,6 +35,7 @@ from hunyuan3d2_tpu_torch.pipelines.paint_schedulers import (
     draw,
     init_noise_sigma,
 )
+from hunyuan3d2_tpu_torch.utils import timer
 from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 # the align stack's SD1.5 UNet: plain 4-channel conv_in, cross 768, 8 heads
@@ -157,6 +158,7 @@ class ControlNetSDPipeline:
         # lat is in the scaled-latent space: decode divides by the factor
         return self.vae.decode(lat.to(torch.bfloat16)).float().clamp(-1.0, 1.0)
 
+    @timer.request("Align")
     def __call__(self, prompt="", control_image=None, ip_adapter_image=None, negative_prompt="",
                  init_image=None, strength: float = 1.0, num_inference_steps: int = 20,
                  guidance_scale: float = 8.0, controlnet_conditioning_scale: float = 1.0,

@@ -29,6 +29,7 @@ from hunyuan3d2_tpu_torch.pipelines.paint_schedulers import (
     draw,
     init_noise_sigma,
 )
+from hunyuan3d2_tpu_torch.utils import timer
 from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 # SD1.5 InstructPix2Pix UNet: 8-channel conv_in, cross 768, 8 heads a block
@@ -121,6 +122,7 @@ class DelightPipeline:
         out = self.vae.decode((lat * self.vae.cfg.scaling_factor).to(torch.bfloat16))
         return out.float().clamp(-1.0, 1.0)
 
+    @timer.request("Delight")
     def __call__(self, rgb01: np.ndarray, seed: int = 42, init_latents=None,
                  step_noises=None) -> np.ndarray:
         """rgb01 [H, W, 3] float in [0, 1] → the delit rgb01 [H, W, 3]: a

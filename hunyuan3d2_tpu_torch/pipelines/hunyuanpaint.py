@@ -34,6 +34,7 @@ from hunyuan3d2_tpu_torch.pipelines.paint_schedulers import (
     LCMScheduler,
     draw,
 )
+from hunyuan3d2_tpu_torch.utils import timer
 from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 
@@ -196,16 +197,18 @@ class HunyuanPaintPipeline:
         cache = self.unet.write_cache(ref_latents, cam_ref)
         sched = self.scheduler
         for i, t in enumerate(timesteps):
-            lat_in = torch.cat([latents, latents]) if do_cfg else latents
-            lat_in = shard_batch(sched.scale_model_input(lat_in, sigmas[i]), self.mesh)
-            pred = self.unet(lat_in.to(normal_latents.dtype), float(t), normal_latents,
-                             position_latents, cam_gen, cache, ref_scale=ref_scale).float()
-            pred = gather_batch(pred, self.mesh, batch)
-            if do_cfg:
-                uncond, cond = pred.chunk(2)
-                pred = uncond + guidance_scale * (cond - uncond)
-            noise = draw(None if step_noises is None else step_noises[i], shape, generator, dev)
-            latents, _ = sched.step(pred, latents, sigmas[i], sigmas[i + 1], noise)
+            with timer.span("Paint Step", device=latents.device):
+                lat_in = torch.cat([latents, latents]) if do_cfg else latents
+                lat_in = shard_batch(sched.scale_model_input(lat_in, sigmas[i]), self.mesh)
+                pred = self.unet(lat_in.to(normal_latents.dtype), float(t), normal_latents,
+                                 position_latents, cam_gen, cache, ref_scale=ref_scale).float()
+                pred = gather_batch(pred, self.mesh, batch)
+                if do_cfg:
+                    uncond, cond = pred.chunk(2)
+                    pred = uncond + guidance_scale * (cond - uncond)
+                noise = draw(None if step_noises is None else step_noises[i], shape, generator,
+                             dev)
+                latents, _ = sched.step(pred, latents, sigmas[i], sigmas[i + 1], noise)
         return self._decode_views(latents)
 
     @torch.no_grad()
@@ -229,11 +232,13 @@ class HunyuanPaintPipeline:
         ac = torch.from_numpy(np.asarray(alphas_cumprod, np.float32)).to(dev)
         steps = [int(t) for t in timesteps]
         for i, t in enumerate(steps):
-            t_next = steps[i + 1] if i + 1 < len(steps) else 0
-            pred = self.unet(latents.to(normal_latents.dtype), float(t), normal_latents,
-                             position_latents, cam_gen, cache, mva_masks=masks)
-            noise = draw(None if step_noises is None else step_noises[i], shape, generator, dev)
-            latents, _ = self.scheduler.step(pred.float(), latents, t, t_next, ac, noise)
+            with timer.span("Paint Step", device=latents.device):
+                t_next = steps[i + 1] if i + 1 < len(steps) else 0
+                pred = self.unet(latents.to(normal_latents.dtype), float(t), normal_latents,
+                                 position_latents, cam_gen, cache, mva_masks=masks)
+                noise = draw(None if step_noises is None else step_noises[i], shape, generator,
+                             dev)
+                latents, _ = self.scheduler.step(pred.float(), latents, t, t_next, ac, noise)
         return self._decode_views(latents)
 
     @torch.no_grad()

@@ -21,6 +21,7 @@ from hunyuan3d2_tpu_torch.models import shapevae as vae_lib
 from hunyuan3d2_tpu_torch.ops.nn import build
 from hunyuan3d2_tpu_torch.pipelines import schedulers as sched_lib
 from hunyuan3d2_tpu_torch.utils.imageproc import ImageProcessorV2
+from hunyuan3d2_tpu_torch.utils import timer
 from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 
@@ -205,18 +206,20 @@ class Hunyuan3DDiTPipeline:
             guidance = torch.full((cond.shape[0],), guidance_scale, device=self.device)
         cond, guidance = shard_batch((cond, guidance), self.mesh)
         for i in range(len(sigmas) - 1):
-            # np.float32 scalars: the step size is taken in fp32, as in the JAX loop
-            sigma, sigma_next = np.float32(sigmas[i]), np.float32(sigmas[i + 1])
-            inp = torch.cat([latents, latents]) if do_cfg else latents
-            batch = inp.shape[0]
-            inp = shard_batch(inp, self.mesh)
-            t = torch.full((inp.shape[0],), float(sigma), dtype=torch.float32, device=self.device)
-            v = self.model(inp.to(torch.bfloat16), t, cond, guidance).float()
-            v = gather_batch(v, self.mesh, batch)
-            if do_cfg:
-                v_cond, v_uncond = v.chunk(2)
-                v = v_uncond + guidance_scale * (v_cond - v_uncond)
-            latents = self.scheduler.step(latents, v, sigma, sigma_next)
+            with timer.span("DiT Step", device=latents.device):
+                # np.float32 scalars: the step size is taken in fp32, as in the JAX loop
+                sigma, sigma_next = np.float32(sigmas[i]), np.float32(sigmas[i + 1])
+                inp = torch.cat([latents, latents]) if do_cfg else latents
+                batch = inp.shape[0]
+                inp = shard_batch(inp, self.mesh)
+                t = torch.full((inp.shape[0],), float(sigma), dtype=torch.float32,
+                               device=self.device)
+                v = self.model(inp.to(torch.bfloat16), t, cond, guidance).float()
+                v = gather_batch(v, self.mesh, batch)
+                if do_cfg:
+                    v_cond, v_uncond = v.chunk(2)
+                    v = v_uncond + guidance_scale * (v_cond - v_uncond)
+                latents = self.scheduler.step(latents, v, sigma, sigma_next)
         return latents
 
     def _export(self, latents, output_type="trimesh", box_v=1.01, mc_level=0.0,
@@ -229,12 +232,14 @@ class Hunyuan3DDiTPipeline:
                                             mc_algo=mc_algo, box_v=box_v)
         if output_type == "raw":
             return outputs
-        return export_to_trimesh(outputs)
+        with timer.span("Export"):
+            return export_to_trimesh(outputs)
 
 
 class Hunyuan3DDiTFlowMatchingPipeline(Hunyuan3DDiTPipeline):
     """The image → mesh entry point."""
 
+    @timer.request("Image to Mesh")
     @torch.no_grad()
     def __call__(self, image=None, num_inference_steps: int = 50, guidance_scale: float = 5.0,
                  sigmas=None, octree_resolution: int = 384, mc_level: float = 0.0,

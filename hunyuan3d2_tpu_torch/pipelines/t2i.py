@@ -28,6 +28,7 @@ import torch
 from hunyuan3d2_tpu_torch.models import hunyuan_dit, sd_vae
 from hunyuan3d2_tpu_torch.ops.nn import build
 from hunyuan3d2_tpu_torch.pipelines.paint_schedulers import draw
+from hunyuan3d2_tpu_torch.utils import timer
 from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 
@@ -191,6 +192,7 @@ class HunyuanDiTTorchPipeline:
             lat = ddpm_step(pred, t, t_prev, lat, acp, noise, self.sched.prediction_type)
         return lat
 
+    @timer.request("Text to Image")
     @torch.no_grad()
     def __call__(self, prompt: str, seed: int = 0, negative_prompt: str = "",
                  init_latents=None, step_noises=None):

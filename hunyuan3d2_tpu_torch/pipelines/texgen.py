@@ -32,8 +32,8 @@ from hunyuan3d2_tpu_torch.geometry.render_device import (
 from hunyuan3d2_tpu_torch.geometry.mesh import Mesh
 from hunyuan3d2_tpu_torch.geometry.uv import mesh_uv_wrap_arrays
 from hunyuan3d2_tpu_torch.pipelines.multiview import Multiview_Diffusion_Net
-from hunyuan3d2_tpu_torch.utils import host_worker
-from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS, timed_scope
+from hunyuan3d2_tpu_torch.utils import host_worker, timer
+from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 
 class Hunyuan3DTexGenConfig:
@@ -181,6 +181,7 @@ class Hunyuan3DPaintPipeline:
     def texture_inpaint(self, texture: np.ndarray, mask: np.ndarray):
         return self.render.uv_inpaint(texture, mask)
 
+    @timer.request("Mesh to Texture")
     @torch.no_grad()
     def __call__(self, mesh, image, init_latents=None, step_noises=None):
         """Texture ``mesh`` from ``image`` (a PIL image, a path, or a list).
@@ -220,8 +221,8 @@ class Hunyuan3DPaintPipeline:
             wrapped = mesh
         else:
             with timed_scope("UV Unwrap (wait)"):
-                (nv, nf, uv), seconds, self.unwrap_pid = unwrap.result()
-            LAST_TIMINGS["UV Unwrap (overlaps denoise)"] = seconds
+                (nv, nf, uv), _, self.unwrap_pid, interval = unwrap.result()
+            timer.record_span("UV Unwrap (overlaps denoise)", *interval)
             wrapped = Mesh(nv, nf, uv=uv)
         self.render.load_mesh(wrapped)
         dev_mesh = upload_mesh(self.render, dev, need_uv=True)

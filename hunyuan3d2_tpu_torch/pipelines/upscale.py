@@ -27,6 +27,7 @@ import torch
 from hunyuan3d2_tpu_torch.models import paint_unet, sd_vae
 from hunyuan3d2_tpu_torch.ops.nn import build
 from hunyuan3d2_tpu_torch.pipelines.paint_schedulers import DDIMScheduler, draw
+from hunyuan3d2_tpu_torch.utils import timer
 from hunyuan3d2_tpu_torch.utils.timer import timed_scope
 
 # stabilityai/stable-diffusion-x4-upscaler UNet: 7-channel conv_in (4 latent
@@ -117,6 +118,7 @@ class UpscalePipeline:
         out = self.vae.decode((lat * self.vae.cfg.scaling_factor).to(torch.bfloat16))
         return out.float().clamp(-1.0, 1.0)
 
+    @timer.request("Upscale")
     def __call__(self, image, prompt: str = "", seed: int = 0, lowres_noise=None,
                  init_latents=None):
         """PIL → PIL at 4× (the reference's Image_Super_Net call). The prompt

@@ -60,9 +60,10 @@ def _exit_with(parent):
 
 
 def _timed(fn, args):
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     value = fn(*args)
-    return value, time.perf_counter() - t0, os.getpid()
+    t1 = time.perf_counter_ns()
+    return value, (t1 - t0) * 1e-9, os.getpid(), (t0, t1)
 
 
 def _start() -> ProcessPoolExecutor:
@@ -72,8 +73,11 @@ def _start() -> ProcessPoolExecutor:
 
 def submit(fn, *args) -> Future:
     """Run ``fn(*args)`` in the worker (``fn`` a module-level function, the
-    arguments picklable). The future's result is ``(value, seconds, pid)``:
-    the worker's own wall time of the call and its process id."""
+    arguments picklable). The future's result is ``(value, seconds, pid,
+    (start_ns, end_ns))``: the worker's own wall time of the call, its
+    process id, and the call's start and end on the worker's
+    ``time.perf_counter_ns`` clock (CLOCK_MONOTONIC on Linux, which the
+    processes of one machine share)."""
     global _pool
     with _lock:
         if _pool is None:

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hunyuan3d2_tpu_torch.utils import timer
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -126,6 +128,8 @@ class HierarchicalVolumeDecoding:
         score = near.float().reshape(nb, cf, nb, cf, nb, cf).sum(dim=(1, 3, 5)).reshape(-1)
         k = max(1, min(int(nb ** 3 * self.capacity_frac), nb ** 3))
         blk_idx = torch.sort(stable_topk(score, k)).values
+        # the queries this decode needs: the coarse points and the chosen blocks'
+        timer.add("Volume Decoding/queries_needed", ncp ** 3 + k * block ** 3)
 
         loc = torch.arange(block, device=device)
         lx, ly, lz = torch.meshgrid(loc, loc, loc, indexing="ij")

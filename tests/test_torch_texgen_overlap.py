@@ -89,8 +89,8 @@ def test_worker_unwrap_equals_in_process_unwrap():
     few thousand faces."""
     mesh = _sphere(res=34)
     assert 3000 <= len(mesh.faces) <= 6000, len(mesh.faces)
-    (v, f, uv), seconds, pid = host_worker.submit(mesh_uv_wrap_arrays, mesh.vertices,
-                                                  mesh.faces).result()
+    (v, f, uv), seconds, pid, _ = host_worker.submit(mesh_uv_wrap_arrays, mesh.vertices,
+                                                     mesh.faces).result()
     ref = mesh_uv_wrap(mesh)
     assert pid != os.getpid() and seconds > 0
     for got, want in ((v, ref.vertices), (f, ref.faces), (uv, ref.uv)):

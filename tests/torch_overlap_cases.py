@@ -27,3 +27,20 @@ def worker_state():
     loaded = [m for m in ("torch", "jax", "hunyuan3d2_tpu") if m in sys.modules]
     return {var: os.environ.get(var) for var in
             ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}, loaded
+
+
+def gated_unwrap(directory, vertices, faces):
+    """The unwrap, held open around the parent's denoise: it writes
+    ``<directory>/started`` and waits (at most a minute) for
+    ``<directory>/denoised`` before it unwraps."""
+    import time
+
+    from hunyuan3d2_tpu_torch.geometry.uv import mesh_uv_wrap_arrays
+
+    open(os.path.join(directory, "started"), "w").close()
+    deadline = time.monotonic() + 60
+    while not os.path.exists(os.path.join(directory, "denoised")):
+        if time.monotonic() > deadline:
+            raise TimeoutError("the parent never finished its denoise")
+        time.sleep(0.005)
+    return mesh_uv_wrap_arrays(vertices, faces)
