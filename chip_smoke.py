@@ -55,6 +55,10 @@ Phases, in order; any failure exits non-zero:
      3072-latent FULL ShapeVAE through the streamed decode at octree 380 and
      num_chunks 200,000), run cold and warm (the warm run's utilization as
      in phase 4), the GLB written and read back;
+     the DiT forward's CUDA graph against its eager body at the path's
+     shape on 3 seeds and at the multiview's, bit for bit, each call
+     counting one kernel-1 launch a block, with each one's device time a
+     forward and what each key's capture reserves (``dit_graph_check``);
      its decode against the plain decode on a small grid; then one warm run
      of the multiview variant (3 views through DinoImageEncoderMV and
      MVImageProcessorV2 on the same stack); then the stack is freed;
@@ -841,6 +845,12 @@ def shape_run(name, pipe, image, runs, must_launch, must_not_launch=(), mfu=Fals
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in counters.items()}
+        # an unsharded DiT on the card replays its graph at every step
+        steps = LAST_TIMINGS.get("DiT Step/n", 0)
+        replays = LAST_TIMINGS.get("DiT/graph_replays", 0)
+        graphed = getattr(pipe.model, "parallel_mesh", None) is None
+        check(steps > 0 and replays == (steps if graphed else 0),
+              f"{name} {run}: {replays} DiT graph replays in {steps} steps")
         mesh = meshes[0]
         stages = {k: round(LAST_TIMINGS[k], 4) for k in
                   ("Preprocess", "Encode Cond", "Diffusion Sampling", "Volume Decoding")}
@@ -980,6 +990,81 @@ def v20_path():
                                octree_resolution=380, num_chunks=200000)
     write_glb("v2-0 path", mesh, "chip_smoke_v20.glb")
     return pipe, launches
+
+
+def dit_graph_check(model, seeds=(0, 1, 2), iters=5):
+    """The DiT forward's CUDA graph (models/dit.py ``Hunyuan3DDiT.forward``)
+    at the v2-0 Fast shape with the guidance embedding (x [1, 3072, 64],
+    cond [1, 1370, 1536] bf16): on each seed the replayed velocity equals
+    the eager body's bit for bit, and each call, the capturing one too,
+    adds one launch a block to kernel 1's counter, as an eager call does.
+    Logs what each of the module's two keys on the paths here (the
+    single-view cond, then the 3-view multiview's 4,110 tokens) reserves
+    and keeps allocated at its capture beyond an eager forward of the same
+    key (the module's one graph pool; the static buffers; cuBLAS's
+    workspace for the capture stream where this process made none
+    before), and a forward's device stretch (CUDA events around ``iters``
+    calls) and host seconds to enqueue it, eager and replayed."""
+    import torch
+
+    from hunyuan3d2_tpu_torch.ops.flash_attention import flash_attention
+
+    blocks = model.cfg.depth + model.cfg.depth_single_blocks
+    model._drop_graphs()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rows, memory = [], []
+    with torch.no_grad():
+        for seed in seeds + (seeds[0],):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            x = torch.randn(1, 3072, 64, generator=gen, device="cuda").to(torch.bfloat16)
+            t = torch.rand(1, generator=gen, device="cuda")
+            # the seeds' calls, then the multiview key's, on the first seed
+            cond_tokens = 1370 if len(rows) < len(seeds) else 4110
+            cond = torch.randn(1, cond_tokens, 1536, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+            g = torch.full((1,), 5.0, device="cuda")
+            if cond_tokens == 1370:
+                single = (x, t, cond, g)
+            # the eager forward first, as a request's memory would hold it:
+            # the capture's deltas are then what the graph adds
+            eager = model._forward(x, t, cond, g)
+            torch.cuda.synchronize()
+            reserved, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+            launches = flash_attention.launches
+            replayed = model(x, t, cond, g)
+            torch.cuda.synchronize()
+            counted = flash_attention.launches - launches
+            if len(model._graphs) > len(memory):
+                memory.append(dict(
+                    cond_tokens=cond_tokens,
+                    reserved_mib=round((torch.cuda.memory_reserved() - reserved) / 2 ** 20, 1),
+                    allocated_mib=round((torch.cuda.memory_allocated() - allocated
+                                         - replayed.nbytes) / 2 ** 20, 2)))
+            diff = (replayed.float() - eager.float()).abs().max().item()
+            rows.append(dict(seed=seed, cond_tokens=cond_tokens,
+                             equal=torch.equal(replayed, eager), max_abs_diff=diff,
+                             kernel1_launches=counted))
+        timing = {}
+        for name, fn in (("eager", lambda: model._forward(*single)),
+                         ("graph", lambda: model(*single))):
+            device_ms = time_ms(fn, iters)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            host_ms = 1e3 * (time.perf_counter() - t0) / iters
+            torch.cuda.synchronize()
+            timing[name] = dict(device_ms=round(device_ms, 3), host_ms=round(host_ms, 3))
+    log(f"dit graph: {json.dumps(rows)}; each key's capture {json.dumps(memory)}; "
+        f"a forward {json.dumps(timing)}")
+    check(len(memory) == 2, f"dit graph: {len(memory)} captures for 2 keys")
+    for r in rows:
+        check(r["equal"], f"dit graph: seed {r['seed']} ({r['cond_tokens']} cond tokens): the "
+              f"replay differs from the eager body by up to {r['max_abs_diff']}")
+        check(r["kernel1_launches"] == blocks, f"dit graph: seed {r['seed']}: the call counted "
+              f"{r['kernel1_launches']} kernel-1 launches, the forward has {blocks}")
+    return rows, timing
 
 
 def v20_decode_breakdown(pipe, gen):
@@ -2848,6 +2933,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pipe, launches_v20 = v20_path()
+    dit_graph_check(pipe.model)
     v20_decode_breakdown(pipe, gen)
     decode_agreement(pipe, gen)
     launches_mv = multiview_run(pipe)

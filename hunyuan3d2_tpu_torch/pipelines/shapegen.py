@@ -162,8 +162,11 @@ class Hunyuan3DDiTPipeline:
 
     def enable_model_cpu_offload(self, *args, **kwargs):
         """Keep the weights in host memory between calls: each call moves
-        them to the device first and back to the host after."""
+        them to the device first and back to the host after. The DiT then
+        runs its eager body: a move drops its CUDA graph, which each call
+        would capture anew."""
         self._auto_offload = True
+        self.model.moved_each_call = True
         return self
 
     def compile(self):
