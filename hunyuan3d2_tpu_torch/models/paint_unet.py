@@ -136,6 +136,33 @@ def compute_multi_resolution_mask(position_maps: torch.Tensor,
     return masks
 
 
+def multiview_calls(cfg: "PaintUNetConfig", h: int, w: int, num_views: int) -> Dict[int, int]:
+    """{multiview token count: calls} of the multiview attention in one 'r'
+    pass of :class:`UNet2p5D` at latent size (h, w): a call in every
+    transformer block, at ``num_views`` times the block's tokens (the
+    modules' walk, as :func:`flops` takes it). Empty without multiview
+    attention or with one view."""
+    if not cfg.use_multiview_attention or num_views < 2:
+        return {}
+    out: Dict[int, int] = {}
+
+    def at(hh, ww, k):
+        if k:
+            out[num_views * hh * ww] = out.get(num_views * hh * ww, 0) + k
+
+    n = len(cfg.block_out_channels)
+    for i in range(n):
+        at(h, w, cfg.layers_per_block if cfg.is_cross(i, down=True) else 0)
+        if i < n - 1:
+            h, w = h // 2, w // 2
+    at(h, w, 1)                                                    # the mid block
+    for i in range(n):
+        at(h, w, cfg.layers_per_block + 1 if cfg.is_cross(i, down=False) else 0)
+        if i < n - 1:
+            h, w = h * 2, w * 2
+    return out
+
+
 def compute_discrete_voxel_indice(position: torch.Tensor, grid_resolution: int = 8,
                                   voxel_resolution: int = 128) -> torch.Tensor:
     """Quantised voxel indices per pooled grid cell: the voxel mask's

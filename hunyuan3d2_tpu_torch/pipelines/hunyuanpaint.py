@@ -91,6 +91,11 @@ def _stack_views(views, size: int) -> torch.Tensor:
     return torch.from_numpy(np.stack([_control_array(v, size) for v in views])[None])
 
 
+# the prefix of the masked multiview attention's counters: the textured
+# path's stage that runs the denoise
+MVA_COUNTER = "Multiview Diffusion"
+
+
 class PaintResult:
     def __init__(self, images):
         self.images = images
@@ -239,7 +244,25 @@ class HunyuanPaintPipeline:
                 noise = draw(None if step_noises is None else step_noises[i], shape, generator,
                              dev)
                 latents, _ = self.scheduler.step(pred.float(), latents, t, t_next, ac, noise)
+        if masks:
+            self._count_mask_pairs(masks, tuple(normal_latents.shape[1:4]), len(steps))
         return self._decode_views(latents)
+
+    def _count_mask_pairs(self, masks, views_hw, forwards: int):
+        """The request's counters of the masked multiview attention, one pair
+        a grid, keyed by its multiview token count L: the (query, key) pairs
+        its voxel mask allows ("…/mva_pairs_live/L") and all its pairs
+        ("…/mva_pairs_masked_total/L"), each times the 'r' forwards and the
+        calls a forward makes at that grid. The allowed pairs are summed on
+        the device: the request reads them at its end (utils/timer.py)."""
+        n, h, w = views_hw
+        for tokens, calls in paint_unet.multiview_calls(self.unet.cfg, h, w, n).items():
+            mask = masks.get(tokens)
+            if mask is not None:
+                timer.add(f"{MVA_COUNTER}/mva_pairs_live/{tokens}",
+                          mask.sum() * (calls * forwards))
+                timer.add(f"{MVA_COUNTER}/mva_pairs_masked_total/{tokens}",
+                          mask.numel() * calls * forwards)
 
     @torch.no_grad()
     def __call__(self, image, *, normal_imgs, position_imgs, camera_info_gen: List[List[int]],

@@ -18,7 +18,7 @@ The recorder keys the same scopes by request:
   (markers), read only at the request's end, when the stages' drains have
   completed them: the span's device seconds.
 * :func:`add` keeps a counter at its source in the open request
-  (``Request.totals``).
+  (``Request.totals``); a device tensor's sum is read at the request's end.
 * :func:`record_span` adds work that ran in another process as a stage
   span, with its own ``LAST_TIMINGS`` key.
 
@@ -185,8 +185,8 @@ def _close(s: Span):
 
 def _finish(req: Request):
     """Read the request's markers (completed by the stages' drains; one
-    still pending is left unread), free its events, keep the record and
-    write its flat view."""
+    still pending is left unread) and its counters summed on the device,
+    free its events, keep the record and write its flat view."""
     global _flat_keys
     for s in req.spans:
         if s._markers is None:
@@ -198,6 +198,9 @@ def _finish(req: Request):
             pass
         _events.extend((a, b))
         s._markers = None
+    for k, v in req.totals.items():
+        if isinstance(v, torch.Tensor):     # summed on the device (``add``)
+            req.totals[k] = v.item()
     _records.append(req)
     flat = req.flat()
     with _flat_lock:
@@ -255,8 +258,10 @@ def record_span(name: str, start_ns: int, end_ns: int):
     parent.request.spans.append(s)
 
 
-def add(key: str, n: int):
-    """Add ``n`` to the open request's ``totals[key]`` (a flat view key)."""
+def add(key: str, n):
+    """Add ``n`` to the open request's ``totals[key]`` (a flat view key).
+    ``n`` may be a tensor on the device: the sum stays there, with no host
+    sync, and is read at the request's end, after the stages' drains."""
     s = _current.get()
     if s is not None:
         totals = s.request.totals
