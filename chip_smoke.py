@@ -80,7 +80,11 @@ Phases, in order; any failure exits non-zero:
      call on given init_latents / step_noises must equal the public stages
      run by hand in the serial order (cond maps → multiview net →
      mesh_uv_wrap → upload → bake → inpaint) bit for bit (texture, UVs,
-     faces, vertices); then (path textured_glb_fp32) the same DEFAULT stack written
+     faces, vertices); after each sampler's runs, calls with the 2.5D
+     UNet's step graphs against one with them off: latents and views bit
+     for bit, one capture and a replay a step, each call's step host
+     seconds, device stretch a step and peak memory
+     (``paint_graph_check``); then (path textured_glb_fp32) the same DEFAULT stack written
      as a paint-turbo checkpoint under tmp/ and loaded back by
      load_paint_pipeline(dtype="fp32"): one turbo GLB, cold and warm, in
      which every attention launch is fp32 and the masked fp32 kernel runs
@@ -1506,6 +1510,104 @@ def serial_check(name, pipe, sphere, image):
         f"serial by hand, the unwrap in worker pid {pipe.unwrap_pid}")
 
 
+def paint_graph_check(name, pipe, sphere, image, runs=("graph", "graph", "eager", "graph")):
+    """The 2.5D UNet's step graphs (models/paint_unet.py ``UNet2p5D.forward``
+    inside the loop's ``step_graphs`` scope) at full width on the pipeline's
+    sampler: textured calls on the same init_latents and step_noises, with
+    the scope (``graph``) and with it turned off (``eager``, the eager
+    body at every step). Every graphed call's denoised latents and decoded
+    views equal the eager call's bit for bit, and it counts one capture and
+    one replay a step; the eager call counts neither. Logs each call's
+    seconds, its "Paint Step" host seconds and device stretch a step, the
+    peak memory allocated in the denoise (reference pass, loop, decode) and
+    in the call, and what the card's reserved memory grew by."""
+    import torch
+
+    from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
+
+    mv_net = pipe.models["multiview_model"]
+    mv = mv_net.pipeline
+    lat = mv_net.view_size >> (len(mv.vae.cfg.block_out_channels) - 1)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    shape = (1, len(pipe.config.candidate_camera_azims), lat, lat, 4)
+    init = torch.randn(shape, generator=gen, device="cuda")
+    noises = [torch.randn(shape, generator=gen, device="cuda")
+              for _ in range(mv_net.num_inference_steps)]
+    kept, mem = {}, {}
+    loop = "denoise_lcm" if mv.is_turbo else "denoise"
+    decode, denoise = mv._decode_views, getattr(mv, loop)
+
+    def keep_views(latents):
+        kept["latents"] = latents.detach().clone()
+        views = decode(latents)
+        kept["views"] = views.detach().clone()
+        return views
+
+    def watch_denoise(*args, **kwargs):
+        torch.cuda.synchronize()
+        mem["before"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = denoise(*args, **kwargs)
+        torch.cuda.synchronize()
+        mem["denoise"] = torch.cuda.max_memory_allocated()
+        return out
+
+    rows, results = [], []
+    mv._decode_views = keep_views
+    setattr(mv, loop, watch_denoise)
+    try:
+        for run in runs:
+            if run == "eager":
+                mv.unet.step_graphs = contextlib.nullcontext
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reserved = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            pipe(sphere, image, init_latents=init, step_noises=noises)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            vars(mv.unet).pop("step_graphs", None)
+            steps = LAST_TIMINGS.get("Paint Step/n", 0)
+            rows.append(dict(
+                run=run, s=round(elapsed, 4), steps=steps,
+                step_host_s=round(LAST_TIMINGS.get("Paint Step", 0.0) / max(steps, 1), 5),
+                step_device_s=round(LAST_TIMINGS.get("Paint Step/device_s", 0.0)
+                                    / max(steps, 1), 5),
+                replays=LAST_TIMINGS.get("Paint/graph_replays", 0),
+                captures=LAST_TIMINGS.get("Paint/graph_captures", 0),
+                denoise_peak_gib=round(mem["denoise"] / 2 ** 30, 4),
+                call_peak_gib=round(max(mem["before"], torch.cuda.max_memory_allocated())
+                                    / 2 ** 30, 4),
+                reserved_grew_mib=round((torch.cuda.memory_reserved() - reserved) / 2 ** 20, 1)))
+            results.append((run, kept.pop("latents"), kept.pop("views")))
+    finally:
+        mv._decode_views = decode
+        vars(mv).pop(loop, None)
+        vars(mv.unet).pop("step_graphs", None)
+    log(f"{name} step graphs: {json.dumps(rows)}")
+    _, lat_e, views_e = next(r for r in results if r[0] == "eager")
+    for i, (row, (run, latents, views)) in enumerate(zip(rows, results)):
+        check(row["steps"] > 0 and row["steps"] == rows[0]["steps"],
+              f"{name} step graphs: call {i} ran {row['steps']} steps")
+        if run == "eager":
+            check(row["replays"] == 0 and row["captures"] == 0
+                  and torch.equal(latents, lat_e) and torch.equal(views, views_e),
+                  f"{name} step graphs: eager call {i} counted {row['replays']} replays, "
+                  f"{row['captures']} captures, or its output differs from the first's")
+            continue
+        check(row["captures"] == 1 and row["replays"] == row["steps"],
+              f"{name} step graphs: call {i} counted {row['captures']} captures and "
+              f"{row['replays']} replays in {row['steps']} steps")
+        diff = (latents.float() - lat_e.float()).abs().max().item()
+        check(torch.equal(latents, lat_e) and torch.equal(views, views_e),
+              f"{name} step graphs: call {i}'s latents differ from the eager call's by up to "
+              f"{diff}, its views equal: {torch.equal(views, views_e)}")
+    log(f"{name} step graphs: every graphed call's latents and views equal the eager call's "
+        "bit for bit")
+    return rows
+
+
 def texture_paths(sphere):
     """Slice 2 at full width through the user's entry points, on one random
     paint stack: the paint-turbo sampler (LCM 10 steps), then the standard
@@ -1531,9 +1633,11 @@ def texture_paths(sphere):
                           "Paint Denoising (turbo)", "chip_smoke_textured.glb", mfu=True)
     check(turbo["flash_attention_masked"] > 0, "texture path: the masked kernel never ran")
     serial_check("texture path", pipe, sphere, image)
+    paint_graph_check("texture path", pipe, sphere, image)
     standard = textured_runs("texture path standard", pipe.set_turbo(False), sphere, image,
                              "Paint Denoising", "chip_smoke_textured_standard.glb", mfu=True)
     serial_check("texture path standard", pipe, sphere, image)
+    paint_graph_check("texture path standard", pipe, sphere, image, runs=("graph", "eager"))
     # the standard loop builds no voxel masks
     check(standard["flash_attention_masked"] == 0,
           "texture path standard: the masked kernel was launched off its path")

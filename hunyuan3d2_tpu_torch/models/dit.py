@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import sys
 import threading
 from typing import NamedTuple, Optional
 
@@ -28,10 +27,10 @@ from hunyuan3d2_tpu_torch.ops.attention import attention, merge_heads, split_qkv
 from hunyuan3d2_tpu_torch.ops.embeddings import timestep_embedding
 from hunyuan3d2_tpu_torch.ops.nn import Linear, RMSNorm, gelu_tanh, layer_norm, silu
 from hunyuan3d2_tpu_torch.utils import timer
+from hunyuan3d2_tpu_torch.utils.cuda_graphs import capture_stream, launch_counts
 
 GRAPHS = 2                  # captured forwards a module keeps, the least recently used dropped
 _GRAPH_LOCK = threading.Lock()
-_CAPTURE_STREAMS = {}       # device → the side stream every capture on it uses
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,27 +179,6 @@ class _Graph(NamedTuple):
     launches: tuple         # (op, n): the kernel launches of the ops' counters in one replay
 
 
-def _launch_counts() -> dict:
-    """Each launch counter of the port's ops (an op function's
-    ``launches``, e.g. ``flash_attention.launches``) → its count."""
-    counts = {}
-    for name, mod in list(sys.modules.items()):
-        if name.startswith("hunyuan3d2_tpu_torch.ops.") and mod is not None:
-            for fn in vars(mod).values():
-                if callable(fn) and type(getattr(fn, "launches", None)) is int:
-                    counts[fn] = fn.launches
-    return counts
-
-
-def _capture_stream(device: torch.device):
-    """One side stream a device for the captures: cuBLAS keeps a workspace
-    for each stream it runs on, so one stream holds one more."""
-    stream = _CAPTURE_STREAMS.get(device)
-    if stream is None:
-        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
-    return stream
-
-
 class Hunyuan3DDiT(nn.Module):
     def __init__(self, cfg: DiTConfig = FULL):
         super().__init__()
@@ -313,14 +291,14 @@ class Hunyuan3DDiT(nn.Module):
         device = args[0].device
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        before = _launch_counts()
+        before = launch_counts()
         self._forward(*inputs)
-        stream = _capture_stream(device)
+        stream = capture_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream):
             self._forward(*(a if a is None or a.dim() < 3 else a[:, :8] for a in inputs))
-            warm = _launch_counts()
+            warm = launch_counts()
             # thread_local: work that other threads enqueue meanwhile is theirs
             graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
             try:
@@ -328,7 +306,7 @@ class Hunyuan3DDiT(nn.Module):
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(device).wait_stream(stream)
-        after = _launch_counts()
+        after = launch_counts()
         for fn, n in after.items():         # the warm-ups and the recording count nothing
             fn.launches -= n - before.get(fn, 0)
         launches = tuple((fn, n - warm.get(fn, 0)) for fn, n in after.items()

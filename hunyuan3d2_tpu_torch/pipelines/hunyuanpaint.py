@@ -11,6 +11,10 @@ loop over the 2.5D UNet:
   * turbo (LCM, no CFG): the voxel-locality multiview masks are built once.
 The views are decoded one at a time and quantised to uint8 on the device.
 
+Each loop runs inside the UNet's ``step_graphs`` scope: on the card an
+unsharded loop replays its 'r' passes from CUDA graphs captured at its
+first step (models/paint_unet.py ``UNet2p5D.forward``).
+
 Randomness comes from an explicit ``torch.Generator``; ``init_latents`` and
 ``step_noises`` replace its draws (the tests inject the JAX package's).
 
@@ -201,19 +205,20 @@ class HunyuanPaintPipeline:
             (ref_latents, normal_latents, position_latents, cam_gen, cam_ref, ref_scale), self.mesh)
         cache = self.unet.write_cache(ref_latents, cam_ref)
         sched = self.scheduler
-        for i, t in enumerate(timesteps):
-            with timer.span("Paint Step", device=latents.device):
-                lat_in = torch.cat([latents, latents]) if do_cfg else latents
-                lat_in = shard_batch(sched.scale_model_input(lat_in, sigmas[i]), self.mesh)
-                pred = self.unet(lat_in.to(normal_latents.dtype), float(t), normal_latents,
-                                 position_latents, cam_gen, cache, ref_scale=ref_scale).float()
-                pred = gather_batch(pred, self.mesh, batch)
-                if do_cfg:
-                    uncond, cond = pred.chunk(2)
-                    pred = uncond + guidance_scale * (cond - uncond)
-                noise = draw(None if step_noises is None else step_noises[i], shape, generator,
-                             dev)
-                latents, _ = sched.step(pred, latents, sigmas[i], sigmas[i + 1], noise)
+        with self.unet.step_graphs():
+            for i, t in enumerate(timesteps):
+                with timer.span("Paint Step", device=latents.device):
+                    lat_in = torch.cat([latents, latents]) if do_cfg else latents
+                    lat_in = shard_batch(sched.scale_model_input(lat_in, sigmas[i]), self.mesh)
+                    pred = self.unet(lat_in.to(normal_latents.dtype), float(t), normal_latents,
+                                     position_latents, cam_gen, cache, ref_scale=ref_scale).float()
+                    pred = gather_batch(pred, self.mesh, batch)
+                    if do_cfg:
+                        uncond, cond = pred.chunk(2)
+                        pred = uncond + guidance_scale * (cond - uncond)
+                    noise = draw(None if step_noises is None else step_noises[i], shape,
+                                 generator, dev)
+                    latents, _ = sched.step(pred, latents, sigmas[i], sigmas[i + 1], noise)
         return self._decode_views(latents)
 
     @torch.no_grad()
@@ -236,14 +241,15 @@ class HunyuanPaintPipeline:
         cache = self.unet.write_cache(ref_latents)
         ac = torch.from_numpy(np.asarray(alphas_cumprod, np.float32)).to(dev)
         steps = [int(t) for t in timesteps]
-        for i, t in enumerate(steps):
-            with timer.span("Paint Step", device=latents.device):
-                t_next = steps[i + 1] if i + 1 < len(steps) else 0
-                pred = self.unet(latents.to(normal_latents.dtype), float(t), normal_latents,
-                                 position_latents, cam_gen, cache, mva_masks=masks)
-                noise = draw(None if step_noises is None else step_noises[i], shape, generator,
-                             dev)
-                latents, _ = self.scheduler.step(pred.float(), latents, t, t_next, ac, noise)
+        with self.unet.step_graphs():
+            for i, t in enumerate(steps):
+                with timer.span("Paint Step", device=latents.device):
+                    t_next = steps[i + 1] if i + 1 < len(steps) else 0
+                    pred = self.unet(latents.to(normal_latents.dtype), float(t), normal_latents,
+                                     position_latents, cam_gen, cache, mva_masks=masks)
+                    noise = draw(None if step_noises is None else step_noises[i], shape,
+                                 generator, dev)
+                    latents, _ = self.scheduler.step(pred.float(), latents, t, t_next, ac, noise)
         if masks:
             self._count_mask_pairs(masks, tuple(normal_latents.shape[1:4]), len(steps))
         return self._decode_views(latents)

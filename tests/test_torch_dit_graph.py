@@ -27,7 +27,7 @@ import torch
 
 from hunyuan3d2_tpu_torch.models import dit
 from hunyuan3d2_tpu_torch.ops.nn import build
-from hunyuan3d2_tpu_torch.utils import timer
+from hunyuan3d2_tpu_torch.utils import cuda_graphs, timer
 
 REPLAYS = "DiT/graph_replays"
 LATENTS, COND = 16, 8
@@ -73,7 +73,7 @@ class Card:
                 self.replays += 1
                 # the captured kernels launch no op of the port's: the counts
                 # the replayed body adds here are taken back
-                counts = dit._launch_counts()
+                counts = cuda_graphs.launch_counts()
                 for m in card.models:
                     for entry in m._graphs.values():
                         if entry.graph is self:
@@ -127,7 +127,7 @@ def card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: c.current)
     monkeypatch.setattr(torch.cuda, "stream", c.use_stream)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: c.capturing)
-    monkeypatch.setattr(dit, "_CAPTURE_STREAMS", {})
+    monkeypatch.setattr(cuda_graphs, "_CAPTURE_STREAMS", {})
     return c
 
 
@@ -171,7 +171,7 @@ def test_one_capture_a_key_then_replays(card, guidance_embed):
     assert [g.replays for g in card.graphs] == [3, 1]
     # every capture ran on the one side stream, keeping other threads' work
     # out, into the module's one pool
-    stream = dit._CAPTURE_STREAMS[torch.device("cpu")]
+    stream = cuda_graphs._CAPTURE_STREAMS[torch.device("cpu")]
     assert card.captures == [(stream, "thread_local", (0, 1))] * 2
 
 

@@ -11,6 +11,7 @@ outside its jit and handed to the port. The JAX texture pipeline runs its
 device path, the Pallas rasterizer in interpret mode (HY3D_DEVICE_BAKE=force).
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -237,6 +238,9 @@ class _RecordingUNet:
 
     def __init__(self):
         self.cache_ref, self.cache_cam, self.calls = None, None, []
+
+    def step_graphs(self):
+        return contextlib.nullcontext()
 
     def write_cache(self, ref_latents, camera_info_ref=None):
         self.cache_ref, self.cache_cam = ref_latents.clone(), camera_info_ref.clone()
