@@ -40,10 +40,7 @@ Phases, in order; any failure exits non-zero:
   4. slice 1 at full width: image → mesh with DINOv2-giant, the mini DiT
      (5 steps, CFG 5.0) and the mini ShapeVAE (FlashVDM decode at octree 256,
      capped surface buffers), random weights from a seed, run cold and warm;
-     the kernels' launch counts are read from the warm run, and so is its
-     utilization (mfu_cond_dit over Encode Cond + Diffusion Sampling,
-     mfu_volume_decode over Volume Decoding: the analytic FLOPs of
-     utils/flops.py for the calls the run made, over the bf16 peak); the GLB is
+     the kernels' launch counts are read from the warm run; the GLB is
      written under tmp/; then the decode against the plain decode on a small
      grid; then one warm run each of the 'mc' and 'mt' extractors at octree
      256 and of the vanilla and hierarchical decoders (the dense fp32
@@ -53,8 +50,7 @@ Phases, in order; any failure exits non-zero:
   5. slice 3 at full width: image → mesh on the v2-0 stack (DINOv2-giant,
      the FULL DiT with the guidance embedding, 5 steps at guidance 5.0, the
      3072-latent FULL ShapeVAE through the streamed decode at octree 380 and
-     num_chunks 200,000), run cold and warm (the warm run's utilization as
-     in phase 4), the GLB written and read back;
+     num_chunks 200,000), run cold and warm, the GLB written and read back;
      the DiT forward's CUDA graph against its eager body at the path's
      shape on 3 seeds and at the multiview's, bit for bit, each call
      counting one kernel-1 launch a block, with each one's device time a
@@ -71,10 +67,7 @@ Phases, in order; any failure exits non-zero:
      textured_glb_standard), each run cold and warm; stage times (the UV
      unwrap's as "UV Unwrap (overlaps denoise)", the host worker process's
      own time, and "UV Unwrap (wait)", the call's wait for it), launch
-     counts and peak memory, the warm turbo and standard runs'
-     mfu_paint_diffusion (models/paint_unet.py and sd_vae.py's FLOPs for
-     the UNet passes, encodes and decodes the run made, over Multiview
-     Diffusion (device)); every textured call must have run its unwrap
+     counts and peak memory; every textured call must have run its unwrap
      in the host worker (its pid is not this process's); each textured GLB
      is written under tmp/ and read back; after each sampler's runs, one
      call on given init_latents / step_noises must equal the public stages
@@ -687,149 +680,10 @@ def test_image():
     return Image.fromarray(img)
 
 
-@contextlib.contextmanager
-def tapped(taps):
-    """Within the block, ``obj.attr`` is ``wrap(obj.attr)`` for each (obj,
-    attr, wrap) of ``taps``: an instance attribute over the class's method,
-    removed after."""
-    for obj, attr, wrap in taps:
-        setattr(obj, attr, wrap(getattr(obj, attr)))
-    try:
-        yield
-    finally:
-        for obj, attr, _ in taps:
-            delattr(obj, attr)
-
-
-def recorder(out, shape_of):
-    """A wrap for :func:`tapped` that appends ``shape_of(*args)`` to ``out``
-    before each call."""
-    def wrap(fn):
-        def call(*args, **kwargs):
-            out.append(shape_of(*args))
-            return fn(*args, **kwargs)
-        return call
-    return wrap
-
-
-def shape_taps(pipe, calls):
-    """Taps that record what one image → mesh call runs: each DiT forward's
-    (batch, latent tokens, cond tokens), each DINOv2 encode's pixel shape
-    and the queries of every call of the volume decode's decode function."""
-    def decode_fn(make):
-        def counted_decode_fn(k, v):
-            fn = make(k, v)
-
-            def decode(pts):
-                calls["queries"].append(pts.shape[0] * pts.shape[1])
-                return fn(pts)
-            return decode
-        return counted_decode_fn
-
-    def dit_shape(x, t, cond, *rest):
-        return x.shape[0], x.shape[1], cond.shape[1]
-
-    return ((pipe.model, "forward", recorder(calls["dit"], dit_shape)),
-            (pipe.conditioner.main.model, "forward", recorder(calls["dino"], lambda px: px.shape)),
-            (pipe.vae, "_decode_fn", decode_fn))
-
-
-def paint_taps(mv, calls):
-    """Taps that record what one multiview diffusion runs: the 2.5D UNet's
-    'r' passes and 'w' passes ([B, views, h, w]) and the VAE's encodes and
-    decodes ([B, H, W])."""
-    return ((mv.unet, "forward", recorder(calls["r"], lambda x, *a: x.shape[:4])),
-            (mv.unet, "write_cache", recorder(calls["w"], lambda x, *a: x.shape[:4])),
-            (mv.vae, "encode", recorder(calls["encode"], lambda x: x.shape[:3])),
-            (mv.vae, "decode", recorder(calls["decode"], lambda x: x.shape[:3])))
-
-
-def utilization(name, stages):
-    """Log one line for a path's warm run: for each stage of ``stages``
-    ({metric: (FLOPs, its timed scopes, what was counted)}), its analytic
-    TFLOP, the seconds of its scopes in LAST_TIMINGS, the achieved TFLOP/s
-    and the share of the bf16 peak, which must lie in (0, 1]. A missing
-    scope fails the run."""
-    from hunyuan3d2_tpu_torch.utils.flops import mfu
-    from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
-
-    out = {}
-    for metric, (work, scopes, counts) in stages.items():
-        missing = [k for k in scopes if k not in LAST_TIMINGS]
-        check(not missing, f"{name}: no time for scope(s) {missing}")
-        seconds = sum(LAST_TIMINGS[k] for k in scopes)
-        share = mfu(work, seconds)
-        check(work > 0 and 0.0 < share <= 1.0,
-              f"{name}: {metric} {share} from {work} FLOPs in {seconds} s")
-        out[metric] = dict(share=share, tflop=work / 1e12, seconds=seconds,
-                           tflop_per_s=work / seconds / 1e12, scopes=" + ".join(scopes),
-                           peak_tflop_per_s=PEAK_BF16 / 1e12, counted=counts)
-    log(f"{name} utilization (warm run; matmul and conv work, attention counted dense): "
-        f"{json.dumps(out)}")
-    return out
-
-
-def shape_utilization(name, pipe, calls, octree_resolution, num_chunks):
-    """mfu_cond_dit and mfu_volume_decode of an image → mesh call from what
-    :func:`shape_taps` recorded: the DINOv2 encodes and the DiT forwards as
-    called, and the decode's queries from the decoder object, which must
-    equal the queries its decode function was called with."""
-    from hunyuan3d2_tpu_torch.utils import flops
-
-    dino = pipe.conditioner.main.cfg.dino
-    check(calls["dit"] and calls["dino"] and calls["queries"],
-          f"{name}: no DiT, DINOv2 or decode call recorded")
-    check(all(tuple(s[1:3]) == (dino.image_size,) * 2 for s in calls["dino"]),
-          f"{name}: DINOv2 encoded {calls['dino']}, not {dino.image_size}² images")
-    images = sum(s[0] for s in calls["dino"])
-    dit = sum(flops.dit_forward_flops(pipe.model_cfg, lat, cond, b)
-              for b, lat, cond in calls["dit"])
-    queries = flops.volume_decode_queries(pipe.vae.volume_decoder, octree_resolution,
-                                          num_chunks)
-    check(queries == sum(calls["queries"]), f"{name}: {sum(calls['queries'])} queries sent, "
-          f"{queries} counted from the decoder")
-    (b, lat, cond), steps = calls["dit"][0], len(calls["dit"])
-    return utilization(name, {
-        "mfu_cond_dit": (flops.dino_encode_flops(dino, images) + dit,
-                         ("Encode Cond", "Diffusion Sampling"),
-                         dict(dino_images=images, dino_tflop=flops.dino_encode_flops(dino, images)
-                              / 1e12, dit_steps=steps, dit_batch=b, latent_tokens=lat,
-                              cond_tokens=cond, dit_tflop_a_step=dit / steps / 1e12)),
-        "mfu_volume_decode": (flops.volume_decode_flops(pipe.vae.cfg, queries),
-                              ("Volume Decoding",),
-                              dict(queries=queries, decode_calls=len(calls["queries"]),
-                                   mflop_a_query=flops.geo_query_flops(pipe.vae.cfg) / 1e6))})
-
-
-def paint_utilization(name, mv, calls):
-    """mfu_paint_diffusion of a textured call from what :func:`paint_taps`
-    recorded: every 'r' and 'w' pass of the 2.5D UNet and every VAE encode
-    and decode, as called."""
-    from hunyuan3d2_tpu_torch.models import paint_unet, sd_vae
-
-    check(calls["r"] and calls["w"] and calls["encode"] and calls["decode"],
-          f"{name}: no UNet pass, VAE encode or decode recorded")
-    ucfg, vcfg = mv.unet.cfg, mv.vae.cfg
-    n_ref = calls["w"][0][1]
-    check(all(s[1] == n_ref for s in calls["w"]), f"{name}: reference counts {calls['w']}")
-    step = sum(paint_unet.flops(ucfg, h, w, n, n_ref, b, "r") for b, n, h, w in calls["r"])
-    cache_build = sum(paint_unet.apply_flops(ucfg, h, w, 1, n, b)[1] for b, n, h, w in calls["w"])
-    enc = sum(sd_vae.flops(vcfg, h, w, b, "encode") for b, h, w in calls["encode"])
-    dec = sum(sd_vae.flops(vcfg, h, w, b, "decode") for b, h, w in calls["decode"])
-    b, n, h, w = calls["r"][0]
-    return utilization(name, {"mfu_paint_diffusion": (
-        step + cache_build + enc + dec, ("Multiview Diffusion (device)",),
-        dict(unet_steps=len(calls["r"]), unet_batch=b, views=n, latent=h, reference_views=n_ref,
-             unet_tflop_a_step=step / len(calls["r"]) / 1e12, cache_build_tflop=cache_build / 1e12,
-             vae_encodes=sum(s[0] for s in calls["encode"]), vae_encode_tflop=enc / 1e12,
-             vae_decodes=sum(s[0] for s in calls["decode"]), vae_decode_tflop=dec / 1e12))})
-
-
-def shape_run(name, pipe, image, runs, must_launch, must_not_launch=(), mfu=False, **call):
+def shape_run(name, pipe, image, runs, must_launch, must_not_launch=(), **call):
     """Drive ``pipe(image, **call)`` once per run name with the kernels'
     counts set to 0 just before; log stage times, launches and peak memory,
-    check the mesh, and return (the last run's mesh, its launch counts).
-    With ``mfu``, log the last run's utilization (:func:`shape_utilization`)."""
+    check the mesh, and return (the last run's mesh, its launch counts)."""
     import numpy as np
     import torch
 
@@ -840,12 +694,10 @@ def shape_run(name, pipe, image, runs, must_launch, must_not_launch=(), mfu=Fals
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        recorded = {"dit": [], "dino": [], "queries": []}
         for k in ("Encode Cond", "Diffusion Sampling", "Volume Decoding"):
             LAST_TIMINGS.pop(k, None)
         t0 = time.perf_counter()
-        with tapped(shape_taps(pipe, recorded) if mfu else ()):
-            meshes = pipe(image, seed=1234, **call)
+        meshes = pipe(image, seed=1234, **call)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in counters.items()}
@@ -876,8 +728,6 @@ def shape_run(name, pipe, image, runs, must_launch, must_not_launch=(), mfu=Fals
     for n, per in CHAIN_PER_CALL.items():
         check(launches[n] == per * calls, f"{name}: {launches[n]} {n} launches for {calls} "
               f"decode calls ({per} each)")
-    if mfu:
-        shape_utilization(name, pipe, recorded, call["octree_resolution"], call["num_chunks"])
     return mesh, launches
 
 
@@ -910,8 +760,7 @@ def main_path():
         f"(DINOv2-giant, mini DiT, mini ShapeVAE, random weights, seed 0)")
     mesh, launches = shape_run("main path", pipe, test_image(), ("cold", "warm"),
                                ("flash_attention", "fused_geo_decode", *CHAIN_KERNELS),
-                               ("geo_mlp_tail",), mfu=True,
-                               num_inference_steps=5, guidance_scale=5.0,
+                               ("geo_mlp_tail",), num_inference_steps=5, guidance_scale=5.0,
                                octree_resolution=256, num_chunks=65536)
     write_glb("main path", mesh, "chip_smoke.glb")
     return pipe, launches
@@ -990,7 +839,7 @@ def v20_path():
         f"weights, seed 0)")
     mesh, launches = shape_run("v2-0 path", pipe, test_image(), ("cold", "warm"),
                                ("flash_attention", "geo_mlp_tail", *CHAIN_KERNELS), ("fused_geo_decode",),
-                               mfu=True, num_inference_steps=5, guidance_scale=5.0,
+                               num_inference_steps=5, guidance_scale=5.0,
                                octree_resolution=380, num_chunks=200000)
     write_glb("v2-0 path", mesh, "chip_smoke_v20.glb")
     return pipe, launches
@@ -1174,13 +1023,12 @@ def _views(render):
             torch.from_numpy(np.stack([m[1] for m in mats])).cuda())
 
 
-# The masked fp32 rows' time under the kernel this tree replaced (3xTF32 on
-# mma.sync, 4-warp CTAs, cp.async double buffering), at the same voxel
-# masks: the median of the parent tree's six 20-call timings in
-# `python -m hunyuan3d2_tpu_torch.tools.masked_flash_ab --roots PARENT . .
-# PARENT` on NVIDIA H100 80GB HBM3, 700 W (this kernel: 1.3903 and 0.2216
-# ms). Logged beside each fp32 row as "before_ms"; not measured by this
-# script, so it stays out of the kernels line.
+# The masked fp32 rows' time under the kernel the current one replaced
+# (3xTF32 on mma.sync, 4-warp CTAs, cp.async double buffering), at the same
+# voxel masks, on NVIDIA H100 80GB HBM3, 700 W (the current kernel: 1.3903
+# and 0.2216 ms), as PERF.md's table of kernels records them. Logged beside
+# each fp32 row as "before_ms"; not measured by this script, so it stays out
+# of the kernels line.
 MASKED_F32_BEFORE_MS = {32: 3.8212, 16: 0.5035}
 
 
@@ -1248,7 +1096,7 @@ def masked_phase(gen, sphere):
                        plain_ms=plain_ms, library_ms=lib_ms, **bounds)
             before = {} if dt == torch.bfloat16 else dict(
                 before_ms=MASKED_F32_BEFORE_MS[g],
-                before_from="the parent's mma.sync kernel (tools/masked_flash_ab.py)")
+                before_from="the replaced mma.sync kernel (PERF.md's table of kernels)")
             log("flash_attention_masked " + json.dumps({**row, **before}))
             rows.append(row)
     return rows
@@ -1414,11 +1262,10 @@ def unwrap_ran_in_worker(name, pipe):
           f"(this process is {os.getpid()})")
 
 
-def textured_runs(name, pipe, sphere, image, denoise_stage, glb, mfu=False):
+def textured_runs(name, pipe, sphere, image, denoise_stage, glb):
     """Drive ``pipe(sphere, image)`` cold and warm with the kernels' counts
     set to 0 just before each run; log stage times, launch counts and peak
     memory, check the textured mesh, write it under tmp/ and read it back.
-    With ``mfu``, log the warm run's utilization (:func:`paint_utilization`).
     Returns the warm run's launch counts."""
     import numpy as np
     import torch
@@ -1427,16 +1274,13 @@ def textured_runs(name, pipe, sphere, image, denoise_stage, glb, mfu=False):
     from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
 
     counters = _kernel_counters()
-    mv = pipe.models["multiview_model"].pipeline
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        recorded = {"r": [], "w": [], "encode": [], "decode": []}
         LAST_TIMINGS.pop("Multiview Diffusion (device)", None)
         t0 = time.perf_counter()
-        with tapped(paint_taps(mv, recorded) if mfu else ()):
-            out = pipe(sphere, image)
+        out = pipe(sphere, image)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in counters.items()}
@@ -1461,8 +1305,6 @@ def textured_runs(name, pipe, sphere, image, denoise_stage, glb, mfu=False):
               "launches, 13 expected")
         check(launches["flash_attention"] > 0, f"{name}: flash_attention was never launched")
         unwrap_ran_in_worker(name, pipe)
-    if mfu:
-        paint_utilization(name, mv, recorded)
     os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
     path = os.path.join(ROOT, "tmp", glb)
     out.export(path)
@@ -1478,14 +1320,14 @@ def textured_runs(name, pipe, sphere, image, denoise_stage, glb, mfu=False):
 def serial_check(name, pipe, sphere, image):
     """The overlapped call (the unwrap in the host worker while the device
     denoises) against the public stages run by hand in the serial order
-    (tools/texgen_overlap_ab.serial_texture: cond maps → multiview net →
+    (tools/serial_texture.py: cond maps → multiview net →
     mesh_uv_wrap in this process → upload → bake → inpaint) on the same
     init_latents and step_noises: texture, UVs, faces and vertices bit for
     bit."""
     import numpy as np
     import torch
 
-    from hunyuan3d2_tpu_torch.tools.texgen_overlap_ab import serial_texture
+    from hunyuan3d2_tpu_torch.tools.serial_texture import serial_texture
 
     mv_net = pipe.models["multiview_model"]
     lat = mv_net.view_size >> (len(mv_net.pipeline.vae.cfg.block_out_channels) - 1)
@@ -1630,12 +1472,12 @@ def texture_paths(sphere):
         f"has {os.cpu_count()} CPUs")
     image = test_image()
     turbo = textured_runs("texture path", pipe.set_turbo(), sphere, image,
-                          "Paint Denoising (turbo)", "chip_smoke_textured.glb", mfu=True)
+                          "Paint Denoising (turbo)", "chip_smoke_textured.glb")
     check(turbo["flash_attention_masked"] > 0, "texture path: the masked kernel never ran")
     serial_check("texture path", pipe, sphere, image)
     paint_graph_check("texture path", pipe, sphere, image)
     standard = textured_runs("texture path standard", pipe.set_turbo(False), sphere, image,
-                             "Paint Denoising", "chip_smoke_textured_standard.glb", mfu=True)
+                             "Paint Denoising", "chip_smoke_textured_standard.glb")
     serial_check("texture path standard", pipe, sphere, image)
     paint_graph_check("texture path standard", pipe, sphere, image, runs=("graph", "eager"))
     # the standard loop builds no voxel masks

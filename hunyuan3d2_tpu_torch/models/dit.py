@@ -9,8 +9,9 @@ embedding uses max_period == time_factor == 1000 (reference
 hunyuan3ddit.py:392 passes time_factor positionally into max_period).
 
 On the card an inference forward replays a CUDA graph of itself
-(``Hunyuan3DDiT.forward``): the eager body's ~3,300 launches a FULL forward
-become one, with the same kernels, dtypes and arithmetic.
+(``Hunyuan3DDiT.forward``, through utils/cuda_graphs.py): the eager body's
+~3,300 launches a FULL forward become one, with the same kernels, dtypes and
+arithmetic.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 from torch import nn
@@ -27,7 +28,7 @@ from hunyuan3d2_tpu_torch.ops.attention import attention, merge_heads, split_qkv
 from hunyuan3d2_tpu_torch.ops.embeddings import timestep_embedding
 from hunyuan3d2_tpu_torch.ops.nn import Linear, RMSNorm, gelu_tanh, layer_norm, silu
 from hunyuan3d2_tpu_torch.utils import timer
-from hunyuan3d2_tpu_torch.utils.cuda_graphs import capture_stream, launch_counts
+from hunyuan3d2_tpu_torch.utils.cuda_graphs import GraphPool, graphable
 
 GRAPHS = 2                  # captured forwards a module keeps, the least recently used dropped
 _GRAPH_LOCK = threading.Lock()
@@ -172,13 +173,6 @@ class LastLayer(nn.Module):
         return self.linear((1.0 + scale[:, None]) * layer_norm(x) + shift[:, None])
 
 
-class _Graph(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
-    inputs: tuple           # the static x, t, cond, guidance (None where not given)
-    output: torch.Tensor    # the static velocity
-    launches: tuple         # (op, n): the kernel launches of the ops' counters in one replay
-
-
 class Hunyuan3DDiT(nn.Module):
     def __init__(self, cfg: DiTConfig = FULL):
         super().__init__()
@@ -193,11 +187,12 @@ class Hunyuan3DDiT(nn.Module):
         self.single_blocks = nn.ModuleList(
             [SingleStreamBlock(cfg) for _ in range(cfg.depth_single_blocks)])
         self.final_layer = LastLayer(cfg)
+        self._graph_pool = GraphPool()      # the memory pool its graphs share
         self._drop_graphs()
 
     def _drop_graphs(self):
-        self._graphs = collections.OrderedDict()   # key → _Graph, oldest first
-        self._graph_pool = None                    # the memory pool its graphs share
+        self._graphs = collections.OrderedDict()   # key → cuda_graphs.Graph, oldest first
+        self._graph_pool.drop()
 
     def _apply(self, fn, recurse=True):
         # .to(), .cuda(), to_empty(), the pipeline's offload and restore: the
@@ -232,86 +227,43 @@ class Hunyuan3DDiT(nn.Module):
         """x [B, L, in_channels], t [B] in [0, 1], cond [B, Lc, context_in_dim]
         → velocity [B, L, in_channels] in x.dtype.
 
-        A call on CUDA tensors with grad mode off, outside a capture, on a
-        module that is neither sharded (``parallel_mesh``) nor moved
-        between calls (``moved_each_call``, which the pipeline's
-        ``enable_model_cpu_offload`` sets: each move would drop the graph
-        and pay a capture) replays a CUDA graph of the eager body: captured
-        at the first call of its key (the shapes and dtypes of x, t, cond
-        and guidance, and x's device; at most ``GRAPHS`` kept, in one
-        memory pool), then replayed on copies of the inputs in static
-        buffers, returning a fresh tensor. Calls that share the module run
-        on one stream. Each replay adds 1 to the request's
-        "DiT/graph_replays" and its kernels to the ops' launch counters, as
-        an eager call does; the capture counts no launch. Any other call
-        runs the eager body. Moving the module's tensors drops its graphs;
-        an in-place ``load_state_dict`` keeps them."""
-        if (x.is_cuda and not torch.is_grad_enabled()
-                and not torch.cuda.is_current_stream_capturing()
-                and getattr(self, "parallel_mesh", None) is None
+        A call that passes ``utils/cuda_graphs.py``'s gate (the mechanism is
+        that module's), on a module not moved between calls
+        (``moved_each_call``, set by the pipeline's
+        ``enable_model_cpu_offload``), replays a CUDA graph of the eager body.
+        The key: the inputs' shapes and dtypes and x's device; ``GRAPHS``
+        kept, the least recently used dropped. Calls that share the module
+        take turns from copying their inputs in to copying the output out;
+        each replay adds 1 to the request's "DiT/graph_replays". Moving the
+        module's tensors drops the graphs; an in-place ``load_state_dict``
+        keeps them."""
+        args = (x, t, cond, guidance)
+        if (graphable(self, *(a for a in args if a is not None))
                 and not getattr(self, "moved_each_call", False)):
-            return self._replay(x, t, cond, guidance)
-        return self._forward(x, t, cond, guidance)
+            return self._replay(args)
+        return self._forward(*args)
 
-    def _replay(self, *args) -> torch.Tensor:
+    def _replay(self, args) -> torch.Tensor:
         key = tuple(None if a is None else (tuple(a.shape), a.dtype) for a in args)
         key += (args[0].device,)
-        # one thread at a time from the input copies to the output's copy
         with _GRAPH_LOCK:
-            entry = self._graphs.get(key)
-            if entry is None:
-                entry = self._graphs[key] = self._capture(args)
+            graph = self._graphs.get(key)
+            if graph is None:
+                inputs = tuple(None if a is None else a.clone() for a in args)
+                # the short warm-up: the first 8 latent and cond tokens
+                short = tuple(a if a is None or a.dim() < 3 else a[:, :8] for a in inputs)
+                graph = self._graphs[key] = self._graph_pool.capture(self._forward, inputs,
+                                                                     short, key)
                 if len(self._graphs) > GRAPHS:
                     self._graphs.popitem(last=False)
             else:
                 self._graphs.move_to_end(key)
-            for static, a in zip(entry.inputs, args):
+            for static, a in zip(graph.args, args):
                 if a is not None:
                     static.copy_(a)
-            entry.graph.replay()
-            out = entry.output.clone()
-            for fn, n in entry.launches:
-                fn.launches += n
+            out = graph.replay().clone()
         timer.add("DiT/graph_replays", 1)
         return out
-
-    def _capture(self, args) -> _Graph:
-        """Capture the eager body on copies of ``args`` in the module's
-        graph memory pool, on the device's capture stream. The first-use
-        work is done outside the capture: an eager run on the caller's
-        stream (the kernel libraries' loads and attributes, from the
-        memory that stream already caches), then one over 8 tokens on the
-        capture stream (that stream's cuBLAS workspace; its cache stays
-        small). The graphs of a module share its pool: each replay's output
-        is copied out before the next replay on the stream, and a static
-        output stays allocated while its graph is kept. Unlike
-        ``torch.cuda.graph``, nothing here empties the allocator's cache,
-        which the rest of the call reuses."""
-        inputs = tuple(None if a is None else a.clone() for a in args)
-        device = args[0].device
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        before = launch_counts()
-        self._forward(*inputs)
-        stream = capture_stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
-            self._forward(*(a if a is None or a.dim() < 3 else a[:, :8] for a in inputs))
-            warm = launch_counts()
-            # thread_local: work that other threads enqueue meanwhile is theirs
-            graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
-            try:
-                output = self._forward(*inputs)
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        after = launch_counts()
-        for fn, n in after.items():         # the warm-ups and the recording count nothing
-            fn.launches -= n - before.get(fn, 0)
-        launches = tuple((fn, n - warm.get(fn, 0)) for fn, n in after.items()
-                         if n != warm.get(fn, 0))
-        return _Graph(graph, inputs, output, launches)
 
     def _forward(self, x, t, cond, guidance):
         """The eager body of :meth:`forward`."""

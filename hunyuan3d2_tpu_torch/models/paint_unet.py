@@ -20,7 +20,8 @@ UNet (wrapped blocks at ``...transformer_blocks.0.transformer.*``, extras at
 
 Inside a denoise loop's :meth:`UNet2p5D.step_graphs` scope, an 'r' pass on
 the card replays CUDA graphs of the eager body's pieces between its flash
-attention calls, which run eagerly between them (:meth:`UNet2p5D.forward`).
+attention calls, which run eagerly between them (:meth:`UNet2p5D.forward`,
+through utils/cuda_graphs.py).
 
 ``UNetCore`` without the extras is also the plain SD-class
 UNet2DConditionModel of the delight, x4 upscale and align pipelines: a head
@@ -37,7 +38,7 @@ import contextlib
 import dataclasses
 import math
 import threading
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -52,12 +53,11 @@ from hunyuan3d2_tpu_torch.ops.attention import (
 from hunyuan3d2_tpu_torch.ops.conv import Conv2d, GroupNorm, ResnetBlock, upsample_nearest2x
 from hunyuan3d2_tpu_torch.ops.nn import LayerNorm, Linear, gelu_exact, silu
 from hunyuan3d2_tpu_torch.utils import timer
-from hunyuan3d2_tpu_torch.utils.cuda_graphs import anchored_pool, capture_stream, launch_counts
+from hunyuan3d2_tpu_torch.utils.cuda_graphs import GraphPool, capturing, cut, graphable
 
 GRAPH_REPLAYS = "Paint/graph_replays"       # the request's counters of the step graphs
 GRAPH_CAPTURES = "Paint/graph_captures"
 _SCOPE_LOCK = threading.Lock()      # one thread's denoise loop holds step graphs at a time
-_CAPTURE = threading.local()        # .pieces: the step graph this thread is capturing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,11 +270,11 @@ class Attention(nn.Module):
 def _attend(q, k, v, mask=None):
     """The module's ``attention`` / ``masked_attention``, read at each call
     (a tap on them sees every call). While this thread captures a step
-    graph, a call that the flash gate admits ends the graph's current piece
-    instead (:meth:`_Pieces.split`)."""
-    pieces = getattr(_CAPTURE, "pieces", None)
-    if pieces is not None and use_flash(q):
-        return pieces.split(q, k, v, mask)
+    graph, a call that the flash gate admits is cut out of it
+    (``cuda_graphs.cut``): at each replay it runs eagerly between the
+    pieces, into the kernels' output layout."""
+    if capturing() and use_flash(q):
+        return cut(_gated, q, k, v, mask, like=q)
     return _gated(q, k, v, mask)
 
 
@@ -529,60 +529,14 @@ def plain_unet(cfg: PaintUNetConfig) -> UNetCore:
     return UNetCore(cfg, extras=False, learned_text=False)
 
 
-class _Pieces:
-    """The capture of one 'r' pass, cut at its gated attention calls:
-    graphs captured one after another on this thread into one memory pool.
-    :meth:`split` ends the open graph, keeps the call (q, k, v, the mask)
-    with a static output in the pool, and opens the next graph, which reads
-    that output."""
-
-    def __init__(self, pool):
-        self.pool, self.pieces, self.graph = pool, [], None
-        self._begin()
-
-    def _begin(self):
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: work that other threads enqueue meanwhile is theirs
-        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-        self.graph = graph
-
-    def _end(self):
-        graph, self.graph = self.graph, None
-        graph.capture_end()
-        return graph
-
-    def split(self, q, k, v, mask):
-        graph = self._end()
-        self._begin()
-        # the kernels' output layout
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
-        self.pieces.append((graph, (q, k, v, mask, out)))
-        return out
-
-    def end(self):
-        self.pieces.append((self._end(), None))
-
-    def abort(self):
-        if self.graph is not None:
-            self._end()
-
-
-class _StepGraph(NamedTuple):
-    key: tuple
-    pieces: tuple           # (graph, the gated call after it: q, k, v, mask, out; None last)
-    sample: torch.Tensor    # the static sample
-    t: torch.Tensor         # the static timestep, float32
-    output: torch.Tensor    # the static noise prediction
-
-
 class _Steps:
-    """An open :meth:`UNet2p5D.step_graphs` scope: its thread and the step
-    graph it holds."""
+    """An open :meth:`UNet2p5D.step_graphs` scope: its thread, and the step
+    graph it holds with its key."""
 
-    __slots__ = ("thread", "graph")
+    __slots__ = ("thread", "graph", "key")
 
     def __init__(self):
-        self.thread, self.graph = threading.get_ident(), None
+        self.thread, self.graph, self.key = threading.get_ident(), None, None
 
 
 def _key(sample, timestep, rest, ptr: bool) -> tuple:
@@ -635,15 +589,14 @@ class UNet2p5D(nn.Module):
         if cfg.use_dual_stream:
             self.unet_dual = UNetCore(dual_config(cfg), extras=False)
         self._steps = None          # the open step_graphs scope
-        self._pool = None           # (the step graphs' memory pool, its anchor), kept
-        self._warmed = set()        # the keys' shapes whose first-use work is done
+        self._graph_pool = GraphPool()      # the step graphs' memory pool, kept across scopes
 
     def _apply(self, fn, recurse=True):
         # .to(), .cuda(), to_empty(): the tensors may move, and a step graph
         # reads them where they were captured
         if self._steps is not None:
             self._steps.graph = None
-        self._pool = None
+        self._graph_pool.drop()
         return super()._apply(fn, recurse)
 
     @contextlib.contextmanager
@@ -693,23 +646,15 @@ class UNet2p5D(nn.Module):
         prediction [B, N_gen, H, W, 4]. ``ref_scale`` is a number or one
         value per batch row ([B], CFG's [0, 1]), applied in fp32.
 
-        Inside this thread's :meth:`step_graphs` scope, a call on CUDA
-        tensors with grad mode off, outside a capture, on a module that is
-        not sharded (``parallel_mesh``), whose other tensor inputs lie on
-        the card too, replays the scope's step graph: the eager body in
-        pieces, each a CUDA graph, cut at every attention call that the
-        flash gate admits (``ops/attention.py`` ``use_flash``). The first
-        call of a key (:func:`_key`: the request-constant inputs, by layout
-        and address) captures, running each piece as it is captured; a call
-        with another key drops the graph and captures again. A replay
-        copies the sample into a static buffer,
-        fills the static timestep on the device, then replays each piece
-        and calls the module's ``attention`` or ``masked_attention`` on its
-        call's static q, k, v (and mask), copying the result into the
-        static output the next piece reads: the same kernels in the same
-        order as the eager body, and a fresh tensor returned. Each replay
-        adds 1 to the request's "Paint/graph_replays", each capture 1 to
-        "Paint/graph_captures". Any other call runs the eager body."""
+        Inside this thread's :meth:`step_graphs` scope, a call that passes
+        ``utils/cuda_graphs.py``'s gate (the mechanism is that module's),
+        its request-constant tensors on the card too, replays the scope's
+        step graph, cut at each attention call that the flash gate admits
+        (``use_flash``): those run eagerly through the module's
+        ``attention`` / ``masked_attention``. A new key (:func:`_key`: the
+        request-constant inputs by layout and address) captures again. Each
+        replay adds 1 to the request's "Paint/graph_replays", each capture 1
+        to "Paint/graph_captures". Any other call runs the eager body."""
         rest = (normal_latents, position_latents, camera_info_gen, cache, ref_scale, mva_scale,
                 mva_masks)
         if self._graphable(sample, rest):
@@ -719,83 +664,40 @@ class UNet2p5D(nn.Module):
 
     def _graphable(self, sample, rest) -> bool:
         steps = self._steps
-        if (steps is None or steps.thread != threading.get_ident() or not sample.is_cuda
-                or torch.is_grad_enabled() or torch.cuda.is_current_stream_capturing()
-                or getattr(self, "parallel_mesh", None) is not None):
+        if steps is None or steps.thread != threading.get_ident():
             return False
         normal, position, camera, cache, ref_scale, _, masks = rest
+        # a graph reads these where they lie
         read = [normal, position, *cache.values(), *(masks or {}).values()]
         if self.cfg.use_camera_embedding:
             read.append(camera)
         if not isinstance(ref_scale, (int, float)):
             read.append(ref_scale)
-        # a graph reads these where they lie: each a tensor on the card
-        return all(isinstance(x, torch.Tensor) and x.is_cuda for x in read)
+        return graphable(self, sample, *read)
 
     def _replay(self, sample, timestep, rest) -> torch.Tensor:
         steps = self._steps
         key = _key(sample, timestep, rest, ptr=True)
-        if steps.graph is None or steps.graph.key != key:
+        if steps.graph is None or steps.key != key:
             steps.graph = None          # its tensors return to the pool before the capture
-            steps.graph = self._capture(key, sample, timestep, rest)
-        g = steps.graph
-        _load(g.sample, g.t, sample, timestep)
-        for graph, call in g.pieces:
-            graph.replay()
-            if call is not None:
-                q, k, v, mask, out = call
-                out.copy_(_gated(q, k, v, mask))
+            steps.graph, steps.key = self._capture(sample, timestep, rest), key
+        graph = steps.graph
+        _load(graph.args[0], graph.args[1], sample, timestep)
+        out = graph.replay().clone()
         timer.add(GRAPH_REPLAYS, 1)
-        return g.output.clone()
+        return out
 
-    def _capture(self, key, sample, timestep, rest) -> _StepGraph:
-        """Capture the eager body in pieces (:class:`_Pieces`) on a static
-        sample and timestep, reading the request-constant inputs where they
-        lie, on the device's capture stream, into the module's memory pool.
-        The first capture of a key's shapes does the first-use work outside
-        the capture: an eager pass on the caller's stream (the kernel
-        libraries' loads, cuDNN's plans), then one over the first view's 8²
-        latents on the capture stream (that stream's cuBLAS workspace; its
-        cache stays small). No gated call runs at capture, and no op with a
-        launch counter may be captured; the warm-ups' launches are taken
-        back from the counters."""
-        device = sample.device
+    def _capture(self, sample, timestep, rest):
+        """A step graph on a static sample and timestep."""
         static = torch.empty_like(sample, memory_format=torch.contiguous_format)
         t = torch.empty(timestep.numel() if isinstance(timestep, torch.Tensor) else 1,
-                        dtype=torch.float32, device=device)
+                        dtype=torch.float32, device=sample.device)
         _load(static, t, sample, timestep)
-        if self._pool is None:
-            self._pool = anchored_pool(device)
-        shapes = _key(sample, timestep, rest, ptr=False)
-        first = shapes not in self._warmed
-        before = launch_counts()
-        if first:
-            self._forward(static, t, *rest)
-        caller, stream = torch.cuda.current_stream(device), capture_stream(device)
-        stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
-            if first:
-                self._forward(*_first_view(static, t, rest))
-                self._warmed.add(shapes)
-            warm = launch_counts()
-            pieces = _Pieces(self._pool[0])
-            _CAPTURE.pieces = pieces
-            try:
-                output = self._forward(static, t, *rest)
-            except BaseException:
-                pieces.abort()
-                raise
-            finally:
-                _CAPTURE.pieces = None
-            pieces.end()
-        caller.wait_stream(stream)
-        held = [fn.__name__ for fn, n in launch_counts().items() if n != warm.get(fn, 0)]
-        if held:
-            raise RuntimeError(f"a step graph of the paint UNet captured launches of {held}")
-        for fn, n in warm.items():          # the warm-ups count nothing
-            fn.launches -= n - before.get(fn, 0)
+        graph = self._graph_pool.capture(self._forward, (static, t, *rest),
+                                         _first_view(static, t, rest),
+                                         _key(sample, timestep, rest, ptr=False))
         timer.add(GRAPH_CAPTURES, 1)
-        return _StepGraph(key, tuple(pieces.pieces), static, t, output)
+        return graph
 
     def _forward(self, sample, t, normal_latents, position_latents, camera_info_gen, cache,
                  ref_scale, mva_scale, mva_masks) -> torch.Tensor:

@@ -32,7 +32,7 @@ from concurrent.futures.process import BrokenProcessPool
 # the worker's thread cap (OpenMP, BLAS, torch intra-op). The unwrap is
 # mostly single-threaded numpy; on an 8-CPU H100 host caps of 1, 2, 4 and 6
 # gave the same unwrap time and wait within their spread
-# (tools/texgen_overlap_ab.py, PERF.md §6), so it keeps few cores
+# (PERF.md §6), so it keeps few cores
 THREADS = 2
 _THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 

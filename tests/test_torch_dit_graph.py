@@ -1,8 +1,6 @@
 """The DiT forward's CUDA graph cache (models/dit.py ``Hunyuan3DDiT.forward``)
-on the CPU: ``torch.cuda``'s graph, stream and capture-state calls are
-replaced by stand-ins, and the inputs are tensors of a subclass that claims
-to lie on the card. The stand-in graph's replay runs the eager body on the
-graph's static inputs into its static output, as the captured kernels would.
+on the CPU, under the stand-in for ``torch.cuda``'s graph calls of
+tests/torch_graph_standin.py.
 
 Held here: one capture a key, then replays only; the inputs copied into the
 static buffers at every call; a fresh tensor returned; the eager body on
@@ -15,7 +13,6 @@ kept apart by the lock; the request's replay counter equal to the
 replays; and the ops' launch counters counting a replayed forward's
 kernels as an eager one's, and nothing for the capture."""
 
-import contextlib
 import dataclasses
 import os
 import sys
@@ -28,85 +25,10 @@ import torch
 from hunyuan3d2_tpu_torch.models import dit
 from hunyuan3d2_tpu_torch.ops.nn import build
 from hunyuan3d2_tpu_torch.utils import cuda_graphs, timer
+from tests import torch_graph_standin as standin
 
 REPLAYS = "DiT/graph_replays"
 LATENTS, COND = 16, 8
-
-
-class OnCard(torch.Tensor):
-    """A CPU tensor that claims to lie on the card (results of torch
-    operations on it are OnCard too)."""
-
-    @property
-    def is_cuda(self):
-        return True
-
-
-class Card:
-    """Stand-ins for ``torch.cuda``'s graph calls, with what they saw."""
-
-    def __init__(self):
-        self.models = []          # the modules whose graphs a replay may belong to
-        self.graphs = []          # every graph made, in order
-        self.captures = []        # (stream, capture_error_mode, pool) of each capture
-        self.capturing = False    # what is_current_stream_capturing answers
-        self.stream = self.Stream()
-        self.current = self.stream    # the stream torch.cuda.stream made current
-        self.pools = 0
-        card = self
-
-        class Graph:
-            def __init__(self):
-                self.replays = 0
-                card.graphs.append(self)
-
-            def capture_begin(self, pool=None, capture_error_mode="global"):
-                assert not card.capturing
-                card.captures.append((card.current, capture_error_mode, pool))
-                card.capturing = True
-
-            def capture_end(self):
-                assert card.capturing
-                card.capturing = False
-
-            def replay(self):
-                self.replays += 1
-                # the captured kernels launch no op of the port's: the counts
-                # the replayed body adds here are taken back
-                counts = cuda_graphs.launch_counts()
-                for m in card.models:
-                    for entry in m._graphs.values():
-                        if entry.graph is self:
-                            entry.output.copy_(m._forward(*entry.inputs))
-                            for fn, n in counts.items():
-                                fn.launches = n
-                            return
-                raise AssertionError("a replay of a graph that no module holds")
-
-        self.Graph = Graph
-
-    def graph_pool_handle(self):
-        self.pools += 1
-        return (0, self.pools)
-
-    @contextlib.contextmanager
-    def use_stream(self, stream):
-        saved, self.current = self.current, stream
-        try:
-            yield
-        finally:
-            self.current = saved
-
-    class Stream:
-        def __init__(self, device=None):
-            self.device = device
-
-        def wait_stream(self, other):
-            pass
-
-    @property
-    def replays(self):
-        return sum(g.replays for g in self.graphs)
 
 
 @pytest.fixture(autouse=True)
@@ -120,22 +42,12 @@ def _one_thread():
 
 @pytest.fixture
 def card(monkeypatch):
-    c = Card()
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", c.Graph)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", c.graph_pool_handle)
-    monkeypatch.setattr(torch.cuda, "Stream", Card.Stream)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: c.current)
-    monkeypatch.setattr(torch.cuda, "stream", c.use_stream)
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: c.capturing)
-    monkeypatch.setattr(cuda_graphs, "_CAPTURE_STREAMS", {})
-    return c
+    return standin.install(monkeypatch)
 
 
-def _model(card, guidance_embed=True):
+def _model(guidance_embed=True):
     cfg = dataclasses.replace(dit.TINY, guidance_embed=guidance_embed)
-    m = build(dit.Hunyuan3DDiT, cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    card.models.append(m)
-    return m
+    return build(dit.Hunyuan3DDiT, cfg, device="cpu", generator=torch.Generator().manual_seed(0))
 
 
 def _inputs(seed, latents=LATENTS, cond=COND, batch=1, guidance=True, on_card=True):
@@ -145,7 +57,7 @@ def _inputs(seed, latents=LATENTS, cond=COND, batch=1, guidance=True, on_card=Tr
             torch.randn(batch, cond, 1536, generator=g).to(torch.bfloat16),
             torch.full((batch,), 5.0) if guidance else None)
     if on_card:
-        args = tuple(None if a is None else a.as_subclass(OnCard) for a in args)
+        args = tuple(None if a is None else a.as_subclass(standin.OnCard) for a in args)
     return args
 
 
@@ -156,39 +68,39 @@ def _entry(model):
 
 @pytest.mark.parametrize("guidance_embed", [True, False])
 def test_one_capture_a_key_then_replays(card, guidance_embed):
-    m = _model(card, guidance_embed)
+    m = _model(guidance_embed)
     with torch.no_grad():
         for i in range(3):
             args = _inputs(i, guidance=guidance_embed)
             out = m(*args)
             assert torch.equal(out, m._forward(*args))
-            assert len(card.graphs) == 1 and len(card.captures) == 1
-            assert card.replays == i + 1
+            assert card.piece_captures == 1 and card.replayed == i + 1
         # a new key (another latent count) is one more capture
         args = _inputs(7, latents=2 * LATENTS, guidance=guidance_embed)
         assert torch.equal(m(*args), m._forward(*args))
-    assert len(card.graphs) == len(card.captures) == len(m._graphs) == 2
-    assert [g.replays for g in card.graphs] == [3, 1]
+    assert card.piece_captures == len(m._graphs) == 2
+    # each graph one piece (the body has no cut), replayed at each of its calls
+    assert [[g.replays for g, _ in e.pieces] for e in m._graphs.values()] == [[3], [1]]
     # every capture ran on the one side stream, keeping other threads' work
-    # out, into the module's one pool
+    # out, into the module's one pool (its anchor's capture first)
     stream = cuda_graphs._CAPTURE_STREAMS[torch.device("cpu")]
-    assert card.captures == [(stream, "thread_local", (0, 1))] * 2
+    assert card.captures == [(stream, "thread_local", (0, 1))] * 3 and len(card.pools) == 1
 
 
 def test_inputs_go_into_the_static_buffers_at_every_call(card):
-    m = _model(card)
+    m = _model()
     with torch.no_grad():
         for i in range(3):
             args = _inputs(10 + i)
             m(*args)
             entry = _entry(m)
-            for static, a in zip(entry.inputs, args):
+            for static, a in zip(entry.args, args):
                 assert static is not a and static.data_ptr() != a.data_ptr()
                 assert torch.equal(static, a)
 
 
 def test_the_result_is_a_fresh_tensor(card):
-    m = _model(card)
+    m = _model()
     with torch.no_grad():
         first = m(*_inputs(1))
         kept = first.clone()
@@ -202,24 +114,25 @@ def test_the_result_is_a_fresh_tensor(card):
 
 @pytest.mark.parametrize("case", ["cpu", "grad", "capturing", "sharded", "moved_each_call"])
 def test_the_eager_body_runs_where_no_graph_may(card, case):
-    m = _model(card)
+    m = _model()
     args = _inputs(3, on_card=case != "cpu")
     if case == "sharded":
         m.parallel_mesh = object()
     if case == "moved_each_call":
         m.moved_each_call = True
     grad = torch.enable_grad() if case == "grad" else torch.no_grad()
-    card.capturing = case == "capturing"
     with grad:
+        card.capturing = threading.get_ident() if case == "capturing" else None
         out = m(*args)
+        card.capturing = None
         want = m._forward(*args)
     assert torch.equal(out, want)
-    assert card.graphs == [] and card.captures == [] and not m._graphs
+    assert card.graphs == [] and card.captures == [] and card.pools == [] and not m._graphs
 
 
 @pytest.mark.parametrize("move", ["to", "cpu", "to_empty", "assign_load"])
 def test_moving_the_tensors_drops_the_graphs(card, move):
-    m = _model(card)
+    m = _model()
     with torch.no_grad():
         m(*_inputs(1))
     assert len(m._graphs) == 1
@@ -231,17 +144,17 @@ def test_moving_the_tensors_drops_the_graphs(card, move):
         m.to_empty(device="cpu")
     else:
         m.load_state_dict({k: v.clone() for k, v in m.state_dict().items()}, assign=True)
-    assert not m._graphs
+    assert not m._graphs and m._graph_pool.pool is None
     with torch.no_grad():
         args = _inputs(2)
         # to_empty leaves the weights uninitialised: NaN where the eager body has NaN
         torch.testing.assert_close(m(*args), m._forward(*args), rtol=0, atol=0, equal_nan=True)
-    # the new graph is captured into a new pool
-    assert [c[2] for c in card.captures] == [(0, 1), (0, 2)]
+    # the new graph is captured into a new pool (each pool's anchor first)
+    assert [c[2] for c in card.captures] == [(0, 1)] * 2 + [(0, 2)] * 2
 
 
 def test_an_in_place_load_keeps_the_graph_and_it_reads_the_new_weights(card):
-    m, other = _model(card), _model(card)
+    m, other = _model(), _model()
     with torch.no_grad():
         for p in other.parameters():
             p.mul_(0.5)
@@ -252,7 +165,7 @@ def test_an_in_place_load_keeps_the_graph_and_it_reads_the_new_weights(card):
         assert _entry(m) is entry
         out = m(*args)
     assert torch.equal(out, other._forward(*args))
-    assert len(card.captures) == 1
+    assert card.piece_captures == 1
 
 
 def test_the_pipelines_offload_and_restore_drop_the_graphs(card):
@@ -260,7 +173,6 @@ def test_the_pipelines_offload_and_restore_drop_the_graphs(card):
 
     pipe = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="tiny", dino="tiny", device="cpu")
     m = pipe.model
-    card.models.append(m)
     guided = m.cfg.guidance_embed
     with torch.no_grad():
         m(*_inputs(1, guidance=guided))
@@ -271,7 +183,7 @@ def test_the_pipelines_offload_and_restore_drop_the_graphs(card):
         assert len(m._graphs) == 1
         pipe.restore_to_device()
         assert not m._graphs
-    assert len(card.captures) == 2
+    assert card.piece_captures == 2
 
 
 def test_a_pipeline_that_offloads_every_call_runs_the_eager_body(card):
@@ -279,7 +191,6 @@ def test_a_pipeline_that_offloads_every_call_runs_the_eager_body(card):
 
     pipe = Hunyuan3DDiTFlowMatchingPipeline.init_random(size="tiny", dino="tiny", device="cpu")
     m = pipe.model
-    card.models.append(m)
     args = _inputs(1, guidance=m.cfg.guidance_embed)
     with torch.no_grad():
         m(*args)
@@ -287,11 +198,11 @@ def test_a_pipeline_that_offloads_every_call_runs_the_eager_body(card):
         pipe.enable_model_cpu_offload()
         out = m(*args)
         assert torch.equal(out, m._forward(*args))
-    assert m.moved_each_call and len(card.captures) == 1 and card.replays == 1
+    assert m.moved_each_call and card.piece_captures == 1 and card.replayed == 1
 
 
 def test_at_most_graphs_kept_the_least_recently_used_dropped(card):
-    m = _model(card)
+    m = _model()
     sizes = [LATENTS + 8 * i for i in range(dit.GRAPHS + 1)]
     with torch.no_grad():
         for n in sizes[:dit.GRAPHS]:
@@ -300,12 +211,12 @@ def test_at_most_graphs_kept_the_least_recently_used_dropped(card):
         m(*_inputs(1, latents=sizes[-1]))         # one key too many: the second goes
     kept = [key[0][0][1] for key in m._graphs]
     assert kept == sizes[2:dit.GRAPHS] + [sizes[0], sizes[-1]]
-    assert len(card.captures) == dit.GRAPHS + 1
+    assert card.piece_captures == dit.GRAPHS + 1
     assert {c[2] for c in card.captures} == {(0, 1)}
 
 
 def test_threads_sharing_the_module_get_their_own_results(card):
-    m = _model(card)
+    m = _model()
     threads_n, calls = 2 * os.cpu_count(), 3
     results, errors = {}, []
 
@@ -335,11 +246,11 @@ def test_threads_sharing_the_module_get_their_own_results(card):
     with torch.no_grad():
         for out, args in results.values():
             assert torch.equal(out, m._forward(*args))
-    assert len(card.captures) == 1 and card.replays == threads_n * calls
+    assert card.piece_captures == 1 and card.replayed == threads_n * calls
 
 
 def test_the_request_counts_its_replays(card):
-    m = _model(card)
+    m = _model()
 
     @timer.request("Image to Mesh")
     def request(calls):
@@ -348,13 +259,13 @@ def test_the_request_counts_its_replays(card):
                 m(*args)
 
     request([_inputs(i) for i in range(5)])
-    assert timer.last_request().totals[REPLAYS] == card.replays == 5
+    assert timer.last_request().totals[REPLAYS] == card.replayed == 5
     assert timer.LAST_TIMINGS[REPLAYS] == 5
     # eager calls count nothing, and the key leaves the flat view
     request([_inputs(i, on_card=False) for i in range(2)])
     assert REPLAYS not in timer.last_request().totals
     assert REPLAYS not in timer.LAST_TIMINGS
-    assert card.replays == 5
+    assert card.replayed == 5
 
 
 @pytest.fixture
@@ -377,7 +288,7 @@ def counted_op(monkeypatch):
 
 @pytest.mark.parametrize("calls", [1, 3])
 def test_the_launch_counters_count_a_replay_as_an_eager_call(card, counted_op, calls):
-    m = _model(card)
+    m = _model()
     with torch.no_grad():
         m._forward(*_inputs(0))
         per_forward = counted_op.launches
@@ -387,5 +298,5 @@ def test_the_launch_counters_count_a_replay_as_an_eager_call(card, counted_op, c
             m(*_inputs(i))
             # the first call's warm-up and capture count nothing; its replay does
             assert counted_op.launches == (i + 1) * per_forward
-    assert card.replays == calls and len(card.captures) == 1
+    assert card.replayed == calls and card.piece_captures == 1
     assert _entry(m).launches == ((counted_op, per_forward),)

@@ -22,7 +22,7 @@ from hunyuan3d2_tpu_torch.models import paint_unet, sd_vae
 from hunyuan3d2_tpu_torch.pipelines import hunyuanpaint, multiview, paint_schedulers, texgen
 from hunyuan3d2_tpu_torch.pipelines.shapegen import Hunyuan3DDiTFlowMatchingPipeline
 from hunyuan3d2_tpu_torch.utils import cuda_build, host_worker
-from hunyuan3d2_tpu_torch.tools import texgen_overlap_ab
+from hunyuan3d2_tpu_torch.tools import serial_texture
 from hunyuan3d2_tpu_torch import native
 from hunyuan3d2_tpu_torch.volume import decoders, mc_table, surface
 from hunyuan3d2_tpu_torch import config

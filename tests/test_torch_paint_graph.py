@@ -1,30 +1,24 @@
 """The 2.5D UNet's step graphs (models/paint_unet.py ``UNet2p5D.forward``
-inside ``step_graphs``) on the CPU: ``torch.cuda``'s graph, stream, pool
-and capture-state calls are replaced by stand-ins, and the inputs are
-tensors of a subclass that claims to lie on the card. The stand-in graph
-records the operators its capture runs (a dispatch mode) and its replay
-runs them again on the tensors they read, writing into the tensors they
-wrote, as the captured kernels would; an allocation launches nothing and is
-not replayed. The module's ``attention`` and ``masked_attention`` are
-replaced by plain attention that counts its calls, since the flash kernels
-run only on the card.
+inside ``step_graphs``) on the CPU, under the stand-in for ``torch.cuda``'s
+graph calls of tests/torch_graph_standin.py. The module's ``attention`` and
+``masked_attention`` are replaced by plain attention that counts its calls,
+since the flash kernels run only on the card.
 
 Held here, at a size whose top level passes the flash gate (64-wide heads,
 576 tokens a view, 1152 multiview tokens) and whose second does not: one
 capture a scope, then replays (the capturing call's pass too), each pass
-equal to the eager body bit for bit;
-a new capture when a request-constant input's address or shape changes,
-and none when only the sample or the timestep does; each gated call
-reaching the module's attention once a pass, and never while a graph
-captures; the
-sub-gate calls inside the pieces; the eager body on the CPU, under grad,
-during a capture, on a mesh, with an input off the card and outside the
-scope; a move of the module's tensors and the scope's exit dropping the
-pieces; one memory pool a module across scopes, held by its anchor; the request's replay and
-capture counters; the ops' launch counters counting a replayed pass as an
-eager one and nothing for the capture, and a capture that would hold a
-counted launch refused; and both denoise loops opening the scope, the turbo
-loop's latents equal to its eager run's."""
+equal to the eager body bit for bit; a new capture when a request-constant
+input's address or shape changes, and none when only the sample or the
+timestep does; each gated call reaching the module's attention once a pass,
+and never while a graph captures; the sub-gate calls inside the pieces; the
+eager body on the CPU, under grad, during a capture, on a mesh, with an
+input off the card and outside the scope; a move of the module's tensors
+and the scope's exit dropping the pieces; one memory pool a module across
+scopes, held by its anchor; the request's replay and capture counters; the
+ops' launch counters counting a replayed pass as an eager one and nothing
+for the capture, a counted launch inside a piece once at every replay; and
+both denoise loops opening the scope, the turbo loop's latents equal to its
+eager run's."""
 
 import contextlib
 import gc
@@ -36,13 +30,12 @@ import weakref
 
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 from hunyuan3d2_tpu_torch.models import paint_unet
 from hunyuan3d2_tpu_torch.ops.attention import sdpa, use_flash
 from hunyuan3d2_tpu_torch.ops.nn import build
 from hunyuan3d2_tpu_torch.utils import cuda_graphs, timer
+from tests import torch_graph_standin as standin
 
 REPLAYS, CAPTURES = paint_unet.GRAPH_REPLAYS, paint_unet.GRAPH_CAPTURES
 CFG = paint_unet.PaintUNetConfig(block_out_channels=(64, 128), layers_per_block=1,
@@ -54,107 +47,6 @@ SIZE, VIEWS = 24, 2
 # the mid block's (144 tokens a view) do not
 GATED = 12
 GATED_MASKED = 3
-
-
-class OnCard(torch.Tensor):
-    """A CPU tensor that claims to lie on the card (results of torch
-    operations on it are OnCard too)."""
-
-    @property
-    def is_cuda(self):
-        return True
-
-
-class _Record(TorchDispatchMode):
-    def __init__(self, ops):
-        super().__init__()
-        self.ops = ops
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        if not func.name().startswith(("aten::empty", "aten::new_empty")):
-            self.ops.append((func, args, kwargs, out))
-        return out
-
-
-class Card:
-    """Stand-ins for ``torch.cuda``'s graph calls, with what they saw."""
-
-    def __init__(self):
-        self.graphs = []          # every graph made, in order
-        self.captures = []        # (stream, capture_error_mode, pool) of each capture
-        self.pools = []           # every graph pool handle made
-        self.capturing = None     # the thread that captures
-        self.stream = self.Stream()
-        self.current = self.stream
-        card = self
-
-        class Graph:
-            def __init__(self):
-                self.ops, self.replays = [], 0
-                card.graphs.append(weakref.ref(self))
-
-            def capture_begin(self, pool=None, capture_error_mode="global"):
-                # one capture at a time on the one capture stream
-                assert card.capturing is None
-                card.captures.append((card.current, capture_error_mode, pool))
-                card.capturing = threading.get_ident()
-                self._mode = _Record(self.ops)
-                self._mode.__enter__()
-
-            def capture_end(self):
-                assert card.capturing == threading.get_ident()
-                self._mode.__exit__(None, None, None)
-                card.capturing = None
-
-            def replay(self):
-                assert not card.here_capturing()
-                self.replays += 1
-                card.replayed += 1
-                for func, args, kwargs, out in self.ops:
-                    new = func(*args, **kwargs)
-                    for o, n in zip(tree_leaves(out), tree_leaves(new)):
-                        # a view or an in-place op wrote where it did at capture
-                        if (isinstance(o, torch.Tensor) and o.untyped_storage().data_ptr()
-                                != n.untyped_storage().data_ptr()):
-                            o.copy_(n)
-
-        self.Graph = Graph
-        self.replayed = 0
-
-    def graph_pool_handle(self):
-        self.pools.append((0, len(self.pools) + 1))
-        return self.pools[-1]
-
-    @contextlib.contextmanager
-    def use_stream(self, stream):
-        saved, self.current = self.current, stream
-        try:
-            yield
-        finally:
-            self.current = saved
-
-    class Stream:
-        def __init__(self, device=None):
-            self.device = device
-
-        def wait_stream(self, other):
-            pass
-
-    def here_capturing(self):
-        """Whether this thread captures (what is_current_stream_capturing
-        answers on its stream)."""
-        return self.capturing == threading.get_ident()
-
-    @property
-    def live_graphs(self):
-        return [g for g in (r() for r in self.graphs) if g is not None]
-
-    @property
-    def piece_captures(self):
-        """The captures less each pool's first, its anchor's."""
-        return len(self.captures) - len(self.pools)
 
 
 class Calls:
@@ -187,15 +79,7 @@ def _one_thread():
 
 @pytest.fixture
 def card(monkeypatch):
-    c = Card()
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", c.Graph)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", c.graph_pool_handle)
-    monkeypatch.setattr(torch.cuda, "Stream", Card.Stream)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: c.current)
-    monkeypatch.setattr(torch.cuda, "stream", c.use_stream)
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", c.here_capturing)
-    monkeypatch.setattr(cuda_graphs, "_CAPTURE_STREAMS", {})
-    return c
+    return standin.install(monkeypatch)
 
 
 @pytest.fixture
@@ -211,7 +95,7 @@ def _model():
 
 
 def _card(x):
-    return x.as_subclass(OnCard)
+    return x.as_subclass(standin.OnCard)
 
 
 def _masks(seed, size=SIZE):
@@ -372,7 +256,7 @@ def test_the_gated_calls_get_the_pieces_static_tensors_and_the_requests_mask(car
         _step(m, _sample(0), 999, req)
         seen.clear()
         _step(m, _sample(1), 759, req)
-        statics = [c[0] for _, c in _pieces(m) if c is not None and c[3] is not None]
+        statics = [c[1][0] for _, c in _pieces(m) if c is not None and c[1][3] is not None]
     top = VIEWS * SIZE * SIZE
     assert [mask is req["mva_masks"][top] for _, mask in seen] == [True] * GATED_MASKED
     assert [q is s for (q, _), s in zip(seen, statics)] == [True] * GATED_MASKED
@@ -406,12 +290,12 @@ def test_the_scopes_exit_drops_the_pieces_and_the_pool_stays(card, calls):
     with m.step_graphs():
         _step(m, _sample(0), 999, _request(m, 7))
         graphs = [weakref.ref(g) for g, _ in _pieces(m)]
-        outs = [weakref.ref(c[4]) for _, c in _pieces(m) if c is not None]
+        outs = [weakref.ref(c[2]) for _, c in _pieces(m) if c is not None]
     assert m._steps is None
     gc.collect()
     assert all(r() is None for r in graphs + outs)
     # the pool's anchor alone stays
-    assert card.live_graphs == [m._pool[1]]
+    assert card.live_graphs == [m._graph_pool.pool[1]]
     # the next scope captures into the same pool
     with m.step_graphs():
         _step(m, _sample(1), 999, _request(m, 8))
@@ -430,7 +314,7 @@ def test_moving_the_tensors_drops_the_pieces(card, calls, move):
             m.cpu()
         else:
             m.to_empty(device="cpu")
-        assert m._steps.graph is None and m._pool is None
+        assert m._steps.graph is None and m._graph_pool.pool is None
         if move != "to_empty":       # to_empty leaves the weights uninitialised
             req = _request(m, 10)
             x = _sample(1)
@@ -543,7 +427,12 @@ def test_the_launch_counters_count_a_replay_as_an_eager_pass(card, counted):
 
 
 def test_a_capture_that_would_hold_a_counted_launch_is_refused(card, counted):
+    """The capture is not refused: a counted launch inside a piece (here the
+    calls under the gate, which the pieces hold) counts once at every
+    replay, as in an eager pass; the gated calls count their own as they
+    run."""
     m = _model()
+    req = _request(m, 15)
     inner = paint_unet.attention
 
     def attention(q, k, v, scale=None):
@@ -553,9 +442,20 @@ def test_a_capture_that_would_hold_a_counted_launch_is_refused(card, counted):
     attention.launches = 0
     sys.modules["hunyuan3d2_tpu_torch.ops._counted_stand_in"].attention = attention
     paint_unet.attention = attention
-    with m.step_graphs(), pytest.raises(RuntimeError, match="captured launches of"):
-        _step(m, _sample(0), 999, _request(m, 15))
-    assert card.capturing is None
+    with torch.no_grad():
+        m._forward(_sample(0), torch.tensor([999.0]), req["normal_latents"],
+                   req["position_latents"], req["camera_info_gen"], req["cache"], 1.0, 1.0,
+                   req["mva_masks"])
+    per_pass = attention.launches
+    assert per_pass > GATED - GATED_MASKED       # the gated calls and those under the gate
+    attention.launches = 0
+    with m.step_graphs():
+        for i in range(3):
+            _step(m, _sample(i), 999 - i, req)
+            assert attention.launches == (i + 1) * per_pass
+        held = m._steps.graph.launches
+    assert held == ((attention, per_pass - (GATED - GATED_MASKED)),)
+    assert card.capturing is None and card.piece_captures == GATED + 1
 
 
 def test_the_cfg_batch_replays_equal_to_the_eager_body(card, calls):

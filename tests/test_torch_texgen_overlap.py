@@ -25,7 +25,7 @@ from hunyuan3d2_tpu_torch.geometry import uv as tuv
 from hunyuan3d2_tpu_torch.geometry.uv import mesh_uv_wrap, mesh_uv_wrap_arrays
 from hunyuan3d2_tpu_torch.pipelines import multiview as tmv
 from hunyuan3d2_tpu_torch.pipelines import texgen
-from hunyuan3d2_tpu_torch.tools.texgen_overlap_ab import serial_texture
+from hunyuan3d2_tpu_torch.tools.serial_texture import serial_texture
 from hunyuan3d2_tpu_torch.utils import host_worker
 from hunyuan3d2_tpu_torch.utils.timer import LAST_TIMINGS
 from tests import torch_overlap_cases as cases
